@@ -1,0 +1,475 @@
+"""Chip smoke test of racon_tpu_torch on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases, in order; any mismatch or exception exits non-zero:
+
+  1. build: the CUDA kernels (nvcc, sm_90a) and the C++ host library,
+     from the sources in this checkout;
+  2. K1 (csrc/poa_window_sweep.cu) against its plain PyTorch version on
+     real session jobs of the full-size workload, at every bucket that
+     occurs, plus a padding row (nnodes == 0): ranks must be identical;
+  3. K2 (csrc/align_wavefront.cu) against its plain version on the
+     workload's real overlap pairs at their buckets: ops, count,
+     distance and touched flag must be identical;
+  4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
+     synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
+     byte for byte;
+  5. the main path at full size: 200 kb genome, 30x, 8 kb reads (12%
+     read error, 10% draft error, w 500, seed 42) polished with
+     `-c 1 --cudaaligner-batches 1`; both kernels must launch, and the
+     polished contig must be closer to the simulated truth than the draft.
+
+Prints per-phase numbers, then the kernel line, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
+without a result when no CUDA device is present or when run outside the
+repository. Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
+#: non-tensor-core 32-bit rate, the table's nearest entry for the
+#: kernels' int32 DP arithmetic
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+
+MATCH, MISMATCH, GAP = 5, -4, -8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        import racon_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: racon_tpu_torch not found next to this script "
+              f"({exc})", file=sys.stderr)
+        return 2
+    if "jax" in sys.modules or "racon_tpu" in sys.modules:
+        print("chip_smoke: JAX was loaded", file=sys.stderr)
+        return 1
+
+    from racon_tpu_torch import _build, native
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.synth import simulate, write_dataset
+
+    dev = torch.device("cuda", 0)
+    card = card_info()
+    report: dict = {"card": card}
+    log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"on {torch.cuda.get_device_name(0)}")
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.perf_counter()
+    _build.kernels()
+    k_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    native.get_lib()
+    n_s = time.perf_counter() - t1
+    log(f"[chip_smoke] build: kernels {k_s:.2f} s "
+        f"({'cached' if _build.build_info.get('cached') else 'nvcc'}), "
+        f"host library {n_s:.2f} s; card {card}")
+    for line in _build.build_info.get("ptxas", "").splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"[chip_smoke]   ptxas: {line.strip()}")
+    report["build_s"] = {"kernels": k_s, "host": n_s}
+
+    workdir = tempfile.mkdtemp(prefix="racon_chip_smoke_")
+    rng = random.Random(42)
+    t0 = time.perf_counter()
+    truth, draft, reads, paf = simulate(rng, 200_000, 30, 8000, 0.12, 0.10)
+    big_dir = os.path.join(workdir, "w200")
+    os.makedirs(big_dir)
+    big = write_dataset(big_dir, draft, reads, paf)
+    log(f"[chip_smoke] simulated 200 kb x 30x: {len(reads)} reads in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kernels = []
+    kernels.append(check_window_sweep(dev, big, report))
+    kernels.append(check_wavefront(dev, draft, reads, paf, report))
+    check_golden(workdir, report)
+    k1_launches, k2_launches = main_path(dev, big, truth, draft, report)
+    kernels[0]["launches"] = k1_launches
+    kernels[1]["launches"] = k2_launches
+
+    out_dir = os.path.join(HERE, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    report["kernels"] = kernels
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
+        json.dump(report, fh, indent=1, sort_keys=True)
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def window_sweep_bound(args) -> tuple[float, str]:
+    """Least time for one window_sweep batch: its inputs read once and
+    its ranks written once, or the DP this data needs. A real node row
+    needs only its in-band columns (all lens + 1 when the band is 0);
+    each such cell takes, per in-edge, 2 adds (diagonal, vertical),
+    2 maxes and the 2 equality tests of the backpointer, and per cell the
+    substitution compare and the running max (subtract, max, add):
+    6 x in-degree + 4 operations."""
+    import torch
+
+    codes, preds, centers, sinks, seq, lens, band, nnodes = args
+    nbytes = sum(t.numel() * t.element_size() for t in args) + seq.numel() * 4
+    deg = (preds >= 0).sum(dim=2)                                 # [B, N]
+    N = deg.shape[1]
+    rows = torch.arange(N, device=deg.device)[None, :] < nnodes[:, None]
+    c = centers.long()
+    ln = lens.long()[:, None]
+    half = (band.long() // 2)[:, None]
+    cols = (torch.minimum(ln, c + half) - torch.clamp(c - half, min=1) + 1)
+    cols = torch.where(band[:, None] > 0, cols.clamp(min=0), ln + 1)
+    ops = float(((6 * deg + 4) * cols * rows).sum())
+    return bound(nbytes, ops)
+
+
+def wavefront_bound(q_lens, t_lens, offsets, band, count) -> tuple[float, str]:
+    """Least time for one wavefront_align batch: each pair's bases,
+    lengths and band offsets up to wavefront m + n read once, its ops and
+    meta written once; or the DP cells inside both the band and the
+    matrix, at 8 operations each (the substitution compare, 3 adds,
+    2 mins and the 2 compares that pick the backpointer)."""
+    import torch
+
+    m = q_lens.long()[:, None]
+    n = t_lens.long()[:, None]
+    mn = (m + n)[:, 0]
+    d = torch.arange(offsets.shape[1], device=offsets.device)[None, :]
+    off = offsets.long()
+    lo = torch.maximum(off, (d - n).clamp(min=0))
+    hi = torch.minimum(off + band - 1, torch.minimum(d, m))
+    cells = ((hi - lo + 1).clamp(min=0) * (d <= m + n)).sum()
+    nbytes = float(mn.sum() + 4 * (mn + 1).sum() + 4 * count.long().sum()
+                   + 20 * len(mn))
+    return bound(nbytes, 8.0 * float(cells))
+
+
+def replay_ms(fn, batches) -> float:
+    """CUDA-event time of one launch of `fn` on every batch, after one
+    warm-up pass over them all."""
+    return cuda_ms(lambda: [fn(b) for b in batches], reps=1)
+
+
+def check_window_sweep(dev, paths, report) -> dict:
+    """Phase 2: capture every padded batch a consensus pass over the
+    whole workload launches (the main path's own batches: same windows,
+    same engine), hold K1 to its plain version on the fullest batch of
+    each bucket, and time K1 over all of them."""
+    import torch
+
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.ops.poa import _pack
+    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA, graph_aligner
+
+    t0 = time.perf_counter()
+    pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
+                          MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
+                          device="cuda")
+    pol.initialize()
+    windows = [w for w in pol.windows if len(w.sequences) >= 3]
+
+    class Capture(DeviceGraphPOA):
+        batches: list = []
+
+        def run_bucket(self, nb, lb, *args):
+            self.batches.append(((nb, lb), [a.clone() for a in args]))
+            return super().run_bucket(nb, lb, *args)
+
+    eng = Capture(MATCH, MISMATCH, GAP, device=dev,
+                  num_threads=os.cpu_count())
+    eng.consensus([_pack(w) for w in windows])
+    torch.cuda.synchronize()
+    batches = eng.batches
+    fullest: dict = {}
+    for key, args in batches:
+        n = int((args[-1] > 0).sum())
+        if n > fullest.get(key, (0,))[0]:
+            fullest[key] = (n, args)
+    log(f"[chip_smoke] K1 job capture: {len(batches)} batches in "
+        f"{len(fullest)} buckets from {len(windows)} windows in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def sweep(args):
+        return poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP)
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
+    buckets = []
+    by = "bytes"
+    cases = sorted(fullest.items())
+    # the padding-row case: the first job of the first batch replaced by
+    # an empty row (nnodes == 0), the shape the batch tail is filled with
+    (nb, lb), (n, args) = cases[0]
+    pad = [a.clone() for a in args]
+    pad[0][0] = 5
+    pad[1][0] = -1
+    for i in (2, 3, 5, 6, 7):
+        pad[i][0] = 0
+    pad[4][0] = 5
+    cases.append(((nb, lb, "pad"), (n - 1, pad)))
+    for key, (n, args) in cases:
+        B, N = args[0].shape
+        L = args[4].shape[1]
+        P = args[1].shape[2]
+        got = sweep(args)
+        plain_fn = graph_aligner(N, L, P, MATCH, MISMATCH, GAP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_fn(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got.long() - want.long()).abs().max())
+        if err or not torch.equal(got, want):
+            raise SystemExit(f"K1 window_sweep disagrees with its plain "
+                             f"version at bucket {key}: max |diff| {err}")
+        total["err"] = max(total["err"], err)
+        if key[-1] == "pad":
+            log(f"[chip_smoke] K1 padding row (nnodes 0) at bucket "
+                f"{key[:2]}: identical")
+            continue
+        ms = cuda_ms(lambda: sweep(args), reps=3)
+        b_ms, by = window_sweep_bound(args)
+        row = {"bucket": list(key), "jobs": n, "rows": B, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        buckets.append(row)
+        log(f"[chip_smoke] K1 bucket {key}: {n} jobs / {B} rows identical; "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms ({by})")
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+    all_ms = replay_ms(sweep, [a for _, a in batches])
+    all_bound = sum(window_sweep_bound(a)[0] for _, a in batches)
+    log(f"[chip_smoke] K1 over all {len(batches)} captured batches: "
+        f"kernel {all_ms:.2f} ms, bound {all_bound:.4f} ms")
+    report["window_sweep"] = buckets
+    report["window_sweep_all"] = {"batches": len(batches), "ms": all_ms,
+                                  "bound_ms": all_bound}
+    batches.clear()
+    return {"name": "window_sweep", "route": "cuda",
+            "source": "racon_tpu_torch/csrc/poa_window_sweep.cu",
+            "replaces": "racon_tpu/ops/poa_pallas.py:91",
+            "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": by, "library_ms": None}
+
+
+def check_wavefront(dev, draft, reads, paf, report) -> dict:
+    """Phase 3: K2 against its plain version on the workload's overlap
+    pairs, batched as the main path batches them: the first batch of
+    each (edge, band) compared and timed, every batch timed."""
+    import torch
+
+    from racon_tpu_torch.ops import align_kernels
+    from racon_tpu_torch.ops.align import BatchAligner, banded_nw, traceback
+
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    pairs = []
+    for (name, read), rec in zip(reads, paf):
+        f = rec.split("\t")
+        q = read.translate(comp)[::-1] if f[4] == "-" else read
+        pairs.append((q, draft[int(f[7]):int(f[8])]))
+    al = BatchAligner(device=dev)
+    chunks = [(edge, band, al.operands(pairs, edge, band, idx))
+              for edge, band, idx in al.chunks(pairs)]
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
+    rows = []
+    by = "bytes"
+    seen = set()
+    for edge, band, (q, t, ql, tl, offs) in chunks:
+        if (edge, band) in seen:
+            continue
+        seen.add((edge, band))
+        ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bp, dist = banded_nw(q, t, ql, tl, offs, band)
+        w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del bp
+        cnt = meta[:, 0]
+        mask = torch.arange(ops.shape[1], device=dev)[None, :] < cnt[:, None]
+        err = int((meta - w_meta).abs().max())
+        if err or not torch.equal(ops[mask], w_ops[mask]):
+            raise SystemExit(f"K2 wavefront_align disagrees with its plain "
+                             f"version at bucket {edge}: meta max |diff| "
+                             f"{err}")
+        total["err"] = max(total["err"], err)
+        ms = cuda_ms(lambda: align_kernels.wavefront_align(
+            q, t, ql, tl, offs, band), reps=2)
+        b_ms, by = wavefront_bound(ql, tl, offs, band, cnt)
+        n_touched = int(meta[:, 2].sum())
+        log(f"[chip_smoke] K2 bucket {edge} band {band}: {len(ql)} pairs "
+            f"identical ({n_touched} band-touched); kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({by})")
+        rows.append({"edge": edge, "band": band, "pairs": len(ql),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "touched": n_touched})
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bound_ms"] += b_ms
+
+    def align(c):
+        edge, band, (q, t, ql, tl, offs) = c
+        return align_kernels.wavefront_align(q, t, ql, tl, offs, band)
+
+    all_ms = replay_ms(align, chunks)
+    all_bound = 0.0
+    for c in chunks:
+        _, band, (q, t, ql, tl, offs) = c
+        all_bound += wavefront_bound(ql, tl, offs, band, align(c)[1][:, 0])[0]
+    log(f"[chip_smoke] K2 over all {len(chunks)} batches: kernel "
+        f"{all_ms:.2f} ms, bound {all_bound:.4f} ms")
+    report["wavefront_align"] = rows
+    report["wavefront_align_all"] = {"batches": len(chunks), "ms": all_ms,
+                                     "bound_ms": all_bound}
+    return {"name": "wavefront_align", "route": "cuda",
+            "source": "racon_tpu_torch/csrc/align_wavefront.cu",
+            "replaces": "racon_tpu/ops/align_pallas.py:91",
+            "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": by, "library_ms": None}
+
+
+def check_golden(workdir, report) -> None:
+    """Phase 4: the CLI at -c 1 (device POA, host aligner, -b off) must
+    reproduce the committed 50 kb golden byte for byte."""
+    from racon_tpu_torch.synth import simulate, write_dataset
+
+    rng = random.Random(42)
+    _, draft, reads, paf = simulate(rng, 50_000, 20, 8000, 0.12, 0.10)
+    d = os.path.join(workdir, "w50")
+    os.makedirs(d)
+    paths = write_dataset(d, draft, reads, paf)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "racon_tpu_torch", "-c", "1", "-m", "5",
+         "-x", "-4", "-g", "-8", "-t", str(os.cpu_count()), *paths],
+        cwd=HERE, capture_output=True, timeout=600)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
+        raise SystemExit(f"golden run failed (rc {proc.returncode})")
+    with open(os.path.join(HERE, "tests", "data",
+                           "synth_50kb_golden.fasta"), "rb") as fh:
+        golden = fh.read()
+    if proc.stdout != golden:
+        raise SystemExit("golden: 50 kb -c 1 output differs from "
+                         "tests/data/synth_50kb_golden.fasta")
+    s = time.perf_counter() - t0
+    log(f"[chip_smoke] golden: 50 kb x 20x -c 1 byte-identical to the "
+        f"committed golden ({s:.1f} s)")
+    report["golden_s"] = s
+
+
+def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
+    """Phase 5: the full-size polish with both device paths on; the
+    launch counters are zeroed just before and read just after."""
+    import torch
+
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.ops import align_kernels, poa_kernels
+
+    pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
+                          MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
+                          cuda_poa_batches=1, cuda_banded_alignment=False,
+                          cuda_aligner_batches=1, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    t0 = time.perf_counter()
+    pol.initialize()
+    n_windows = len(pol.windows)
+    t1 = time.perf_counter()
+    polished = pol.polish()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1 = poa_kernels.launches
+    k1_by_shape = dict(poa_kernels.launches_by_shape)
+    k2 = align_kernels.launches
+    eng = pol.poa.engine
+    d_draft = edit_distance(draft, truth)
+    d_pol = edit_distance(polished[0].data, truth)
+    main = {
+        "initialize_s": t1 - t0, "align_s": pol.phase_s["align"],
+        "consensus_s": pol.phase_s["consensus"],
+        "stitch_s": pol.phase_s["stitch"], "polish_s": t2 - t1,
+        "windows": n_windows,
+        "windows_per_s": n_windows / pol.phase_s["consensus"],
+        "pairs_per_s": pol.n_aligner_pairs / pol.phase_s["align"],
+        "k1_launches": k1, "k2_launches": k2,
+        "k1_launches_by_bucket": {f"{a}x{b}": n
+                                  for (a, b), n in k1_by_shape.items()},
+        "windows_device": pol.poa.n_device, "windows_host": pol.poa.n_host,
+        "windows_backbone": pol.poa.n_backbone,
+        "layer_jobs": eng.last_stats.get("committed", 0),
+        "pairs": pol.n_aligner_pairs, "pairs_device": pol.n_aligner_device,
+        "pairs_host": pol.n_aligner_host_fallback,
+        "pairs_unbucketable": pol.aligner.n_unbucketed,
+        "pairs_band_rejects": pol.aligner.n_band_rejects,
+        "draft_distance": d_draft, "polished_distance": d_pol,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+    }
+    report["main_path"] = main
+    for k, v in main.items():
+        log(f"[chip_smoke] main path {k}: {v}")
+    if k1 <= 0 or k2 <= 0:
+        raise SystemExit(f"main path did not launch both kernels "
+                         f"(window_sweep {k1}, wavefront_align {k2})")
+    if not d_pol < d_draft:
+        raise SystemExit(f"polished distance {d_pol} not below the "
+                         f"draft's {d_draft}")
+    return k1, k2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

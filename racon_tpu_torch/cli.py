@@ -1,0 +1,261 @@
+"""Command-line interface: `python -m racon_tpu_torch reads overlaps target`.
+
+The reference CLI (src/main.cpp:47-169): the same common options plus the
+upstream racon-gpu device flags (-c/--cudapoa-batches,
+--cudaaligner-batches, --cudaaligner-band-width,
+-b/--cuda-banded-alignment) and --device. Polished FASTA goes to stdout;
+errors print as `[racon_tpu_torch::...] error: ...` on stderr with exit
+status 1.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from . import __version__
+from .errors import RaconError
+
+HELP = """\
+usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target sequences>
+
+    #default output is stdout
+    <sequences>
+        input file in FASTA/FASTQ format (can be compressed with gzip)
+        containing sequences used for correction
+    <overlaps>
+        input file in MHAP/PAF/SAM format (can be compressed with gzip)
+        containing overlaps between sequences and target sequences
+    <target sequences>
+        input file in FASTA/FASTQ format (can be compressed with gzip)
+        containing sequences which will be corrected
+
+    options:
+        -u, --include-unpolished
+            output unpolished target sequences
+        -f, --fragment-correction
+            perform fragment correction instead of contig polishing
+            (not yet ported: raises)
+        -w, --window-length <int>
+            default: 500
+            size of window on which POA is performed
+        -q, --quality-threshold <float>
+            default: 10.0
+            threshold for average base quality of windows used in POA
+        -e, --error-threshold <float>
+            default: 0.3
+            maximum allowed error rate used for filtering overlaps
+        --no-trimming
+            disables consensus trimming at window ends
+        -m, --match <int>
+            default: 3
+            score for matching bases
+        -x, --mismatch <int>
+            default: -5
+            score for mismatching bases
+        -g, --gap <int>
+            default: -4
+            gap penalty (must be negative)
+        -t, --threads <int>
+            default: 1
+            number of threads
+        --version
+            prints the version number
+        -h, --help
+            prints the usage
+        -c, --cudapoa-batches <int>
+            default: 0
+            number of batches for GPU accelerated polishing (0 = host POA)
+        -b, --cuda-banded-alignment
+            use banding approximation for POA on the GPU: banded results
+            are trusted as-is (the clipped-result full-DP retry is
+            skipped), trading exact host-engine parity for speed
+        --cudaaligner-batches <int>
+            default: 0
+            number of batches for GPU accelerated overlap alignment
+        --cudaaligner-band-width <int>
+            default: 0
+            band width for GPU alignment; 0 = auto (10% of the mean
+            pair length)
+        --device <cuda|cpu>
+            default: cuda
+            device of the GPU paths; cuda raises when no card is present,
+            cpu runs the kernels' plain PyTorch versions
+"""
+
+
+def parse_args(argv: list[str]) -> dict | None:
+    """getopt-style parser mirroring src/main.cpp:75-155: intermixed
+    options and positionals, `-c` with an optional argument. Returns the
+    option dict, or None when --help/--version was handled."""
+    opts = {
+        "window_length": 500,
+        "quality_threshold": 10.0,
+        "error_threshold": 0.3,
+        "trim": True,
+        "match": 3,
+        "mismatch": -5,
+        "gap": -4,
+        "fragment_correction": False,
+        "drop_unpolished_sequences": True,
+        "num_threads": 1,
+        "cuda_poa_batches": 0,
+        "cuda_aligner_batches": 0,
+        "cuda_aligner_band_width": 0,
+        "cuda_banded_alignment": False,
+        "device": "cuda",
+        "paths": [],
+    }
+
+    def _device_choice(v: str) -> str:
+        if v not in ("cuda", "cpu"):
+            print("racon_tpu_torch: --device must be 'cuda' or 'cpu'",
+                  file=sys.stderr)
+            sys.exit(1)
+        return v
+
+    value_short = {"w": ("window_length", int),
+                   "q": ("quality_threshold", float),
+                   "e": ("error_threshold", float),
+                   "m": ("match", int),
+                   "x": ("mismatch", int),
+                   "g": ("gap", int),
+                   "t": ("num_threads", int)}
+    value_long = {"window-length": ("window_length", int),
+                  "quality-threshold": ("quality_threshold", float),
+                  "error-threshold": ("error_threshold", float),
+                  "match": ("match", int),
+                  "mismatch": ("mismatch", int),
+                  "gap": ("gap", int),
+                  "threads": ("num_threads", int),
+                  "cudaaligner-batches": ("cuda_aligner_batches", int),
+                  "cudaaligner-band-width": ("cuda_aligner_band_width", int),
+                  "device": ("device", _device_choice)}
+
+    def flag(name: str) -> bool:
+        if name in ("u", "include-unpolished"):
+            opts["drop_unpolished_sequences"] = False
+        elif name in ("f", "fragment-correction"):
+            opts["fragment_correction"] = True
+        elif name == "no-trimming":
+            opts["trim"] = False
+        elif name in ("b", "cuda-banded-alignment"):
+            opts["cuda_banded_alignment"] = True
+        else:
+            return False
+        return True
+
+    i = 0
+    n = len(argv)
+
+    def take_value(display: str) -> str:
+        nonlocal i
+        i += 1
+        if i >= n:
+            print(f"racon_tpu_torch: option '{display}' requires an argument",
+                  file=sys.stderr)
+            sys.exit(1)
+        return argv[i]
+
+    def optional_count(inline: str | None) -> int:
+        # optional argument: attached, or the next argv when it is a
+        # number (reference src/main.cpp:113-125)
+        nonlocal i
+        if inline:
+            return int(inline)
+        if i + 1 < n and argv[i + 1].isdigit():
+            i += 1
+            return int(argv[i])
+        return 1
+
+    while i < n:
+        arg = argv[i]
+        if arg == "--":
+            opts["paths"].extend(argv[i + 1:])
+            break
+        if arg.startswith("--"):
+            name, eq, inline = arg[2:].partition("=")
+            if name == "help":
+                print(HELP, end="")
+                return None
+            if name == "version":
+                print(f"v{__version__}")
+                return None
+            if flag(name):
+                pass
+            elif name in value_long:
+                key, conv = value_long[name]
+                opts[key] = conv(inline if eq else take_value(arg))
+            elif name == "cudapoa-batches":
+                opts["cuda_poa_batches"] = optional_count(inline if eq else None)
+            else:
+                print(f"racon_tpu_torch: unrecognized option '{arg}'",
+                      file=sys.stderr)
+                sys.exit(1)
+        elif arg.startswith("-") and arg != "-":
+            j = 1
+            while j < len(arg):
+                c = arg[j]
+                if c == "h":
+                    print(HELP, end="")
+                    return None
+                if c == "v":
+                    print(f"v{__version__}")
+                    return None
+                if flag(c):
+                    j += 1
+                    continue
+                if c in value_short:
+                    key, conv = value_short[c]
+                    rest = arg[j + 1:]
+                    opts[key] = conv(rest) if rest else conv(take_value("-" + c))
+                    break
+                if c == "c":
+                    opts["cuda_poa_batches"] = optional_count(arg[j + 1:])
+                    break
+                print(f"racon_tpu_torch: invalid option -- '{c}'",
+                      file=sys.stderr)
+                sys.exit(1)
+        else:
+            opts["paths"].append(arg)
+        i += 1
+    return opts
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    opts = parse_args(argv)
+    if opts is None:
+        return 0
+    if len(opts["paths"]) < 3:
+        print("[racon_tpu_torch::] error: missing input file(s)!",
+              file=sys.stderr)
+        print(HELP, end="")
+        return 1
+
+    from .core.polisher import PolisherType, create_polisher
+
+    try:
+        polisher = create_polisher(
+            opts["paths"][0], opts["paths"][1], opts["paths"][2],
+            PolisherType.kF if opts["fragment_correction"]
+            else PolisherType.kC,
+            opts["window_length"], opts["quality_threshold"],
+            opts["error_threshold"], opts["trim"], opts["match"],
+            opts["mismatch"], opts["gap"], opts["num_threads"],
+            opts["cuda_poa_batches"], opts["cuda_banded_alignment"],
+            opts["cuda_aligner_batches"], opts["cuda_aligner_band_width"],
+            opts["device"])
+        polisher.initialize()
+        polished = polisher.polish(opts["drop_unpolished_sequences"])
+    except RaconError as exc:
+        print(str(exc), file=sys.stderr)
+        return 1
+    out = sys.stdout.buffer
+    for seq in polished:
+        out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")
+    out.flush()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

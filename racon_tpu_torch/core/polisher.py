@@ -1,0 +1,451 @@
+"""Polisher: whole-pipeline orchestration for contig polishing (kC).
+
+parse -> filter -> align overlaps -> window -> POA consensus -> stitch.
+
+Mirrors the reference pipeline (src/polisher.cpp:192-548) and the JAX
+package's Polisher, with both hot spots on the GPU:
+
+  - overlap CIGARs: ops/align.BatchAligner (the cudaaligner role) when
+    `cuda_aligner_batches > 0`, else the host Myers aligner; pairs the
+    device rejects are aligned on the host and counted;
+  - window consensus: ops/poa.BatchPOA (the cudapoa role) when
+    `cuda_poa_batches > 0`, else the host POA engine.
+
+Fragment correction (kF) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+import time
+
+import numpy as np
+
+from ..device import resolve
+from ..errors import RaconError
+from ..io.parsers import create_sequence_parser, create_overlap_parser
+from ..utils.cigar import cigar_from_ops
+from ..utils.logger import Logger, flush_dedup, log_info, reset_dedup
+from .sequence import Sequence, create_sequence
+from .window import Window, WindowType, create_window
+
+KCHUNK_SIZE = 1024 * 1024 * 1024  # reference polisher.cpp:26
+
+
+class PolisherType(enum.Enum):
+    kC = 0  # contig polishing
+    kF = 1  # fragment (read) error correction
+
+
+def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
+                    type_: PolisherType, window_length: int,
+                    quality_threshold: float, error_threshold: float,
+                    trim: bool = True, match: int = 3, mismatch: int = -5,
+                    gap: int = -4, num_threads: int = 1,
+                    cuda_poa_batches: int = 0,
+                    cuda_banded_alignment: bool = True,
+                    cuda_aligner_batches: int = 0,
+                    cuda_aligner_band_width: int = 0,
+                    device: str = "cuda") -> "Polisher":
+    """Factory mirroring reference createPolisher (polisher.cpp:55-160).
+    The defaults match the JAX package's create_polisher, banded device
+    POA included; the CLI defaults -b off."""
+    if not isinstance(type_, PolisherType):
+        raise RaconError("createPolisher", "invalid polisher type!")
+    if type_ == PolisherType.kF:
+        raise RaconError("createPolisher",
+                         "fragment correction (-f) is not yet ported!")
+    if window_length == 0:
+        raise RaconError("createPolisher", "invalid window length!")
+    dev = resolve(device)
+    if dev.type == "cuda":
+        from ..device import card_info
+
+        log_info(f"[racon_tpu_torch::createPolisher] device {dev}: "
+                 f"{card_info()}")
+
+    sparser = create_sequence_parser(sequences_path, "createPolisher")
+    oparser = create_overlap_parser(overlaps_path, "createPolisher")
+    tparser = create_sequence_parser(target_path, "createPolisher")
+
+    return Polisher(sparser, oparser, tparser, type_, window_length,
+                    quality_threshold, error_threshold, trim, match, mismatch,
+                    gap, num_threads, cuda_poa_batches, cuda_banded_alignment,
+                    cuda_aligner_batches, cuda_aligner_band_width, dev)
+
+
+class Polisher:
+    def __init__(self, sparser, oparser, tparser, type_: PolisherType,
+                 window_length: int, quality_threshold: float,
+                 error_threshold: float, trim: bool, match: int, mismatch: int,
+                 gap: int, num_threads: int = 1, cuda_poa_batches: int = 0,
+                 cuda_banded_alignment: bool = True,
+                 cuda_aligner_batches: int = 0,
+                 cuda_aligner_band_width: int = 0, device="cuda"):
+        self.sparser = sparser
+        self.oparser = oparser
+        self.tparser = tparser
+        self.type = type_
+        self.window_length = window_length
+        self.quality_threshold = quality_threshold
+        self.error_threshold = error_threshold
+        self.trim = trim
+        self.match = match
+        self.mismatch = mismatch
+        self.gap = gap
+        self.num_threads = num_threads
+        self.cuda_poa_batches = cuda_poa_batches
+        self.cuda_banded_alignment = cuda_banded_alignment
+        self.cuda_aligner_batches = cuda_aligner_batches
+        self.cuda_aligner_band_width = cuda_aligner_band_width
+        self.device = resolve(device)
+
+        self.sequences: list[Sequence] = []
+        self.windows: list[Window] = []
+        self.targets_coverages: list[int] = []
+        self.dummy_quality = b"!" * window_length
+        self.logger = Logger()
+        #: alignment-phase accounting (reference cudapolisher.cpp:204-206)
+        self.n_aligner_pairs = 0
+        self.n_aligner_device = 0
+        self.n_aligner_host_fallback = 0
+        #: the engines of the last run, for their counters
+        self.aligner = None
+        self.poa = None
+        #: wall seconds per phase of the last run
+        self.phase_s: dict[str, float] = {}
+
+    # ------------------------------------------------------------------ init
+    def initialize(self) -> None:
+        if self.windows:
+            log_info("[racon_tpu_torch::Polisher.initialize] warning: "
+                     "object already initialized!")
+            return
+        reset_dedup()
+        t_init = time.perf_counter()
+        log = self.logger
+        log.log()
+
+        # -- targets (loaded whole; reference polisher.cpp:202-217)
+        self.tparser.reset()
+        self.tparser.parse(self.sequences, -1)
+        targets_size = len(self.sequences)
+        if targets_size == 0:
+            raise RaconError("Polisher.initialize", "empty target sequences set!")
+
+        name_to_id: dict[str, int] = {}
+        id_to_id: dict[int, int] = {}
+        for i in range(targets_size):
+            name_to_id[self.sequences[i].name + "t"] = i
+            id_to_id[i << 1 | 1] = i
+
+        has_name = [True] * targets_size
+        has_data = [True] * targets_size
+        has_reverse_data = [False] * targets_size
+
+        log.log("[racon_tpu_torch::Polisher.initialize] loaded target sequences")
+        log.log()
+
+        # -- reads streamed in chunks; duplicates of targets share storage
+        #    (reference polisher.cpp:228-264)
+        sequences_size = 0
+        total_sequences_length = 0
+        self.sparser.reset()
+        more = True
+        while more:
+            start = len(self.sequences)
+            more = self.sparser.parse(self.sequences, KCHUNK_SIZE)
+            kept: list[Sequence] = []
+            for seq in self.sequences[start:]:
+                total_sequences_length += len(seq.data)
+                tgt = name_to_id.get(seq.name + "t")
+                if tgt is not None:
+                    dup = self.sequences[tgt]
+                    if len(seq.data) != len(dup.data) or \
+                       len(seq.quality) != len(dup.quality):
+                        raise RaconError(
+                            "Polisher.initialize",
+                            f"duplicate sequence {seq.name} with unequal data")
+                    name_to_id[seq.name + "q"] = tgt
+                    id_to_id[sequences_size << 1 | 0] = tgt
+                else:
+                    gid = start + len(kept)
+                    name_to_id[seq.name + "q"] = gid
+                    id_to_id[sequences_size << 1 | 0] = gid
+                    kept.append(seq)
+                sequences_size += 1
+            del self.sequences[start:]
+            self.sequences.extend(kept)
+
+        if sequences_size == 0:
+            raise RaconError("Polisher.initialize", "empty sequences set!")
+
+        n_seqs = len(self.sequences)
+        has_name += [False] * (n_seqs - targets_size)
+        has_data += [False] * (n_seqs - targets_size)
+        has_reverse_data += [False] * (n_seqs - targets_size)
+
+        window_type = (WindowType.kNGS
+                       if total_sequences_length / sequences_size <= 1000
+                       else WindowType.kTGS)
+
+        log.log("[racon_tpu_torch::Polisher.initialize] loaded sequences")
+        log.log()
+
+        # -- overlaps streamed; per-query filtering (polisher.cpp:284-355)
+        overlaps = self._load_overlaps(name_to_id, id_to_id,
+                                       has_data, has_reverse_data)
+        if not overlaps:
+            raise RaconError("Polisher.initialize", "empty overlap set!")
+
+        log.log("[racon_tpu_torch::Polisher.initialize] loaded overlaps")
+        log.log()
+
+        # -- free unneeded storage; build revcomps where needed
+        for i, seq in enumerate(self.sequences):
+            seq.transmute(has_name[i], has_data[i], has_reverse_data[i])
+
+        t_align = time.perf_counter()
+        self.find_overlap_breaking_points(overlaps)
+        self.phase_s["align"] = time.perf_counter() - t_align
+
+        log.log()
+
+        # -- windows (polisher.cpp:384-399)
+        id_to_first_window_id = [0] * (targets_size + 1)
+        for i in range(targets_size):
+            data = self.sequences[i].data
+            quality = self.sequences[i].quality
+            k = 0
+            for j in range(0, len(data), self.window_length):
+                length = min(j + self.window_length, len(data)) - j
+                q = quality[j:j + length] if quality \
+                    else self.dummy_quality[:length]
+                self.windows.append(create_window(
+                    i, k, window_type, data[j:j + length], q))
+                k += 1
+            id_to_first_window_id[i + 1] = id_to_first_window_id[i] + k
+
+        self.targets_coverages = [0] * targets_size
+
+        # -- layer assignment (polisher.cpp:403-457)
+        wl = self.window_length
+        for o in overlaps:
+            self.targets_coverages[o.t_id] += 1
+            seq = self.sequences[o.q_id]
+            bps = o.breaking_points
+            if bps is None:
+                continue
+            qual_fwd = seq.quality
+            has_qual = bool(qual_fwd) or bool(seq._reverse_quality)
+            if o.strand:
+                data_src = seq.reverse_complement
+                qual_src = seq.reverse_quality if has_qual else None
+            else:
+                data_src = seq.data
+                qual_src = qual_fwd if has_qual else None
+            qual_arr = (np.frombuffer(qual_src, dtype=np.uint8)
+                        if qual_src else None)
+
+            for t_first, q_first, t_last1, q_last1 in bps:
+                if q_last1 - q_first < 0.02 * wl:
+                    continue
+                if qual_arr is not None:
+                    avg = float(qual_arr[q_first:q_last1].mean()) - 33.0
+                    if avg < self.quality_threshold:
+                        continue
+                window_start = (t_first // wl) * wl
+                window_id = id_to_first_window_id[o.t_id] + t_first // wl
+                data = data_src[q_first:q_last1]
+                qual = (qual_src[q_first:q_last1] if qual_src else None)
+                self.windows[window_id].add_layer(
+                    data, qual, int(t_first - window_start),
+                    int(t_last1 - window_start - 1))
+            o.breaking_points = None
+
+        log.log("[racon_tpu_torch::Polisher.initialize] transformed data "
+                "into windows")
+        self.phase_s["initialize"] = time.perf_counter() - t_init
+        flush_dedup()
+
+    def _load_overlaps(self, name_to_id, id_to_id, has_data, has_reverse_data):
+        overlaps: list = []
+        error_threshold = self.error_threshold
+
+        def filter_group(group: list) -> list:
+            """Drop high-error/self overlaps and keep only the longest
+            overlap per query, with the reference's exact pass structure
+            (polisher.cpp:284-308): the error check runs when the outer
+            scan reaches an overlap, so a high-error overlap can still
+            knock out a longer-or-equal earlier one before being removed
+            itself, and length ties keep the LATER overlap."""
+            arr: list = list(group)
+            for i in range(len(arr)):
+                o = arr[i]
+                if o is None:
+                    continue
+                if o.error > error_threshold or o.q_id == o.t_id:
+                    arr[i] = None
+                    continue
+                for j in range(i + 1, len(arr)):
+                    if arr[j] is None:
+                        continue
+                    if o.length > arr[j].length:
+                        arr[j] = None
+                    else:
+                        arr[i] = None
+                        break
+            return [o for o in arr if o is not None]
+
+        def keep(group: list) -> None:
+            for f in filter_group(group):
+                overlaps.append(f)
+                if f.strand:
+                    has_reverse_data[f.q_id] = True
+                else:
+                    has_data[f.q_id] = True
+
+        self.oparser.reset()
+        pending: list = []   # current same-q_id run
+        more = True
+        while more:
+            chunk: list = []
+            more = self.oparser.parse(chunk, KCHUNK_SIZE)
+            for o in chunk:
+                o.transmute(self.sequences, name_to_id, id_to_id)
+                if not o.is_valid:
+                    continue
+                if pending and pending[0].q_id != o.q_id:
+                    keep(pending)
+                    pending = []
+                pending.append(o)
+        keep(pending)
+        return overlaps
+
+    # ------------------------------------------------------- alignment phase
+    def find_overlap_breaking_points(self, overlaps: list) -> None:
+        """Align CIGAR-less overlaps, then walk all CIGARs into per-window
+        breaking points (reference polisher.cpp:462-484 /
+        cudapolisher.cpp:74-214).
+
+        With cuda_aligner_batches > 0 the device aligner takes every pair
+        it can and the host aligns the rest — the reference's GPU->CPU
+        fallback (cudapolisher.cpp:203-213): no overlap is ever dropped.
+        """
+        from ..native import nw_cigar_batch
+
+        need = [o for o in overlaps if not o.cigar and o.is_valid]
+        if need:
+            pairs = []
+            for o in need:
+                q_span = o.aligned_query_span(self.sequences)
+                t_span = self.sequences[o.t_id].data[o.t_begin:o.t_end]
+                pairs.append((q_span, t_span))
+
+            self.logger.bar_total(len(pairs))
+            bar_msg = "[racon_tpu_torch::Polisher.initialize] aligning overlaps"
+
+            def bar_n(n):
+                for _ in range(n):
+                    self.logger.bar(bar_msg)
+
+            runs = [None] * len(pairs)
+            self.n_aligner_pairs = len(pairs)
+            if self.cuda_aligner_batches > 0:
+                from ..ops.align import BatchAligner
+
+                self.aligner = BatchAligner(
+                    band_width=self.cuda_aligner_band_width,
+                    device=self.device)
+                runs = self.aligner.align(pairs, progress=bar_n)
+
+            rest = [i for i, r in enumerate(runs) if r is None]
+            if rest:
+                cigars = nw_cigar_batch([pairs[i] for i in rest],
+                                        n_threads=self.num_threads,
+                                        progress=bar_n)
+                for i, c in zip(rest, cigars):
+                    need[i].cigar = c
+            for o, r in zip(need, runs):
+                if r is not None:
+                    o.cigar = cigar_from_ops(r).encode()
+            self.n_aligner_host_fallback = (
+                len(rest) if self.cuda_aligner_batches > 0 else 0)
+            self.n_aligner_device = (len(pairs) - len(rest)
+                                     if self.cuda_aligner_batches > 0 else 0)
+            if self.cuda_aligner_batches > 0:
+                a = self.aligner
+                log_info(f"[racon_tpu_torch::Polisher.initialize] aligned "
+                         f"{self.n_aligner_device} overlaps on device, "
+                         f"{self.n_aligner_host_fallback} on host "
+                         f"({a.n_unbucketed} unbucketable, "
+                         f"{a.n_band_rejects} band-clipped or over the "
+                         "cost limit)")
+
+        for o in overlaps:
+            if o.is_valid and o.cigar:
+                o.find_breaking_points(self.sequences, self.window_length)
+
+        self.logger.log("[racon_tpu_torch::Polisher.initialize] aligned "
+                        "overlaps")
+
+    # ---------------------------------------------------------------- polish
+    def polish(self, drop_unpolished_sequences: bool = True) -> list[Sequence]:
+        """Per-window consensus + stitch (reference polisher.cpp:486-548)."""
+        from ..ops.poa import BatchPOA
+
+        self.logger.log()
+        self.poa = BatchPOA(self.match, self.mismatch, self.gap,
+                            self.window_length, num_threads=self.num_threads,
+                            device_batches=self.cuda_poa_batches,
+                            banded=self.cuda_banded_alignment,
+                            logger=self.logger, device=self.device)
+        t0 = time.perf_counter()
+        self.poa.generate_consensus(self.windows, self.trim)
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        self.phase_s["consensus"] = dt
+        if dt > 0 and self.windows:
+            log_info(f"[racon_tpu_torch::Polisher.polish] consensus "
+                     f"throughput: {len(self.windows) / dt:.1f} windows/s")
+
+        t0 = time.perf_counter()
+        dst = self._stitch(drop_unpolished_sequences)
+        self.phase_s["stitch"] = time.perf_counter() - t0
+        self.logger.log("[racon_tpu_torch::Polisher.polish] generated "
+                        "consensus")
+        self.logger.total("[racon_tpu_torch::Polisher.] total =")
+        flush_dedup()
+        self.windows = []
+        self.sequences = []
+        return dst
+
+    def _stitch(self, drop_unpolished_sequences: bool) -> list[Sequence]:
+        """Stitch per-window consensus back into whole sequences with the
+        reference's LN/RC/XC tagging (polisher.cpp:506-545)."""
+        dst: list[Sequence] = []
+        start = 0
+        for i in range(len(self.windows)):
+            if (i != len(self.windows) - 1
+                    and self.windows[i + 1].id == self.windows[i].id):
+                continue
+            windows = self.windows[start:i + 1]
+            start = i + 1
+            polished_data = bytearray()
+            num_polished_windows = 0
+            for window in windows:
+                num_polished_windows += 1 if window.polished else 0
+                polished_data += window.consensus
+            last = windows[-1]
+            ratio = num_polished_windows / float(last.rank + 1)
+            if drop_unpolished_sequences and ratio <= 0:
+                continue
+            tags = f" LN:i:{len(polished_data)}"
+            tags += f" RC:i:{self.targets_coverages[last.id]}"
+            tags += f" XC:f:{ratio:.6f}"
+            dst.append(create_sequence(self.sequences[last.id].name + tags,
+                                       bytes(polished_data)))
+        return dst

@@ -1,0 +1,275 @@
+"""Batched banded global alignment (edit distance + CIGAR path).
+
+The GenomeWorks cudaaligner role: many pairwise global alignments at
+once, each pair in a static band that tracks the (0,0)->(M,N) diagonal.
+Anti-diagonal wavefront DP: cells (i, j) with i+j == d depend only on
+wavefronts d-1 and d-2. On wavefront d only query rows i in
+[offset[d], offset[d] + band) are kept; offsets are computed on the host
+per lane (they advance by 0/1 per wavefront) and shared by the DP and the
+traceback. Unit costs (match 0, mismatch 1, indel 1, minimize), ties
+fixed (diagonal < up/I < left/D), so the output is bit-stable.
+
+`banded_nw` + `traceback` are the plain PyTorch version of the CUDA
+kernel ops/align_kernels.wavefront_align; `BatchAligner` buckets pairs
+and runs them through the wrapper on its device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve
+
+INF = 1 << 28
+
+# backpointer codes
+BP_DIAG, BP_UP, BP_LEFT = 0, 1, 2  # M, I (consume query), D (consume target)
+
+
+def band_offsets(q_len: int, t_len: int, band: int, n_waves: int) -> np.ndarray:
+    """Per-wavefront band start rows for one lane (host side).
+
+    Wavefront d holds query rows i in [off[d], off[d]+band). The band tracks
+    the ideal diagonal i ~= d * M / (M+N) and is clamped so (0,0) and (M,N)
+    are always inside. Offsets are nondecreasing with steps in {0, 1}.
+    """
+    m, n = q_len, t_len
+    d = np.arange(n_waves, dtype=np.int64)
+    center = (d * m) // (m + n) if (m + n) else d * 0
+    lo = np.maximum(0, d - n)
+    hi = np.minimum(d, m)
+    off = np.clip(center - band // 2, lo, np.maximum(lo, hi - band + 1))
+    off = np.maximum.accumulate(off)            # enforce monotone
+    off = np.minimum(off, np.maximum(0, m - 0))  # safety clamp
+    # steps must be 0/1 for the DP gather to stay in-range; enforce
+    steps = np.diff(off)
+    if (steps > 1).any():
+        # smooth: cumulative min walk backwards
+        for idx in np.where(steps > 1)[0][::-1]:
+            off[idx] = off[idx + 1] - 1
+    return off.astype(np.int32)
+
+
+def banded_nw(q, t, q_lens, t_lens, offsets, band: int):
+    """Plain batched banded edit-distance DP.
+
+    q, t: [B, edge] int8 codes (PAD beyond length); q_lens, t_lens: [B]
+    int32; offsets: [B, n_waves] int32 band starts. Returns (bp
+    [B, n_waves, band] int8 backpointers, dist [B] int32 distance at
+    (M, N)). Wavefronts run to the batch's largest m + n; rows past a
+    lane's own m + n are never read by its traceback.
+    """
+    dev = q.device
+    B, edge = q.shape
+    n_waves = offsets.shape[1]
+    i32, i64 = torch.int32, torch.int64
+    inf = torch.tensor(INF, dtype=i32, device=dev)
+    ks = torch.arange(band, dtype=i64, device=dev)
+    ql = q_lens.to(i64)[:, None]
+    tl = t_lens.to(i64)[:, None]
+    offs = offsets.to(i64)
+    q = q.to(i32)
+    t = t.to(i32)
+    s1 = torch.full((B, band), INF, dtype=i32, device=dev)
+    s2 = s1.clone()
+    a1 = torch.zeros(B, dtype=i64, device=dev)
+    a2 = a1.clone()
+    dist = torch.full((B,), INF, dtype=i32, device=dev)
+    bp = torch.zeros((B, n_waves, band), dtype=torch.int8, device=dev)
+    last = min(int((q_lens.to(i64) + t_lens.to(i64)).max()) if B else -1,
+               n_waves - 1)
+
+    def gather(s, idx):
+        ok = (idx >= 0) & (idx < band)
+        return torch.where(ok, torch.gather(s, 1, idx.clamp(0, band - 1)),
+                           inf)
+
+    for d in range(last + 1):
+        a0 = offs[:, d]
+        i = a0[:, None] + ks[None, :]              # [B, band] query row
+        j = d - i                                  # target col
+        valid = (i >= 0) & (i <= ql) & (j >= 0) & (j <= tl)
+        k1 = ks[None, :] + (a0 - a1)[:, None]      # (d-1, i) in s1
+        k2m = ks[None, :] + (a0 - a2)[:, None] - 1  # (d-2, i-1) in s2
+        up = torch.where(i >= 1, gather(s1, k1 - 1), inf)
+        left = torch.where(j >= 1, gather(s1, k1), inf)
+        diag = torch.where((i >= 1) & (j >= 1), gather(s2, k2m), inf)
+        qi = torch.gather(q, 1, (i - 1).clamp(0, edge - 1))
+        tj = torch.gather(t, 1, (j - 1).clamp(0, edge - 1))
+        sub = (qi != tj).to(i32)
+        cd = diag + sub
+        cu = up + 1
+        cl = left + 1
+        # fixed tie order: diag, up, left
+        score = cd
+        code = torch.zeros((B, band), dtype=torch.int8, device=dev)
+        code = torch.where(cu < score, BP_UP, code).to(torch.int8)
+        score = torch.minimum(score, cu)
+        code = torch.where(cl < score, BP_LEFT, code).to(torch.int8)
+        score = torch.minimum(score, cl)
+        score = torch.where((i == 0) & (j == 0), 0, score)
+        score = torch.where(valid, torch.minimum(score, inf), inf)
+        at_end = (i == ql) & (j == tl)
+        dist = torch.where(at_end.any(dim=1),
+                           torch.where(at_end, score, inf).amin(dim=1), dist)
+        bp[:, d] = code
+        s2, s1 = s1, score
+        a2, a1 = a1, a0
+    return bp, dist
+
+
+def traceback(bp, dist, offsets, q_lens, t_lens, band: int):
+    """Plain lane-parallel traceback from (M, N) to (0, 0). Returns (ops
+    [B, n_waves] int32 codes in traceback order, meta [B, 3] int32 =
+    (count, dist, touched)) — the kernel's outputs. A lane whose path
+    rides the band boundary (where the matrix continues past it) is
+    flagged touched: its in-band optimum may have been clipped."""
+    dev = bp.device
+    B, n_waves = offsets.shape
+    i64 = torch.int64
+    ql = q_lens.to(i64)
+    tl = t_lens.to(i64)
+    offs = offsets.to(i64)
+    i, j = ql.clone(), tl.clone()
+    ops = torch.zeros((B, n_waves), dtype=torch.int32, device=dev)
+    cnt = torch.zeros(B, dtype=i64, device=dev)
+    touched = torch.zeros(B, dtype=torch.bool, device=dev)
+    lanes = torch.arange(B, device=dev)
+    while True:
+        active = (i > 0) | (j > 0)
+        if not bool(active.any()):
+            break
+        d = i + j
+        dc = d.clamp(max=n_waves - 1)
+        off = torch.gather(offs, 1, dc[:, None])[:, 0]
+        k = i - off
+        row_lo = (d - tl).clamp(min=0)
+        row_hi = torch.minimum(d, ql)
+        touched |= active & (k <= 0) & (off > row_lo)
+        touched |= active & (k >= band - 1) & (off + band - 1 < row_hi)
+        code = bp[lanes, dc, k.clamp(0, band - 1)].to(i64)
+        # boundary overrides: on i==0 only D possible; on j==0 only I
+        code = torch.where(i == 0, BP_LEFT, code)
+        code = torch.where(j == 0, BP_UP, code)
+        live = lanes[active]
+        ops[live, cnt[live]] = code[live].to(torch.int32)
+        cnt = cnt + active.to(i64)
+        i = torch.where(active & (code != BP_LEFT), i - 1, i)
+        j = torch.where(active & (code != BP_UP), j - 1, j)
+    meta = torch.stack([cnt, dist.to(i64), touched.to(i64)], dim=1)
+    return ops, meta.to(torch.int32)
+
+
+_CODE_TO_OP = {BP_DIAG: "M", BP_UP: "I", BP_LEFT: "D"}
+
+
+def runs_of(seq: np.ndarray) -> list[tuple[int, str]]:
+    """Forward-order op codes -> CIGAR-style run list."""
+    runs: list[tuple[int, str]] = []
+    if len(seq):
+        change = np.nonzero(np.diff(seq))[0]
+        starts = np.concatenate(([0], change + 1))
+        ends = np.concatenate((change + 1, [len(seq)]))
+        runs = [(int(e - s), _CODE_TO_OP[int(seq[s])])
+                for s, e in zip(starts, ends)]
+    return runs
+
+
+class BatchAligner:
+    """Buckets (query, target) pairs into static shapes and aligns each
+    bucket on the device — the orchestration analogue of
+    CUDABatchAligner (src/cuda/cudaaligner.cpp).
+
+    band_width=0 means auto: 10% of the bucket's mean pair length (the
+    reference's auto band rule, cudapolisher.cpp:158-174), rounded up to
+    a multiple of 128.
+
+    Rejects mirror cudaaligner's statuses (cudaaligner.cpp:63-71): pairs
+    beyond the largest bucket or empty, pairs whose traceback rode the
+    band boundary, and pairs whose in-band cost is beyond what a
+    <=30%-error overlap can produce come back as None, and the caller
+    aligns them on the host — no overlap is ever dropped. Each reject is
+    counted.
+    """
+
+    #: length bucket edges (sequences are padded to the bucket edge)
+    BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+    #: bytes of int8 backpointer plane per device batch
+    MAX_BP_BYTES = 2 << 30
+
+    def __init__(self, band_width: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.band_width = band_width
+        self.device = resolve(device)
+        #: pairs sent back for host alignment, by reason
+        self.n_unbucketed = 0
+        self.n_band_rejects = 0
+
+    def _bucket_of(self, length: int) -> int | None:
+        return next((edge for edge in self.BUCKETS if length <= edge), None)
+
+    def _band_for(self, pairs, idxs) -> int:
+        if self.band_width > 0:
+            return (self.band_width + 3) // 4 * 4
+        mean_len = sum(max(len(pairs[i][0]), len(pairs[i][1]))
+                       for i in idxs) / len(idxs)
+        return max(128, (int(mean_len * 0.1) + 127) // 128 * 128)
+
+    def chunks(self, pairs) -> list[tuple[int, int, list[int]]]:
+        """(edge, band, pair indices) device batches, in dispatch order;
+        unbucketable pairs are counted and left out."""
+        groups: dict[int, list[int]] = {}
+        for idx, (qs, ts) in enumerate(pairs):
+            edge = self._bucket_of(max(len(qs), len(ts)))
+            if edge is None or not qs or not ts:
+                self.n_unbucketed += 1
+                continue
+            groups.setdefault(edge, []).append(idx)
+        out = []
+        for edge, idxs in sorted(groups.items()):
+            band = self._band_for(pairs, idxs)
+            lane_bytes = (2 * edge + 1) * band
+            max_lanes = max(1, self.MAX_BP_BYTES // lane_bytes)
+            for s in range(0, len(idxs), max_lanes):
+                out.append((edge, band, idxs[s:s + max_lanes]))
+        return out
+
+    def operands(self, pairs, edge: int, band: int, idx: list[int]):
+        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch."""
+        from .encode import encode_padded
+
+        n_waves = 2 * edge + 1
+        q_arr, q_lens = encode_padded([pairs[i][0] for i in idx], edge)
+        t_arr, t_lens = encode_padded([pairs[i][1] for i in idx], edge)
+        offs = np.stack([band_offsets(int(a), int(b), band, n_waves)
+                         for a, b in zip(q_lens, t_lens)])
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+                     for x in (q_arr, t_arr, q_lens, t_lens, offs))
+
+    def align(self, pairs: list[tuple[bytes, bytes]],
+              progress=None) -> list[list[tuple[int, str]] | None]:
+        """Globally align each (query, target) pair. Returns per-pair op
+        runs, or None for rejected pairs (see class docstring)."""
+        from .align_kernels import wavefront_align
+
+        results: list[list[tuple[int, str]] | None] = [None] * len(pairs)
+        for edge, band, idx in self.chunks(pairs):
+            q, t, q_lens, t_lens, offs = self.operands(pairs, edge, band, idx)
+            ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band)
+            ops = ops.cpu().numpy()
+            meta = meta.cpu().numpy()
+            lens = np.maximum(q_lens.cpu().numpy(), t_lens.cpu().numpy())
+            accepted = 0
+            for lane, i_pair in enumerate(idx):
+                count, dist, touched = (int(v) for v in meta[lane])
+                # an in-band cost far above what a <=30%-error overlap
+                # can produce means the true (off-band) path was clipped
+                if touched or dist > 0.4 * lens[lane]:
+                    self.n_band_rejects += 1
+                    continue
+                results[i_pair] = runs_of(ops[lane, :count][::-1])
+                accepted += 1
+            if progress is not None:
+                progress(accepted)
+        return results

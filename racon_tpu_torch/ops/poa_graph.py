@@ -1,0 +1,400 @@
+"""Evolving-graph POA consensus with the graph DP on the GPU.
+
+The consensus role of GenomeWorks cudapoa, split the way the JAX package
+splits it: the irregular graph bookkeeping stays on the host (the C++
+session, native/src/session.cpp) and the regular hot loop — the
+O(nodes x len) graph-banded NW DP plus its traceback — runs on the device:
+
+  - the host densifies each window's current graph into topo-ordered
+    arrays (node codes, predecessor rank lists, band centers, sink flags);
+  - the device aligns the window's next layer against that graph
+    (ops/poa_kernels.window_sweep: the hand-written CUDA kernel on a
+    CUDA tensor, `graph_aligner` below on a CPU tensor);
+  - the per-base node ranks are committed back into the session, which
+    ingests them with the exact evolving-graph add_alignment the host
+    engine uses.
+
+DP values, band masking and tie order replicate the host engine, so the
+consensus is byte-identical to the host engine's (the clipped-band
+full-DP retry included). Windows outside the kernel's shape envelope are
+built by the host engine inside the session (the reference's per-window
+GPU->CPU fallback, cudapolisher.cpp:354-383) and counted.
+
+Jobs are padded into a fixed set of (nodes, len) buckets, each with one
+batch width pinned from the card's free memory (the 90%-of-free rule of
+cudapolisher.cpp:169-173). Batches launch asynchronously on the current
+stream; the host commits the oldest batch while younger ones compute.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..device import free_bytes, resolve
+from ..utils.logger import Logger, log_info
+
+#: kernel shape envelope: max graph nodes, max layer len, max node
+#: in-degree — sized so w=500 ONT polishing fits (the JAX package's
+#: measured envelope); larger windows are host-built per window
+MAX_NODES = 2048
+MAX_LEN = 640
+MAX_PRED = 8
+
+#: the (nodes, len) bucket grid every job shape is padded up into
+BUCKETS = ((320, 256), (768, 640), (1280, 640), (MAX_NODES, MAX_LEN))
+
+#: jobs requested from the session per scheduling round
+_CYCLE_JOBS = 1024
+
+NEG = -(1 << 29)  # the host engine's kNegInf (INT32_MIN / 4)
+
+
+def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
+                  mismatch: int, gap: int):
+    """Plain PyTorch batched graph-NW align + traceback for one shape
+    bucket: the same function as the JAX package's `graph_aligner` and
+    the CUDA kernel `window_sweep`, written with whole-batch tensor ops.
+
+    Returns fn(codes, preds, centers, sinks, seq, lens, band, nnodes=None)
+    on tensors of one device:
+      codes   [B, N] int8   topo-ordered node base codes (pad 5)
+      preds   [B, N, P] int16  predecessor DP-row indices (rank+1; 0 is the
+                               virtual source row; -1 pad)
+      centers [B, N] int16  band center column per node
+      sinks   [B, N] uint8  1 = sink node
+      seq     [B, L] int8   layer base codes (pad 5)
+      lens    [B]    int32  layer lengths
+      band    [B]    int32  static band width (0 = exact full DP)
+      nnodes  [B]    int32  real node count per job (derived from preds
+                            when omitted)
+    -> ranks [B, L] int32: node rank per layer base, -1 insertion, -2
+    beyond lens.
+
+    The node loop runs to the batch's largest real node count; rows past
+    a job's own count hold no sink and are never on a traceback, so the
+    result equals the full-N sweep.
+    """
+    N, L, P = n_nodes, seq_len, max_pred
+
+    def align(codes, preds, centers, sinks, seq, lens, band, nnodes=None):
+        dev = codes.device
+        B = codes.shape[0]
+        i32, i64 = torch.int32, torch.int64
+
+        def c32(v):
+            return torch.tensor(v, dtype=i32, device=dev)
+
+        neg, m32, mm32 = c32(NEG), c32(match), c32(mismatch)
+        codes = codes.to(i32)
+        preds = preds.to(i64)
+        centers = centers.to(i32)
+        seq = seq.to(i32)
+        l32 = lens.to(i32)
+        band = band.to(i32)
+        if nnodes is None:
+            real = (preds >= 0).any(dim=2)                        # [B, N]
+            last = torch.where(real, torch.arange(1, N + 1, device=dev), 0)
+            nnodes = last.amax(dim=1) if N else torch.zeros(B, device=dev)
+        nn = nnodes.to(i64)
+        n_real = int(nn.max()) if B else 0
+
+        jidx = torch.arange(L + 1, dtype=i32, device=dev)
+        jg = jidx * gap
+        j1 = jidx[1:]
+        H = torch.full((B, N + 1, L + 1), NEG, dtype=i32, device=dev)
+        H[:, 0] = torch.where(jidx[None, :] <= l32[:, None], jg[None, :],
+                              neg)
+        bps = torch.full((B, N, L + 1), P, dtype=torch.int8, device=dev)
+        band2 = band // 2
+        use_band = band > 0
+        pidx = torch.arange(P, dtype=torch.int8, device=dev)[None, :, None]
+
+        for k in range(1, n_real + 1):
+            pk = preds[:, k - 1, :]                               # [B, P]
+            rows = torch.gather(
+                H, 1, pk.clamp(0, N)[:, :, None].expand(B, P, L + 1))
+            rows = torch.where((pk >= 0)[:, :, None], rows, neg)
+            sub = torch.where(seq == codes[:, k - 1, None], m32, mm32)
+            diag = rows[:, :, :-1] + sub[:, None, :]              # [B, P, L]
+            vert = rows[:, :, 1:] + gap
+            best = torch.maximum(diag, vert).amax(dim=1)          # [B, L]
+            row0 = rows[:, :, 0].amax(dim=1) + gap                # [B]
+
+            # static-band masking, replicating the host engine: out-of-
+            # band cells are NEG, and the in-row gap recurrence runs only
+            # inside the band (seeded from column 0 when the band
+            # touches it)
+            ck = centers[:, k - 1]
+            jlo = torch.where(use_band, (ck - band2).clamp(min=1), 1)
+            jhi = torch.where(use_band, torch.minimum(l32, ck + band2), l32)
+            inband = (j1[None, :] >= jlo[:, None]) & (j1[None, :] <= jhi[:, None])
+            pre = torch.where(inband, best, neg)
+            seed0 = torch.where(jlo == 1, row0, neg)
+            cat = torch.cat([seed0[:, None], pre], dim=1)
+            run = torch.cummax(cat - jg, dim=1).values + jg
+            hrow = torch.where(inband, run[:, 1:], pre)
+            H[:, k, 0] = row0
+            H[:, k, 1:] = hrow
+
+            # backpointers from score equalities, host tie order:
+            # diagonal first (predecessors in edge order), then
+            # vertical, then horizontal. p = diag via pred p; P+p = vert
+            # via pred p; 2P = horizontal
+            # (the first true predecessor of each column is the argmax
+            # of the equality mask, taken as a min over p-or-P)
+            pd = torch.where(hrow[:, None, :] == diag, pidx, P).amin(dim=1)
+            pv = torch.where(hrow[:, None, :] == vert, pidx, P).amin(dim=1)
+            bpc = torch.where(pd < P, pd, torch.where(pv < P, P + pv, 2 * P))
+            is_v0 = row0[:, None] == rows[:, :, 0] + gap          # [B, P]
+            bps[:, k - 1, 0] = P + torch.where(is_v0, pidx[:, :, 0], P).amin(dim=1)
+            bps[:, k - 1, 1:] = bpc
+
+        # best sink at the layer's final column; ties -> smallest rank
+        scores = torch.gather(H[:, 1:, :], 2,
+                              l32.to(i64)[:, None, None].expand(B, N, 1))[:, :, 0]
+        kidx = torch.arange(N, device=dev)
+        cand = torch.where((sinks > 0) & (kidx[None, :] < nn[:, None]),
+                           scores, neg)
+        best_rank = torch.argmax(cand, dim=1) if N else torch.zeros(B, dtype=i64, device=dev)
+
+        # traceback, all lanes at once; a job with no nodes (batch
+        # padding) starts finished
+        out = torch.full((B, L), -2, dtype=i32, device=dev)
+        r = torch.where(nn > 0, best_rank + 1, 0)
+        j = torch.where(nn > 0, l32.to(i64), 0)
+        bp_flat = bps.reshape(B, N * (L + 1))
+        preds_flat = preds.reshape(B, N * P)
+        lanes = torch.arange(B, device=dev)
+        while True:
+            active = (r > 0) | (j > 0)
+            if not bool(active.any()):
+                break
+            lin = (r - 1).clamp(0, N - 1) * (L + 1) + j.clamp(0, L)
+            code = torch.gather(bp_flat, 1, lin[:, None])[:, 0].to(i64)
+            code = torch.where(r > 0, code, 2 * P)   # source row: horizontal
+            is_d = code < P
+            is_v = (code >= P) & (code < 2 * P)
+            p = torch.where(is_d, code, code - P)
+            plin = (r - 1).clamp(0, N - 1) * P + p.clamp(0, P - 1)
+            pr = torch.gather(preds_flat, 1, plin[:, None])[:, 0]
+            consume = active & ~is_v & (j > 0)
+            jc = (j - 1).clamp(0, L - 1)
+            cur = torch.gather(out, 1, jc[:, None])[:, 0]
+            emit = torch.where(is_d, r - 1, -1).to(i32)
+            out[lanes, jc] = torch.where(consume, emit, cur)
+            r = torch.where(active & (is_d | is_v), pr, r)
+            j = torch.where(consume, j - 1, j)
+        return out
+
+    return align
+
+
+def _bytes_per_row(n_nodes: int, seq_len: int, max_pred: int) -> int:
+    """Device bytes one batch row costs while its kernel runs: the H score
+    scratch, the backpointer plane, and the densified inputs."""
+    h = (n_nodes + 1) * (seq_len + 1) * 4
+    bp = n_nodes * (seq_len + 1)
+    inputs = n_nodes * (2 * max_pred + 4) + seq_len
+    return h + bp + inputs
+
+
+def pin_pow2_rows(budget: int, per_row: int, lo: int = 8,
+                  hi: int = 128) -> int:
+    """The largest power of two whose rows fit `budget`, clamped to
+    [lo, hi] — one batch width per bucket."""
+    b = 1 << max(0, (budget // max(per_row, 1)).bit_length() - 1)
+    return max(lo, min(hi, b))
+
+
+def device_budget(dev: torch.device) -> int:
+    """Bytes to size batches from: 90% of the card's free memory (the
+    reference's cudaMemGetInfo rule), or the small CPU budget."""
+    free = free_bytes(dev)
+    return int(free * 0.9) if dev.type == "cuda" else free
+
+
+class DeviceGraphPOA:
+    """Orchestrates the session <-> device scheduling loop.
+
+    Each round: ask the C++ session for the next ready layer of up to
+    `_CYCLE_JOBS` windows, bucket the jobs by (graph size, layer length),
+    pad each bucket to its pinned batch width and launch it (async), then
+    commit the OLDEST in-flight batch — so the host's graph ingest
+    overlaps the device's compute on the younger batches.
+
+    The envelope/bucket/batch-width knobs exist so tests can force tiny
+    shapes (and the out-of-envelope host path).
+    """
+
+    def __init__(self, match: int, mismatch: int, gap: int,
+                 device: str | torch.device = "cuda", num_threads: int = 1,
+                 logger: Logger | None = None, max_nodes: int = MAX_NODES,
+                 max_len: int = MAX_LEN, buckets=None,
+                 batch_rows: int | None = None, banded_only: bool = False):
+        self.device = resolve(device)
+        self.match = match
+        self.mismatch = mismatch
+        self.gap = gap
+        self.num_threads = num_threads
+        self.logger = logger
+        self.banded_only = banded_only
+        self.max_nodes = max_nodes
+        self.max_len = max_len
+        buckets = tuple(buckets) if buckets is not None else tuple(
+            b for b in BUCKETS if b[0] <= max_nodes and b[1] <= max_len)
+        # the envelope bucket is the safety net: every in-envelope job
+        # fits SOME bucket
+        if not buckets or buckets[-1][0] < max_nodes or buckets[-1][1] < max_len:
+            buckets = buckets + ((max_nodes, max_len),)
+        self.buckets = buckets
+        self.batch_rows = {b: self._pin_batch(b, batch_rows) for b in buckets}
+        self.last_stats: dict = {}
+
+    def _pin_batch(self, bucket, forced) -> int:
+        """ONE batch width per bucket: the largest power of two whose
+        footprint fits a quarter of the device budget (several batches
+        are in flight while the pipeline is full)."""
+        if forced is not None:
+            return forced
+        row = _bytes_per_row(bucket[0], bucket[1], MAX_PRED)
+        return pin_pow2_rows(device_budget(self.device) // 4, row)
+
+    def _bucket(self, n_nodes: int, length: int) -> tuple[int, int]:
+        return next((nb, lb) for nb, lb in self.buckets
+                    if n_nodes <= nb and length <= lb)
+
+    def consensus(self, windows):
+        """windows: list of lists of (seq, qual|None, begin, end), element 0
+        the backbone. Returns (results, statuses): results like poa_batch's
+        [(consensus bytes, coverages)], statuses int array (0 device,
+        1 host-built outside the envelope, 2 backbone-only)."""
+        from ..native import PoaSession
+
+        session = PoaSession(windows, self.match, self.mismatch, self.gap,
+                             self.max_nodes, MAX_PRED, self.max_len,
+                             max_jobs=_CYCLE_JOBS,
+                             banded_only=self.banded_only,
+                             n_threads=self.num_threads)
+        bar = self.logger.bar if self.logger is not None else None
+        total_layers = sum(max(0, len(w) - 1) for w in windows)
+        if self.logger is not None and total_layers:
+            self.logger.bar_total(total_layers)
+
+        # split-half pipelining: each prepare() pulls at most HALF the
+        # active windows (round-robin), so while half A's results are
+        # committed (mutating graphs), half B computes on the device
+        n_active = sum(1 for w in windows if len(w) >= 3)
+        half = max(8, min(_CYCLE_JOBS, max(1, n_active // 2)))
+        # batches kept queued: enough to hide the host's commit+prepare
+        # time behind device compute
+        depth = 4
+        # prepare only in bursts, once commits have freed enough windows
+        # to fill a decent batch
+        threshold = 1
+        freed = 1
+        inflight: deque = deque()
+        while True:
+            if freed >= threshold or not inflight:
+                burst = 0
+                while len(inflight) < depth:
+                    jobs = session.prepare(half)
+                    if jobs is None:
+                        break
+                    burst += jobs["n"]
+                    inflight.extend(self._dispatch_round(jobs))
+                if burst:
+                    freed = 0
+                    threshold = max(8, burst // 2)
+            if not inflight:
+                break
+            # commit the oldest batch (waits only for ITS result; younger
+            # batches keep computing)
+            win, layer, band, npart, lb, out, rows = inflight.popleft()
+            ranks = out.cpu().numpy()[rows][:, :lb]
+            session.commit(win, layer, band, ranks)
+            freed += npart
+            if bar is not None:
+                for _ in range(npart):
+                    bar("[racon_tpu_torch::Polisher.polish] "
+                        "aligning layers to graphs on device")
+        self.last_stats = session.stats()
+        results = session.finish(self.num_threads)
+        session.close()
+        return results
+
+    #: bucket groups smaller than this merge upward into the next larger
+    #: nonempty bucket: a slightly longer sweep for a few jobs beats
+    #: another launch for a nearly-empty batch
+    MIN_FILL = 16
+
+    def _dispatch_round(self, jobs):
+        """Bucket one prepare() round and launch every batch. Returns
+        [(win, layer, band, n_jobs, len_bucket, device_out, rows)] —
+        everything the commit needs is snapshotted so the session's
+        prepare buffers can be reused at once."""
+        n = jobs["n"]
+        groups: dict[tuple[int, int], list[int]] = {}
+        for i in range(n):
+            b = self._bucket(int(jobs["nnodes"][i]), int(jobs["len"][i]))
+            groups.setdefault(b, []).append(i)
+
+        order = sorted(groups)
+        for gi, b in enumerate(order[:-1]):
+            if len(groups.get(b, ())) < self.MIN_FILL:
+                for nb in order[gi + 1:]:
+                    if groups.get(nb) and nb[0] >= b[0] and nb[1] >= b[1]:
+                        groups[nb] = groups.pop(b) + groups[nb]
+                        break
+
+        batches = []
+        for (nb, lb), idx in sorted(groups.items()):
+            B = self.batch_rows[(nb, lb)]
+            for s in range(0, len(idx), B):
+                part = idx[s:s + B]
+                sel = np.asarray(part, dtype=np.int64)
+                meta = (jobs["win"][sel].copy(), jobs["layer"][sel].copy(),
+                        jobs["band"][sel].copy())
+                out, rows = self._dispatch(jobs, sel, nb, lb, B)
+                batches.append(meta + (len(part), lb, out, rows))
+        return batches
+
+    def _dispatch(self, jobs, sel, nb, lb, B):
+        """Pad one bucket batch to its pinned width and launch it. Returns
+        (device_out, rows): `rows[j]` is the batch row job j landed on."""
+        rows = np.arange(len(sel), dtype=np.int64)
+
+        def take(arr, fill):
+            out = np.full((B,) + arr.shape[1:], fill, dtype=arr.dtype)
+            out[rows] = arr[sel]
+            return torch.from_numpy(out).to(self.device)
+
+        return self.run_bucket(
+            nb, lb, take(jobs["codes"][:, :nb], 5),
+            take(jobs["preds"][:, :nb], -1),
+            take(jobs["centers"][:, :nb], 0),
+            take(jobs["sinks"][:, :nb], 0),
+            take(jobs["seqs"][:, :lb], 5),
+            take(jobs["len"], 0), take(jobs["band"], 0),
+            take(jobs["nnodes"], 0)), rows
+
+    def run_bucket(self, nb, lb, codes, preds, centers, sinks, seqs, lens,
+                   band, nnodes):
+        """Run ONE padded batch: the CUDA kernel on a CUDA device, the
+        plain version on the CPU (poa_kernels.window_sweep decides by the
+        tensors' device)."""
+        from .poa_kernels import window_sweep
+
+        return window_sweep(codes, preds, centers, sinks, seqs, lens, band,
+                            nnodes, self.match, self.mismatch, self.gap)
+
+
+def log_session_stats(stats: dict, statuses: np.ndarray) -> None:
+    log_info(f"[racon_tpu_torch::BatchPOA] device layer alignments: "
+             f"{stats.get('committed', 0)} committed, "
+             f"{stats.get('redos', 0)} banded-clip full-DP retries; "
+             f"{int((statuses == 0).sum())} windows built on device, "
+             f"{int((statuses == 1).sum())} on host (outside the kernel "
+             f"envelope), {int((statuses == 2).sum())} backbone-only")
