@@ -8,7 +8,14 @@ Phases, in order; any mismatch or exception exits non-zero:
      from the sources in this checkout;
   2. K1 (csrc/poa_window_sweep.cu) against its plain PyTorch version on
      real session jobs of the full-size workload, at every bucket that
-     occurs, plus a padding row (nnodes == 0): ranks must be identical;
+     occurs, plus a padding row (nnodes == 0) and an adversarial batch at
+     the (2048, 640) bucket (synth.poa_jobs: predecessors farther back
+     than the kernel's shared-memory ring, band-0 rows at 640 columns,
+     in-degree 8): ranks must be identical. Prints the largest
+     predecessor distance of the main path's jobs, ns per DP row, real
+     jobs per launch, and the traceback's share of the kernel time (a
+     scratch copy of the source without the traceback, built beside the
+     kernels and timed on the same batches);
   3. K2 (csrc/align_wavefront.cu) against its plain version on the
      workload's real overlap pairs at their buckets: ops, count,
      distance and touched flag must be identical;
@@ -18,7 +25,10 @@ Phases, in order; any mismatch or exception exits non-zero:
   5. the main path at full size: 200 kb genome, 30x, 8 kb reads (12%
      read error, 10% draft error, w 500, seed 42) polished with
      `-c 1 --cudaaligner-batches 1`; both kernels must launch, and the
-     polished contig must be closer to the simulated truth than the draft.
+     polished contig must be closer to the simulated truth than the draft;
+  6. one torch.profiler pass over a consensus phase of the same workload
+     (after the timed main path): K1's summed device time, the device's
+     busy share of the phase's wall, the five longest host-side ranges.
 
 Prints per-phase numbers, then the kernel line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -101,6 +111,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
+    notb = build_without_traceback()
     _build.kernels()
     k_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -125,12 +136,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    kernels.append(check_window_sweep(dev, big, report))
+    k1, windows = check_window_sweep(dev, big, report, notb)
+    kernels.append(k1)
     kernels.append(check_wavefront(dev, draft, reads, paf, report))
     check_golden(workdir, report)
     k1_launches, k2_launches = main_path(dev, big, truth, draft, report)
     kernels[0]["launches"] = k1_launches
     kernels[1]["launches"] = k2_launches
+    profile_consensus(dev, windows, report)
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -144,6 +157,86 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+TRACEBACK = ("    // -- traceback --\n", "    // -- end traceback --\n")
+
+
+def build_without_traceback():
+    """Start nvcc on a scratch copy of the K1 source with its traceback
+    cut out (between the source's traceback markers): the difference in
+    time to the full kernel is the traceback's share. Returns the
+    running process and the library it writes."""
+    from racon_tpu_torch import _build
+
+    src = open(os.path.join(_build.CSRC, "poa_window_sweep.cu")).read()
+    head, rest = src.split(TRACEBACK[0])
+    _, tail = rest.split(TRACEBACK[1])
+    d = os.path.join(HERE, "build", "scratch")
+    os.makedirs(d, exist_ok=True)
+    cu = os.path.join(d, "poa_window_sweep_no_traceback.cu")
+    with open(cu, "w") as fh:
+        fh.write(head + tail)
+    lib = os.path.join(d, f"libk1_no_traceback-{os.getpid()}.so")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def load_without_traceback(notb):
+    import ctypes
+
+    proc, path = notb
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc of the no-traceback copy failed:\n{text}")
+    lib = ctypes.CDLL(path)
+    lib.rt_poa_window_sweep.restype = ctypes.c_int
+    lib.rt_poa_window_sweep.argtypes = ([ctypes.c_void_p] * 11
+                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_void_p])
+    return lib
+
+
+def sweep_without_traceback(lib, args):
+    """One launch of the no-traceback copy, scratch allocated as the
+    wrapper allocates it (not counted as a launch of K1)."""
+    import torch
+
+    from racon_tpu_torch.ops.poa_kernels import scratch
+
+    B, N = args[0].shape
+    L = args[4].shape[1]
+    P = args[1].shape[2]
+    dev = args[0].device
+    spill, bps = scratch(B, N, L, dev)
+    out = torch.empty((B, L), dtype=torch.int32, device=dev)
+    rc = lib.rt_poa_window_sweep(
+        *(t.data_ptr() for t in args), spill.data_ptr(), bps.data_ptr(),
+        out.data_ptr(), B, N, L, P, MATCH, MISMATCH, GAP,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise SystemExit(f"no-traceback copy failed to launch: {rc}")
+    return out
+
+
+def adversarial_batch(dev, ring_band0):
+    """128 jobs at the (2048, 640) bucket from synth.poa_jobs: band 0
+    and band 256 alternating, in-degree up to 8, a predecessor at least
+    300 ranks back on every fifth node (beyond the ring of a band-0 job),
+    a length-0 layer and a padding job."""
+    import torch
+
+    from racon_tpu_torch.synth import max_pred_distance, poa_jobs
+
+    jobs = poa_jobs(2, 128, 2048, 640, 8, (0, 256), far=300, pad_rows=1,
+                    empty_layers=1)
+    dist = max_pred_distance(jobs[1], jobs[7])
+    if dist <= ring_band0:
+        raise SystemExit(f"adversarial batch: largest predecessor distance "
+                         f"{dist} is within the ring ({ring_band0} rows)")
+    return dist, [torch.from_numpy(a).to(dev) for a in jobs]
 
 
 def window_sweep_bound(args) -> tuple[float, str]:
@@ -197,24 +290,28 @@ def replay_ms(fn, batches) -> float:
     return cuda_ms(lambda: [fn(b) for b in batches], reps=1)
 
 
-def check_window_sweep(dev, paths, report) -> dict:
+def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
     """Phase 2: capture every padded batch a consensus pass over the
     whole workload launches (the main path's own batches: same windows,
     same engine), hold K1 to its plain version on the fullest batch of
-    each bucket, and time K1 over all of them."""
+    each bucket, a padding row and an adversarial batch, and time K1
+    over all of them. Returns the kernel line's entry and the packed
+    windows (for phase 6)."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
     from racon_tpu_torch.ops import poa_kernels
     from racon_tpu_torch.ops.poa import _pack
-    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA, graph_aligner
+    from racon_tpu_torch.ops.poa_graph import (MAX_LEN, MAX_NODES, MAX_PRED,
+                                               DeviceGraphPOA, graph_aligner)
+    from racon_tpu_torch.synth import max_pred_distance
 
     t0 = time.perf_counter()
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
                           device="cuda")
     pol.initialize()
-    windows = [w for w in pol.windows if len(w.sequences) >= 3]
+    windows = [_pack(w) for w in pol.windows if len(w.sequences) >= 3]
 
     class Capture(DeviceGraphPOA):
         batches: list = []
@@ -225,17 +322,35 @@ def check_window_sweep(dev, paths, report) -> dict:
 
     eng = Capture(MATCH, MISMATCH, GAP, device=dev,
                   num_threads=os.cpu_count())
-    eng.consensus([_pack(w) for w in windows])
+    eng.consensus(windows)
     torch.cuda.synchronize()
     batches = eng.batches
     fullest: dict = {}
+    n_real = 0
+    dist = 0
     for key, args in batches:
         n = int((args[-1] > 0).sum())
+        n_real += n
+        dist = max(dist, max_pred_distance(args[1].cpu().numpy(),
+                                           args[7].cpu().numpy()))
         if n > fullest.get(key, (0,))[0]:
             fullest[key] = (n, args)
     log(f"[chip_smoke] K1 job capture: {len(batches)} batches in "
         f"{len(fullest)} buckets from {len(windows)} windows in "
         f"{time.perf_counter() - t0:.1f} s")
+    rings = {f"{nb}x{lb}": {"band256": poa_kernels.ring_rows(nb, lb, MAX_PRED,
+                                                             min(257, lb)),
+                            "band0": poa_kernels.ring_rows(nb, lb, MAX_PRED,
+                                                           lb)}
+             for nb, lb in sorted(fullest)}
+    log(f"[chip_smoke] K1 main-path jobs: largest predecessor distance "
+        f"{dist}; ring rows per bucket {rings}; real jobs per launch "
+        f"{n_real / len(batches):.1f} ({n_real} jobs in {len(batches)} "
+        f"launches)")
+    report["window_sweep_jobs"] = {
+        "max_pred_distance": dist, "ring_rows": rings,
+        "jobs_per_launch": n_real / len(batches), "jobs": n_real,
+        "launches": len(batches)}
 
     def sweep(args):
         return poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP)
@@ -254,6 +369,11 @@ def check_window_sweep(dev, paths, report) -> dict:
         pad[i][0] = 0
     pad[4][0] = 5
     cases.append(((nb, lb, "pad"), (n - 1, pad)))
+    ring0 = poa_kernels.ring_rows(MAX_NODES, MAX_LEN, MAX_PRED, MAX_LEN)
+    adv_dist, adv = adversarial_batch(dev, ring0)
+    cases.append(((MAX_NODES, MAX_LEN, "adversarial"),
+                  (int((adv[-1] > 0).sum()), adv)))
+    no_tb = load_without_traceback(notb)
     for key, (n, args) in cases:
         B, N = args[0].shape
         L = args[4].shape[1]
@@ -274,31 +394,61 @@ def check_window_sweep(dev, paths, report) -> dict:
             log(f"[chip_smoke] K1 padding row (nnodes 0) at bucket "
                 f"{key[:2]}: identical")
             continue
+        if key[-1] == "adversarial":
+            ms = cuda_ms(lambda: sweep(args), reps=3)
+            log(f"[chip_smoke] K1 adversarial batch at {key[:2]}: {n} jobs "
+                f"(band 0 and 256, in-degree up to {P}, largest predecessor "
+                f"distance {adv_dist} > ring {ring0} rows of a band-0 job, "
+                f"a length-0 layer, a padding job) identical; kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
+            report["window_sweep_adversarial"] = {
+                "jobs": n, "max_pred_distance": adv_dist, "ring_band0": ring0,
+                "ms": ms, "plain_ms": plain_ms}
+            continue
         ms = cuda_ms(lambda: sweep(args), reps=3)
+        tb_free = cuda_ms(lambda: sweep_without_traceback(no_tb, args),
+                          reps=3)
         b_ms, by = window_sweep_bound(args)
+        rows_k = int(args[7].max())
+        ns_row = ms * 1e6 / rows_k
         row = {"bucket": list(key), "jobs": n, "rows": B, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+               "dp_rows": rows_k, "ns_per_dp_row": ns_row,
+               "no_traceback_ms": tb_free,
+               "traceback_share": 1.0 - tb_free / ms}
         buckets.append(row)
         log(f"[chip_smoke] K1 bucket {key}: {n} jobs / {B} rows identical; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.4f} ms ({by})")
+            f"{b_ms:.4f} ms ({by}); {ns_row:.0f} ns per DP row over "
+            f"{rows_k} rows; without traceback {tb_free:.3f} ms "
+            f"(traceback share {100 * (1 - tb_free / ms):.1f}%)")
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += b_ms
-    all_ms = replay_ms(sweep, [a for _, a in batches])
-    all_bound = sum(window_sweep_bound(a)[0] for _, a in batches)
+    all_args = [a for _, a in batches]
+    all_ms = replay_ms(sweep, all_args)
+    all_tb_free = replay_ms(lambda a: sweep_without_traceback(no_tb, a),
+                            all_args)
+    all_bound = sum(window_sweep_bound(a)[0] for a in all_args)
+    all_rows = sum(int(a[7].max()) for a in all_args)
     log(f"[chip_smoke] K1 over all {len(batches)} captured batches: "
-        f"kernel {all_ms:.2f} ms, bound {all_bound:.4f} ms")
+        f"kernel {all_ms:.2f} ms, bound {all_bound:.4f} ms; "
+        f"{all_ms * 1e6 / all_rows:.0f} ns per DP row over {all_rows} rows; "
+        f"without traceback {all_tb_free:.2f} ms (traceback share "
+        f"{100 * (1 - all_tb_free / all_ms):.1f}%)")
     report["window_sweep"] = buckets
-    report["window_sweep_all"] = {"batches": len(batches), "ms": all_ms,
-                                  "bound_ms": all_bound}
+    report["window_sweep_all"] = {
+        "batches": len(batches), "ms": all_ms, "bound_ms": all_bound,
+        "dp_rows": all_rows, "ns_per_dp_row": all_ms * 1e6 / all_rows,
+        "no_traceback_ms": all_tb_free,
+        "traceback_share": 1.0 - all_tb_free / all_ms}
     batches.clear()
-    return {"name": "window_sweep", "route": "cuda",
-            "source": "racon_tpu_torch/csrc/poa_window_sweep.cu",
-            "replaces": "racon_tpu/ops/poa_pallas.py:91",
-            "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": None}
+    return ({"name": "window_sweep", "route": "cuda",
+             "source": "racon_tpu_torch/csrc/poa_window_sweep.cu",
+             "replaces": "racon_tpu/ops/poa_pallas.py:91",
+             "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
+             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+             "bound_by": by, "library_ms": None}, windows)
 
 
 def check_wavefront(dev, draft, reads, paf, report) -> dict:
@@ -469,6 +619,61 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
         raise SystemExit(f"polished distance {d_pol} not below the "
                          f"draft's {d_draft}")
     return k1, k2
+
+
+def profile_consensus(dev, windows, report) -> None:
+    """Phase 6: one torch.profiler pass over a consensus phase of the
+    200 kb workload (the session engine on the phase-2 windows), after
+    the timed main path. Prints K1's summed device time, the device's
+    busy share of the phase's wall (the union of its kernel and copy
+    intervals over the host-clocked wall), and the five host-side ranges
+    with the longest summed time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+
+    eng = DeviceGraphPOA(MATCH, MISMATCH, GAP, device=dev,
+                         num_threads=os.cpu_count())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.consensus(windows)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy_us = 0.0
+    end = float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    k1_us = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and "window_sweep_kernel" in e.name)
+    k1_n = sum(1 for e in events if e.device_type == DeviceType.CUDA
+               and "window_sweep_kernel" in e.name)
+    host = sorted(((k.cpu_time_total, k.key, k.count)
+                   for k in prof.key_averages()
+                   if k.device_type == DeviceType.CPU),
+                  reverse=True)[:5]
+    share = busy_us / (wall_s * 1e6)
+    log(f"[chip_smoke] profile: consensus phase wall {wall_s:.3f} s under "
+        f"the profiler; K1 device time {k1_us / 1e3:.1f} ms over {k1_n} "
+        f"launches; device busy {busy_us / 1e3:.1f} ms = "
+        f"{100 * share:.1f}% of the wall")
+    for us, name, count in host:
+        log(f"[chip_smoke] profile host range {name}: {us / 1e3:.1f} ms "
+            f"over {count} calls")
+    report["profile_consensus"] = {
+        "wall_s": wall_s, "k1_device_ms": k1_us / 1e3, "k1_launches": k1_n,
+        "device_busy_ms": busy_us / 1e3, "device_busy_share": share,
+        "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
+                        for us, n, c in host]}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,9 @@ Jobs are padded into a fixed set of (nodes, len) buckets, each with one
 batch width pinned from the card's free memory (the 90%-of-free rule of
 cudapolisher.cpp:169-173). Batches launch asynchronously on the current
 stream; the host commits the oldest batch while younger ones compute.
+The host steps are `torch.profiler` ranges (poa.prepare, poa.dispatch,
+poa.wait, poa.commit, poa.finish), so a profiler trace splits the
+consensus wall between them and the kernels.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from collections import deque
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import free_bytes, resolve
 from ..utils.logger import Logger, log_info
@@ -192,13 +196,20 @@ def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
     return align
 
 
+def scratch_cols(seq_len: int) -> int:
+    """Columns of a node row in the window-sweep kernel's scratch: the
+    widest window (`seq_len`, a band-0 job) rounded up to 16 bytes of
+    int8 backpointers."""
+    return -(-seq_len // 16) * 16
+
+
 def _bytes_per_row(n_nodes: int, seq_len: int, max_pred: int) -> int:
-    """Device bytes one batch row costs while its kernel runs: the H score
-    scratch, the backpointer plane, and the densified inputs."""
-    h = (n_nodes + 1) * (seq_len + 1) * 4
-    bp = n_nodes * (seq_len + 1)
+    """Device bytes one batch row costs while its kernel runs: the
+    band-compact score spill (int32) and backpointer plane (int8), one
+    row window per node, and the densified inputs."""
+    scratch = n_nodes * scratch_cols(seq_len) * (4 + 1)
     inputs = n_nodes * (2 * max_pred + 4) + seq_len
-    return h + bp + inputs
+    return scratch + inputs
 
 
 def pin_pow2_rows(budget: int, per_row: int, lo: int = 8,
@@ -300,11 +311,13 @@ class DeviceGraphPOA:
             if freed >= threshold or not inflight:
                 burst = 0
                 while len(inflight) < depth:
-                    jobs = session.prepare(half)
+                    with record_function("poa.prepare"):
+                        jobs = session.prepare(half)
                     if jobs is None:
                         break
                     burst += jobs["n"]
-                    inflight.extend(self._dispatch_round(jobs))
+                    with record_function("poa.dispatch"):
+                        inflight.extend(self._dispatch_round(jobs))
                 if burst:
                     freed = 0
                     threshold = max(8, burst // 2)
@@ -313,15 +326,18 @@ class DeviceGraphPOA:
             # commit the oldest batch (waits only for ITS result; younger
             # batches keep computing)
             win, layer, band, npart, lb, out, rows = inflight.popleft()
-            ranks = out.cpu().numpy()[rows][:, :lb]
-            session.commit(win, layer, band, ranks)
+            with record_function("poa.wait"):
+                ranks = out.cpu().numpy()[rows][:, :lb]
+            with record_function("poa.commit"):
+                session.commit(win, layer, band, ranks)
             freed += npart
             if bar is not None:
                 for _ in range(npart):
                     bar("[racon_tpu_torch::Polisher.polish] "
                         "aligning layers to graphs on device")
         self.last_stats = session.stats()
-        results = session.finish(self.num_threads)
+        with record_function("poa.finish"):
+            results = session.finish(self.num_threads)
         session.close()
         return results
 

@@ -15,18 +15,18 @@ import torch
 
 from .. import _build
 from ..errors import DeviceError
-from .poa_graph import graph_aligner
+from .poa_graph import graph_aligner, scratch_cols
 
 #: kernel launches since import (or the last reset), in all and per
 #: (N, L) bucket
 launches = 0
 launches_by_shape: dict[tuple[int, int], int] = {}
 
-#: the kernel's limits: threads hold the L+1 columns as contiguous runs
-#: of at most 4, and predecessor ranks sit in shared memory
-THREADS = 256
-MAX_COLS = 4 * THREADS
-MAX_PRED = 16
+#: the kernel's limits: a team of 128 threads holds a row's window as
+#: runs of at most 5 columns, and the predecessor count is a template
+#: parameter
+MAX_COLS = 128 * 5
+PREDS = (4, 8)
 
 _DTYPES = (torch.int8, torch.int16, torch.int16, torch.uint8, torch.int8,
            torch.int32, torch.int32, torch.int32)
@@ -38,6 +38,24 @@ def reset_launches() -> None:
     global launches
     launches = 0
     launches_by_shape.clear()
+
+
+def ring_rows(n_nodes: int, seq_len: int, max_pred: int, width: int) -> int:
+    """Rows of the kernel's shared-memory ring for a job whose row windows
+    are `width` columns wide, at this launch shape (band + 1 for a banded
+    job, its layer length for band 0). Asks the built kernel library, so
+    it needs the CUDA toolkit."""
+    return int(_build.kernels().rt_poa_ring_rows(n_nodes, seq_len, max_pred,
+                                                 width))
+
+
+def scratch(B: int, N: int, L: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's device-memory scratch: every job's swept rows,
+    band-compact (its window of at most L columns, each row 16-byte
+    aligned), int32 scores and int8 backpointers."""
+    cols = scratch_cols(L)
+    return (torch.empty((B, N, cols), dtype=torch.int32, device=dev),
+            torch.empty((B, N, cols), dtype=torch.int8, device=dev))
 
 
 def window_sweep(codes, preds, centers, sinks, seq, lens, band, nnodes,
@@ -63,22 +81,24 @@ def window_sweep(codes, preds, centers, sinks, seq, lens, band, nnodes,
             or lens.shape != (B,) or band.shape != (B,)
             or nnodes.shape != (B,)):
         raise DeviceError("window_sweep", "inconsistent job shapes")
-    if L + 1 > MAX_COLS or P > MAX_PRED:
+    if L > MAX_COLS or P not in PREDS:
         raise DeviceError("window_sweep",
                           f"layer length {L} or in-degree {P} beyond the "
-                          f"kernel's limits ({MAX_COLS - 1}, {MAX_PRED})")
+                          f"kernel's limits ({MAX_COLS}, one of {PREDS})")
+    if ring_rows(N, L, P, L) < min(N, 2):
+        raise DeviceError("window_sweep",
+                          f"{N} nodes at in-degree {P} leave no shared "
+                          f"memory for two {L}-column rows")
     dev = codes.device
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    # device-memory scratch: the score matrix and the backpointer plane
-    H = torch.empty((B, N + 1, L + 1), dtype=torch.int32, device=dev)
-    bps = torch.empty((B, N, L + 1), dtype=torch.int8, device=dev)
+    spill, bps = scratch(B, N, L, dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rt_poa_window_sweep(
-            *(t.data_ptr() for t in args), H.data_ptr(), bps.data_ptr(),
+            *(t.data_ptr() for t in args), spill.data_ptr(), bps.data_ptr(),
             out.data_ptr(), B, N, L, P, match, mismatch, gap, stream)
     _build.check(lib, rc, "window_sweep")
     launches += 1

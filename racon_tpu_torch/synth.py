@@ -5,7 +5,8 @@ each at rate/3), and PAF overlaps from the simulation's coordinates.
 The same generator, stream for stream, as the repository's
 tools/synthbench.py (`mutate`, `simulate`; Python `random`), so a seed
 gives the same bytes here and there; `write_dataset` writes the
-reads/overlaps/draft files the CLI takes.
+reads/overlaps/draft files the CLI takes. `poa_jobs` makes seeded
+window-sweep jobs (numpy) for the kernel's edge cases.
 
     rng = random.Random(42)
     truth, draft, reads, paf = simulate(rng, 50_000, 20, 8000, 0.12, 0.10)
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import gzip
 import os
+
+import numpy as np
 
 ACGT = b"ACGT"
 
@@ -77,3 +80,69 @@ def write_dataset(directory, draft, reads, paf) -> tuple[str, str, str]:
     with gzip.open(draft_path, "wb", compresslevel=1) as f:
         f.write(b">draft\n" + draft + b"\n")
     return reads_path, paf_path, draft_path
+
+
+def poa_jobs(seed, B, N, L, P, bands, far=0, pad_rows=0, empty_layers=0):
+    """B window-sweep jobs in the session's layout, from a seed: what
+    real session jobs rarely reach.
+
+    Job 0 has all N nodes and a layer of length L; the others draw both.
+    Node k's predecessors (DP rows, rank + 1) are topo-ordered: the chain
+    row k - 1, rows a few ranks back, every seventh node at in-degree P,
+    and with `far` one edge at least `far` ranks back on every fifth
+    node. A tenth of the lists put their padding (-1) between real
+    entries. Band centers follow the diagonal with noise reaching past
+    column 1 and past the layer's end, and a twentieth of them lie off
+    the layer (an empty window). Every third job's centers drift at half
+    the diagonal's slope, so a band misses the layer's end and the
+    traceback leaves the band (the clipped case the session redoes at
+    band 0). Bands cycle through `bands`. The last
+    `pad_rows` jobs are node-less padding (nnodes 0), the `empty_layers`
+    before them have a layer of length 0.
+    Returns (codes, preds, centers, sinks, seq, lens, band, nnodes)."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((B, N), 5, np.int8)
+    preds = np.full((B, N, P), -1, np.int16)
+    centers = np.zeros((B, N), np.int16)
+    sinks = np.zeros((B, N), np.uint8)
+    seq = np.full((B, L), 5, np.int8)
+    lens = np.zeros(B, np.int32)
+    band = np.zeros(B, np.int32)
+    nnodes = np.zeros(B, np.int32)
+    for b in range(B - pad_rows):
+        nn = N if b == 0 else int(rng.integers(max(1, N // 2), N + 1))
+        slen = L if b == 0 else int(rng.integers(L // 2, L + 1))
+        if b >= B - pad_rows - empty_layers:
+            slen = 0
+        bw = bands[b % len(bands)]
+        nnodes[b], lens[b], band[b] = nn, slen, bw
+        codes[b, :nn] = rng.integers(0, 4, nn)
+        seq[b, :slen] = rng.integers(0, 4, slen)
+        for k in range(1, nn + 1):
+            deg = P if k % 7 == 0 else int(rng.integers(1, 3))
+            cand = [k - 1]
+            if far and k % 5 == 0 and k > far:
+                cand.append(int(rng.integers(0, k - far + 1)))
+            while len(cand) < 4 * deg:
+                cand.append(int(rng.integers(max(0, k - 12), k)))
+            row = list(dict.fromkeys(cand))[:deg]
+            rng.shuffle(row)
+            slots = (np.sort(rng.choice(P, len(row), replace=False))
+                     if k % 10 == 3 else np.arange(len(row)))
+            preds[b, k - 1, slots] = row
+            slope = 2 if b % 3 == 1 else 1
+            c = (k * slen) // (nn * slope) + int(
+                rng.integers(-bw // 2 - 8, bw // 2 + 9))
+            if k % 20 == 11:
+                c = int(rng.integers(-bw - 8, slen + bw + 9))
+            centers[b, k - 1] = c
+        sinks[b, nn - 1] = 1
+        sinks[b, :nn] |= (rng.random(nn) < 0.1).astype(np.uint8)
+    return codes, preds, centers, sinks, seq, lens, band, nnodes
+
+
+def max_pred_distance(preds, nnodes):
+    """The largest k - pred over the real rows of every job."""
+    k = np.arange(1, preds.shape[1] + 1)[None, :, None]
+    real = (preds >= 0) & (k <= nnodes[:, None, None])
+    return int(np.where(real, k - preds, 0).max(initial=0))
