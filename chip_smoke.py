@@ -17,8 +17,14 @@ Phases, in order; any mismatch or exception exits non-zero:
      scratch copy of the source without the traceback, built beside the
      kernels and timed on the same batches);
   3. K2 (csrc/align_wavefront.cu) against its plain version on the
-     workload's real overlap pairs at their buckets: ops, count,
-     distance and touched flag must be identical;
+     workload's real overlap pairs, batched as the main path batches
+     them (the fullest batch of each (edge, band) and the last, partial
+     one), and on two adversarial batches (synth.align_pairs at the main
+     path's (8192, 896), where some pair must be band-touched, and at
+     edge 512 with the widest band the wrapper takes): ops, count,
+     distance and touched flag must be identical. Prints ns per wavefront
+     (kernel ms over the batch's largest m + n), the traceback's share (a
+     no-traceback copy of the source, as for K1) and the plane's bytes;
   4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
      synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
      byte for byte;
@@ -28,7 +34,9 @@ Phases, in order; any mismatch or exception exits non-zero:
      polished contig must be closer to the simulated truth than the draft;
   6. one torch.profiler pass over a consensus phase of the same workload
      (after the timed main path): K1's summed device time, the device's
-     busy share of the phase's wall, the five longest host-side ranges.
+     busy share of the phase's wall, the five longest host-side ranges;
+  7. the same over one BatchAligner.align pass over the workload's
+     overlap pairs, for K2.
 
 Prints per-phase numbers, then the kernel line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -48,11 +56,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
-#: non-tensor-core 32-bit rate, the table's nearest entry for the
-#: kernels' int32 DP arithmetic
+#: peak rates of one H100 SXM: HBM bytes/s (NVIDIA data sheet), and the
+#: 32-bit integer rate the kernels' DP runs at (adds, compares, mins and
+#: selects; no FMAs): 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA Hopper
+#: architecture white paper)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+PEAK_OPS = 132 * 64 * 1.98e9
 
 MATCH, MISMATCH, GAP = 5, -4, -8
 
@@ -111,7 +120,10 @@ def main() -> int:
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
-    notb = build_without_traceback()
+    notb = build_without_traceback("poa_window_sweep.cu",
+                                   "rt_poa_window_sweep", 11, 7)
+    notb2 = build_without_traceback("align_wavefront.cu",
+                                    "rt_align_wavefront", 8, 4)
     _build.kernels()
     k_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -121,7 +133,7 @@ def main() -> int:
         f"({'cached' if _build.build_info.get('cached') else 'nvcc'}), "
         f"host library {n_s:.2f} s; card {card}")
     for line in _build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[chip_smoke]   ptxas: {line.strip()}")
     report["build_s"] = {"kernels": k_s, "host": n_s}
 
@@ -138,12 +150,13 @@ def main() -> int:
     kernels = []
     k1, windows = check_window_sweep(dev, big, report, notb)
     kernels.append(k1)
-    kernels.append(check_wavefront(dev, draft, reads, paf, report))
+    kernels.append(check_wavefront(dev, draft, reads, paf, report, notb2))
     check_golden(workdir, report)
     k1_launches, k2_launches = main_path(dev, big, truth, draft, report)
     kernels[0]["launches"] = k1_launches
     kernels[1]["launches"] = k2_launches
     profile_consensus(dev, windows, report)
+    profile_align(dev, overlap_pairs(draft, reads, paf), report)
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -162,44 +175,49 @@ def main() -> int:
 TRACEBACK = ("    // -- traceback --\n", "    // -- end traceback --\n")
 
 
-def build_without_traceback():
-    """Start nvcc on a scratch copy of the K1 source with its traceback
-    cut out (between the source's traceback markers): the difference in
-    time to the full kernel is the traceback's share. Returns the
-    running process and the library it writes."""
+def build_without_traceback(source: str, symbol: str, n_ptr: int,
+                            n_int: int):
+    """Start nvcc on a scratch copy of a kernel source (a file of csrc/)
+    with its traceback cut out (between the source's traceback markers):
+    the difference in time to the full kernel is the traceback's share.
+    Returns what load_without_traceback needs: the running process, the
+    library it writes, and the C entry point's name and signature
+    (n_ptr pointers, n_int ints, the stream)."""
     from racon_tpu_torch import _build
 
-    src = open(os.path.join(_build.CSRC, "poa_window_sweep.cu")).read()
+    src = open(os.path.join(_build.CSRC, source)).read()
     head, rest = src.split(TRACEBACK[0])
     _, tail = rest.split(TRACEBACK[1])
     d = os.path.join(HERE, "build", "scratch")
     os.makedirs(d, exist_ok=True)
-    cu = os.path.join(d, "poa_window_sweep_no_traceback.cu")
+    stem = os.path.splitext(source)[0]
+    cu = os.path.join(d, f"{stem}_no_traceback.cu")
     with open(cu, "w") as fh:
         fh.write(head + tail)
-    lib = os.path.join(d, f"libk1_no_traceback-{os.getpid()}.so")
+    lib = os.path.join(d, f"lib{stem}_no_traceback-{os.getpid()}.so")
     proc = subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, cu],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, lib
+    return proc, lib, symbol, n_ptr, n_int
 
 
 def load_without_traceback(notb):
+    """The no-traceback copy's C entry point, once nvcc has finished."""
     import ctypes
 
-    proc, path = notb
+    proc, path, symbol, n_ptr, n_int = notb
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc of the no-traceback copy failed:\n{text}")
-    lib = ctypes.CDLL(path)
-    lib.rt_poa_window_sweep.restype = ctypes.c_int
-    lib.rt_poa_window_sweep.argtypes = ([ctypes.c_void_p] * 11
-                                        + [ctypes.c_int] * 7
-                                        + [ctypes.c_void_p])
-    return lib
+        raise SystemExit(f"nvcc of the no-traceback copy of {symbol} "
+                         f"failed:\n{text}")
+    fn = getattr(ctypes.CDLL(path), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
+    return fn
 
 
-def sweep_without_traceback(lib, args):
+def sweep_without_traceback(fn, args):
     """One launch of the no-traceback copy, scratch allocated as the
     wrapper allocates it (not counted as a launch of K1)."""
     import torch
@@ -212,7 +230,7 @@ def sweep_without_traceback(lib, args):
     dev = args[0].device
     spill, bps = scratch(B, N, L, dev)
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
-    rc = lib.rt_poa_window_sweep(
+    rc = fn(
         *(t.data_ptr() for t in args), spill.data_ptr(), bps.data_ptr(),
         out.data_ptr(), B, N, L, P, MATCH, MISMATCH, GAP,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -263,7 +281,8 @@ def window_sweep_bound(args) -> tuple[float, str]:
     return bound(nbytes, ops)
 
 
-def wavefront_bound(q_lens, t_lens, offsets, band, count) -> tuple[float, str]:
+def wavefront_bound(q_lens, t_lens, offsets, band,
+                    count) -> tuple[float, str]:
     """Least time for one wavefront_align batch: each pair's bases,
     lengths and band offsets up to wavefront m + n read once, its ops and
     meta written once; or the DP cells inside both the band and the
@@ -413,14 +432,16 @@ def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
         ns_row = ms * 1e6 / rows_k
         row = {"bucket": list(key), "jobs": n, "rows": B, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-               "dp_rows": rows_k, "ns_per_dp_row": ns_row,
+               "dp_rows": rows_k,
+               "ns_per_dp_row": ns_row,
                "no_traceback_ms": tb_free,
                "traceback_share": 1.0 - tb_free / ms}
         buckets.append(row)
         log(f"[chip_smoke] K1 bucket {key}: {n} jobs / {B} rows identical; "
             f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.4f} ms ({by}); {ns_row:.0f} ns per DP row over "
-            f"{rows_k} rows; without traceback {tb_free:.3f} ms "
+            f"{b_ms:.4f} ms ({by}); "
+            f"{ns_row:.0f} ns per DP row over {rows_k} rows; "
+            f"without traceback {tb_free:.3f} ms "
             f"(traceback share {100 * (1 - tb_free / ms):.1f}%)")
         total["ms"] += ms
         total["plain_ms"] += plain_ms
@@ -451,76 +472,201 @@ def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
              "bound_by": by, "library_ms": None}, windows)
 
 
-def check_wavefront(dev, draft, reads, paf, report) -> dict:
-    """Phase 3: K2 against its plain version on the workload's overlap
-    pairs, batched as the main path batches them: the first batch of
-    each (edge, band) compared and timed, every batch timed."""
-    import torch
-
-    from racon_tpu_torch.ops import align_kernels
-    from racon_tpu_torch.ops.align import BatchAligner, banded_nw, traceback
-
+def overlap_pairs(draft, reads, paf) -> list:
+    """The workload's (query, target) overlap pairs, each read in its
+    overlap's strand against its draft span, as the main path aligns
+    them."""
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     pairs = []
     for (name, read), rec in zip(reads, paf):
         f = rec.split("\t")
         q = read.translate(comp)[::-1] if f[4] == "-" else read
         pairs.append((q, draft[int(f[7]):int(f[8])]))
+    return pairs
+
+
+def adversarial_pairs(dev) -> list:
+    """Phase 3's adversarial batches (synth.align_pairs, every kind):
+    one at the main path's (8192, 896), one at edge 512 with the widest
+    band the wrapper takes."""
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.align_kernels import MAX_BAND
+    from racon_tpu_torch.synth import align_pairs
+
+    al = BatchAligner(device=dev)
+    out = []
+    for edge, band in ((8192, 896), (512, MAX_BAND)):
+        pairs = align_pairs(3, edge, band)
+        out.append((edge, band, al.operands(pairs, edge, band,
+                                            list(range(len(pairs))))))
+    return out
+
+
+def compare_wavefront(dev, c):
+    """K2 and its plain version on one batch: identical ops[:count],
+    count, distance and touched flag, or exit. Returns (ops, meta, plain
+    ms, max |diff| of meta)."""
+    import torch
+
+    from racon_tpu_torch.ops import align_kernels
+    from racon_tpu_torch.ops.align import banded_nw, traceback
+
+    edge, band, (q, t, ql, tl, offs) = c
+    ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, dist = banded_nw(q, t, ql, tl, offs, band)
+    w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del bp
+    mask = mask_of(meta, ops)
+    err = int((meta - w_meta).abs().max())
+    if err or not torch.equal(ops * mask, w_ops * mask):
+        raise SystemExit(f"K2 wavefront_align disagrees with its plain "
+                         f"version at bucket {edge} band {band}: meta max "
+                         f"|diff| {err}")
+    return ops, meta, plain_ms, err
+
+
+def mask_of(meta, ops):
+    """1 on each lane's first `count` ops, 0 past them."""
+    import torch
+
+    pos = torch.arange(ops.shape[1], device=ops.device)[None, :]
+    return (pos < meta[:, :1]).to(ops.dtype)
+
+
+def plane_bytes(c) -> int:
+    """Bytes of the backpointer plane the wrapper allocates for a batch."""
+    from racon_tpu_torch.ops import align_kernels
+
+    _, band, (q, _, _, _, offs) = c
+    x = align_kernels.scratch(0, offs.shape[1], band, q.device)
+    return q.shape[0] * x.shape[1] * x.shape[2] * x.element_size()
+
+
+def launch_k2(fn, c):
+    """One launch of a K2 C entry point (its no-traceback copy's) on
+    batch `c`, the plane allocated as the wrapper allocates it; not
+    counted as a launch of K2. Returns (ops, meta)."""
+    import torch
+
+    from racon_tpu_torch.ops import align_kernels
+
+    edge, band, args = c
+    q, offs = args[0], args[4]
+    B, n_waves = q.shape[0], offs.shape[1]
+    bps = align_kernels.scratch(B, n_waves, band, q.device)
+    ops = torch.empty((B, n_waves), dtype=torch.int32, device=q.device)
+    meta = torch.empty((B, 3), dtype=torch.int32, device=q.device)
+    rc = fn(*(x.data_ptr() for x in args), bps.data_ptr(), ops.data_ptr(),
+            meta.data_ptr(), B, edge, band, n_waves,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise SystemExit(f"K2 no-traceback copy failed to launch: {rc}")
+    return ops, meta
+
+
+def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
+    """Phase 3: K2 against its plain version on the workload's overlap
+    pairs, batched as the main path batches them: the fullest (first)
+    batch of each (edge, band) and the last, partial batch of each that
+    has several, compared; the fullest timed, with and without the
+    traceback (the no-traceback copy `notb`); every batch replayed; then
+    the adversarial batches (adversarial_pairs) compared and timed."""
+    from racon_tpu_torch.ops import align_kernels
+    from racon_tpu_torch.ops.align import BatchAligner
+
+    pairs = overlap_pairs(draft, reads, paf)
     al = BatchAligner(device=dev)
     chunks = [(edge, band, al.operands(pairs, edge, band, idx))
               for edge, band, idx in al.chunks(pairs)]
+    no_tb = load_without_traceback(notb)
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
     rows = []
     by = "bytes"
-    seen = set()
-    for edge, band, (q, t, ql, tl, offs) in chunks:
-        if (edge, band) in seen:
-            continue
-        seen.add((edge, band))
-        ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bp, dist = banded_nw(q, t, ql, tl, offs, band)
-        w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        del bp
-        cnt = meta[:, 0]
-        mask = torch.arange(ops.shape[1], device=dev)[None, :] < cnt[:, None]
-        err = int((meta - w_meta).abs().max())
-        if err or not torch.equal(ops[mask], w_ops[mask]):
-            raise SystemExit(f"K2 wavefront_align disagrees with its plain "
-                             f"version at bucket {edge}: meta max |diff| "
-                             f"{err}")
+    cases = []
+    for c in chunks:
+        same = [x for x in chunks if x[:2] == c[:2]]
+        if c is same[0]:
+            cases.append(("fullest", c))
+        elif c is same[-1]:
+            cases.append(("last partial", c))
+    cases += [("adversarial", c) for c in adversarial_pairs(dev)]
+    for kind, c in cases:
+        edge, band, (q, t, ql, tl, offs) = c
+        ops, meta, plain_ms, err = compare_wavefront(dev, c)
         total["err"] = max(total["err"], err)
+        n_touched = int(meta[:, 2].sum())
+        # a band narrower than the bucket can be touched, and the
+        # band-edge pairs must touch it (a wider band covers every row of
+        # every pair's matrix)
+        if kind == "adversarial" and band < edge and not n_touched:
+            raise SystemExit(f"K2 adversarial batch at bucket {edge} band "
+                             f"{band}: no pair band-touched, so the "
+                             f"traceback's band-edge cells went untested")
+        if kind == "last partial":
+            log(f"[chip_smoke] K2 last partial batch at bucket {edge} band "
+                f"{band}: {len(ql)} pairs identical ({n_touched} "
+                f"band-touched)")
+            continue
         ms = cuda_ms(lambda: align_kernels.wavefront_align(
             q, t, ql, tl, offs, band), reps=2)
-        b_ms, by = wavefront_bound(ql, tl, offs, band, cnt)
-        n_touched = int(meta[:, 2].sum())
-        log(f"[chip_smoke] K2 bucket {edge} band {band}: {len(ql)} pairs "
-            f"identical ({n_touched} band-touched); kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({by})")
-        rows.append({"edge": edge, "band": band, "pairs": len(ql),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": by, "touched": n_touched})
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += b_ms
+        tb_free = cuda_ms(lambda: launch_k2(no_tb, c),
+                          reps=2)
+        b_ms, by = wavefront_bound(ql, tl, offs, band, meta[:, 0])
+        waves = int((ql.long() + tl.long()).max()) + 1
+        plane = plane_bytes(c)
+        row = {"kind": kind, "edge": edge, "band": band, "pairs": len(ql),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": by,
+               "touched": n_touched, "wavefronts": waves,
+               "ns_per_wavefront": ms * 1e6 / waves,
+               "no_traceback_ms": tb_free,
+               "traceback_share": 1.0 - tb_free / ms, "plane_bytes": plane}
+        rows.append(row)
+        log(f"[chip_smoke] K2 {kind} batch at bucket {edge} band {band}: "
+            f"{len(ql)} pairs identical ({n_touched} band-touched); kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+            f"({by}); {ms * 1e6 / waves:.0f} ns "
+            f"per wavefront over {waves}; without traceback {tb_free:.3f} "
+            f"ms (traceback share {100 * (1 - tb_free / ms):.1f}%); plane "
+            f"{plane} bytes")
+        if kind == "fullest":
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["bound_ms"] += b_ms
 
     def align(c):
         edge, band, (q, t, ql, tl, offs) = c
         return align_kernels.wavefront_align(q, t, ql, tl, offs, band)
 
     all_ms = replay_ms(align, chunks)
+    all_tb_free = replay_ms(lambda c: launch_k2(no_tb, c),
+                            chunks)
     all_bound = 0.0
+    all_waves = all_plane = 0
     for c in chunks:
         _, band, (q, t, ql, tl, offs) = c
-        all_bound += wavefront_bound(ql, tl, offs, band, align(c)[1][:, 0])[0]
+        cnt = align(c)[1][:, 0]
+        all_bound += wavefront_bound(ql, tl, offs, band, cnt)[0]
+        all_waves += int((ql.long() + tl.long()).max()) + 1
+        all_plane += plane_bytes(c)
     log(f"[chip_smoke] K2 over all {len(chunks)} batches: kernel "
-        f"{all_ms:.2f} ms, bound {all_bound:.4f} ms")
+        f"{all_ms:.2f} ms, bound {all_bound:.4f} ms; "
+        f"{all_ms * 1e6 / all_waves:.0f} ns per wavefront over "
+        f"{all_waves}; without traceback {all_tb_free:.2f} ms (traceback "
+        f"share {100 * (1 - all_tb_free / all_ms):.1f}%); planes "
+        f"{all_plane} bytes")
     report["wavefront_align"] = rows
-    report["wavefront_align_all"] = {"batches": len(chunks), "ms": all_ms,
-                                     "bound_ms": all_bound}
+    report["wavefront_align_all"] = {
+        "batches": len(chunks), "ms": all_ms, "bound_ms": all_bound,
+        "wavefronts": all_waves,
+        "ns_per_wavefront": all_ms * 1e6 / all_waves,
+        "no_traceback_ms": all_tb_free,
+        "traceback_share": 1.0 - all_tb_free / all_ms,
+        "plane_bytes": all_plane}
     return {"name": "wavefront_align", "route": "cuda",
             "source": "racon_tpu_torch/csrc/align_wavefront.cu",
             "replaces": "racon_tpu/ops/align_pallas.py:91",
@@ -621,26 +767,20 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
     return k1, k2
 
 
-def profile_consensus(dev, windows, report) -> None:
-    """Phase 6: one torch.profiler pass over a consensus phase of the
-    200 kb workload (the session engine on the phase-2 windows), after
-    the timed main path. Prints K1's summed device time, the device's
-    busy share of the phase's wall (the union of its kernel and copy
-    intervals over the host-clocked wall), and the five host-side ranges
-    with the longest summed time."""
+def profile_phase(label: str, run, kernel: str, short: str) -> dict:
+    """One torch.profiler pass over `run()`: the summed device time of the
+    kernel whose name holds `kernel`, the device's busy share of the
+    host-clocked wall (the union of its kernel and copy intervals), and
+    the five host-side ranges with the longest summed time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
-
-    eng = DeviceGraphPOA(MATCH, MISMATCH, GAP, device=dev,
-                         num_threads=os.cpu_count())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.consensus(windows)
+        run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     events = prof.events()
@@ -652,28 +792,51 @@ def profile_consensus(dev, windows, report) -> None:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    k1_us = sum(e.time_range.elapsed_us() for e in events
-                if e.device_type == DeviceType.CUDA
-                and "window_sweep_kernel" in e.name)
-    k1_n = sum(1 for e in events if e.device_type == DeviceType.CUDA
-               and "window_sweep_kernel" in e.name)
+    mine = [e for e in events
+            if e.device_type == DeviceType.CUDA and kernel in e.name]
+    k_us = sum(e.time_range.elapsed_us() for e in mine)
     host = sorted(((k.cpu_time_total, k.key, k.count)
                    for k in prof.key_averages()
                    if k.device_type == DeviceType.CPU),
                   reverse=True)[:5]
     share = busy_us / (wall_s * 1e6)
-    log(f"[chip_smoke] profile: consensus phase wall {wall_s:.3f} s under "
-        f"the profiler; K1 device time {k1_us / 1e3:.1f} ms over {k1_n} "
-        f"launches; device busy {busy_us / 1e3:.1f} ms = "
+    log(f"[chip_smoke] profile: {label} wall {wall_s:.3f} s under the "
+        f"profiler; {short} device time {k_us / 1e3:.1f} ms over "
+        f"{len(mine)} launches; device busy {busy_us / 1e3:.1f} ms = "
         f"{100 * share:.1f}% of the wall")
     for us, name, count in host:
-        log(f"[chip_smoke] profile host range {name}: {us / 1e3:.1f} ms "
-            f"over {count} calls")
-    report["profile_consensus"] = {
-        "wall_s": wall_s, "k1_device_ms": k1_us / 1e3, "k1_launches": k1_n,
-        "device_busy_ms": busy_us / 1e3, "device_busy_share": share,
-        "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
-                        for us, n, c in host]}
+        log(f"[chip_smoke] profile {label} host range {name}: "
+            f"{us / 1e3:.1f} ms over {count} calls")
+    return {"wall_s": wall_s, "kernel_device_ms": k_us / 1e3,
+            "kernel_launches": len(mine), "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": share,
+            "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
+                            for us, n, c in host]}
+
+
+def profile_consensus(dev, windows, report) -> None:
+    """Phase 6: one profiled consensus phase of the 200 kb workload (the
+    session engine on the phase-2 windows), after the timed main path;
+    K1 is its kernel."""
+    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+
+    eng = DeviceGraphPOA(MATCH, MISMATCH, GAP, device=dev,
+                         num_threads=os.cpu_count())
+    report["profile_consensus"] = profile_phase(
+        "consensus phase", lambda: eng.consensus(windows),
+        "window_sweep_kernel", "K1")
+
+
+def profile_align(dev, pairs, report) -> None:
+    """Phase 7: one profiled BatchAligner.align pass over the 200 kb
+    workload's overlap pairs (its ranges align.operands, align.kernel,
+    align.decode); K2 is its kernel."""
+    from racon_tpu_torch.ops.align import BatchAligner
+
+    al = BatchAligner(device=dev)
+    report["profile_align"] = profile_phase(
+        "align phase", lambda: al.align(pairs), "align_wavefront_kernel",
+        "K2")
 
 
 if __name__ == "__main__":

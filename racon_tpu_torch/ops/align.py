@@ -11,13 +11,15 @@ fixed (diagonal < up/I < left/D), so the output is bit-stable.
 
 `banded_nw` + `traceback` are the plain PyTorch version of the CUDA
 kernel ops/align_kernels.wavefront_align; `BatchAligner` buckets pairs
-and runs them through the wrapper on its device.
+and runs them through the wrapper on its device, each batch under the
+profiler ranges align.operands, align.kernel and align.decode.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve
 
@@ -255,21 +257,28 @@ class BatchAligner:
 
         results: list[list[tuple[int, str]] | None] = [None] * len(pairs)
         for edge, band, idx in self.chunks(pairs):
-            q, t, q_lens, t_lens, offs = self.operands(pairs, edge, band, idx)
-            ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band)
-            ops = ops.cpu().numpy()
-            meta = meta.cpu().numpy()
-            lens = np.maximum(q_lens.cpu().numpy(), t_lens.cpu().numpy())
-            accepted = 0
-            for lane, i_pair in enumerate(idx):
-                count, dist, touched = (int(v) for v in meta[lane])
-                # an in-band cost far above what a <=30%-error overlap
-                # can produce means the true (off-band) path was clipped
-                if touched or dist > 0.4 * lens[lane]:
-                    self.n_band_rejects += 1
-                    continue
-                results[i_pair] = runs_of(ops[lane, :count][::-1])
-                accepted += 1
+            with record_function("align.operands"):
+                q, t, q_lens, t_lens, offs = self.operands(pairs, edge, band,
+                                                           idx)
+            with record_function("align.kernel"):
+                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band)
+            # the copies back wait for the kernel
+            with record_function("align.decode"):
+                ops = ops.cpu().numpy()
+                meta = meta.cpu().numpy()
+                lens = np.maximum(q_lens.cpu().numpy(),
+                                  t_lens.cpu().numpy())
+                accepted = 0
+                for lane, i_pair in enumerate(idx):
+                    count, dist, touched = (int(v) for v in meta[lane])
+                    # an in-band cost far above what a <=30%-error overlap
+                    # can produce means the true (off-band) path was
+                    # clipped
+                    if touched or dist > 0.4 * lens[lane]:
+                        self.n_band_rejects += 1
+                        continue
+                    results[i_pair] = runs_of(ops[lane, :count][::-1])
+                    accepted += 1
             if progress is not None:
                 progress(accepted)
         return results

@@ -19,7 +19,9 @@ from .align import banded_nw, traceback
 #: kernel launches since import (or the last reset)
 launches = 0
 
-#: three int32 wavefront rows of `band` cells must fit shared memory
+#: the widest band the kernel takes: its shared-memory path, at 32 cells
+#: a thread, fits this band's two int32 wavefronts, staging rings and edge
+#: cells in 231,936 bytes, under the 227 KB a block may have
 MAX_BAND = 227 * 1024 // 12
 
 _DTYPES = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
@@ -31,9 +33,17 @@ def reset_launches() -> None:
     launches = 0
 
 
+def scratch(B: int, n_waves: int, band: int, dev) -> torch.Tensor:
+    """The kernel's device-memory scratch: the backpointer plane, 16
+    cells of 2 bits per int32 word."""
+    return torch.empty((B, n_waves, (band + 15) // 16), dtype=torch.int32,
+                       device=dev)
+
+
 def wavefront_align(q, t, q_lens, t_lens, offsets, band: int):
     """Banded edit-distance alignment of each lane's (q, t) pair, with
-    its traceback."""
+    its traceback. The offsets are as align.band_offsets makes them:
+    0 at wavefront 0, steps of 0 or 1 (the kernel relies on both)."""
     global launches
     if q.device.type == "cpu":
         bp, dist = banded_nw(q, t, q_lens, t_lens, offsets, band)
@@ -57,8 +67,7 @@ def wavefront_align(q, t, q_lens, t_lens, offsets, band: int):
     meta = torch.empty((B, 3), dtype=torch.int32, device=dev)
     if B == 0:
         return ops, meta
-    # device-memory scratch: the int8 backpointer plane
-    bps = torch.empty((B, n_waves, band), dtype=torch.int8, device=dev)
+    bps = scratch(B, n_waves, band, dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -6,7 +6,8 @@ The same generator, stream for stream, as the repository's
 tools/synthbench.py (`mutate`, `simulate`; Python `random`), so a seed
 gives the same bytes here and there; `write_dataset` writes the
 reads/overlaps/draft files the CLI takes. `poa_jobs` makes seeded
-window-sweep jobs (numpy) for the kernel's edge cases.
+window-sweep jobs (numpy) for the kernel's edge cases, `align_pairs`
+seeded pairs for the banded aligner's.
 
     rng = random.Random(42)
     truth, draft, reads, paf = simulate(rng, 50_000, 20, 8000, 0.12, 0.10)
@@ -139,6 +140,69 @@ def poa_jobs(seed, B, N, L, P, bands, far=0, pad_rows=0, empty_layers=0):
         sinks[b, nn - 1] = 1
         sinks[b, :nn] |= (rng.random(nn) < 0.1).astype(np.uint8)
     return codes, preds, centers, sinks, seq, lens, band, nnodes
+
+
+#: pair kinds of align_pairs
+ALIGN_KINDS = ("band_edge", "skewed", "full", "tiny", "n_bases", "short")
+
+
+def align_pairs(seed, edge, band, kinds=ALIGN_KINDS):
+    """(query, target) pairs for the banded aligner at bucket `edge` and
+    band `band`, from a seed: what real overlaps rarely reach. Kinds:
+
+      band_edge  a rotation, and a deletion from the query and one from
+                 the target of max(100, 2 band) bases near the start:
+                 the true path leaves the band by about half the
+                 deletion, so the in-band path rides the band's lower
+                 or upper edge (touched is set) at any band narrower
+                 than about a sixth of the pair;
+      skewed     m >> n and n >> m;
+      full       m = n = edge (a mutated pair and a maximal-cost pair);
+      tiny       pairs of 1 to 3 bases, so a lane's m + n is far below
+                 the batch's largest;
+      n_bases    N in the query and in the target;
+      short      m and n below a third of the band (band > m + 1).
+    """
+    import random
+
+    rng = random.Random(seed)
+
+    def rand(k):
+        return bytes(rng.choice(ACGT) for _ in range(k))
+
+    length = max(8, edge * 4 // 5)
+    base = rand(length)
+    pairs = []
+    for kind in kinds:
+        if kind == "band_edge":
+            cut = min(max(100, 2 * band), length // 3)
+            short = base[:length // 16] + base[length // 16 + cut:]
+            pairs.append((base[length // 4:] + base[:length // 4], base))
+            pairs.append((short, base))
+            pairs.append((base, short))
+        elif kind == "skewed":
+            pairs.append((base, base[:max(1, length // 6)]))
+            pairs.append((base[length // 3:length // 3 + max(1, length // 8)],
+                          base))
+        elif kind == "full":
+            t = rand(edge)
+            q = (mutate(rng, t, 0.1) + rand(edge))[:edge]
+            pairs.append((q, t))
+            pairs.append((b"A" * edge, b"T" * edge))
+        elif kind == "tiny":
+            pairs += [(b"ACG", b"AG"), (b"A", b"C")]
+        elif kind == "n_bases":
+            k = max(1, length // 8)
+            pairs.append((b"ACGTNNAC" * k, b"ACGTACGT" * k))
+            pairs.append((base, base[:length // 2] + b"N" * 9
+                          + base[length // 2 + 9:]))
+        elif kind == "short":
+            k = max(1, min(edge, band // 3))
+            t = rand(k)
+            pairs.append((mutate(rng, t, 0.2)[:edge] or b"A", t))
+        else:
+            raise ValueError(f"unknown pair kind {kind!r}")
+    return pairs
 
 
 def max_pred_distance(preds, nnodes):
