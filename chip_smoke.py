@@ -28,6 +28,10 @@ Phases, in order; any mismatch or exception exits non-zero:
   4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
      synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
      byte for byte;
+  4b. fragment golden: `python -m racon_tpu_torch -f -c 1` on a 40 kb,
+     10x, 8 kb-read all-vs-all read set (synth.simulate_truth +
+     ava_overlaps, seed 42; 50 reads) must reproduce
+     tests/data/synth_frag_golden.fasta byte for byte;
   5. the main path at full size: 200 kb genome, 30x, 8 kb reads (12%
      read error, 10% draft error, w 500, seed 42) polished with
      `-c 1 --cudaaligner-batches 1`; both kernels must launch, and the
@@ -36,11 +40,21 @@ Phases, in order; any mismatch or exception exits non-zero:
      (after the timed main path): K1's summed device time, the device's
      busy share of the phase's wall, the five longest host-side ranges;
   7. the same over one BatchAligner.align pass over the workload's
-     overlap pairs, for K2.
+     overlap pairs, for K2;
+  8. the fragment path at full size: phase 5's reads with their
+     all-vs-all overlaps (min_overlap 1,000), corrected by the port's
+     wrapper in-process (`-f --split 800000 --num-shards 4 --shard-id 0
+     -c 1 --cudaaligner-batches 1`); both kernels must launch, the
+     corrected reads must lie closer to their truth than the raw reads,
+     and every target not dropped as unpolished must be written. The
+     fullest batch of each K1 bucket and of each K2 (edge, band) this
+     path launched is held identical to its plain version and timed, and
+     one BatchAligner.align pass over the shard's pairs is traced.
 
-Prints per-phase numbers, then the kernel line, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
-without a result when no CUDA device is present or when run outside the
+Prints per-phase numbers, then the kernel line (launches on the contig
+path of phase 5 and the fragment path of phase 8, in all and by path),
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}. Exits non-zero without a result when no CUDA device is present or when run outside the
 repository. Imports nothing of JAX or of the JAX package.
 """
 
@@ -110,7 +124,7 @@ def main() -> int:
 
     from racon_tpu_torch import _build, native
     from racon_tpu_torch.device import card_info
-    from racon_tpu_torch.synth import simulate, write_dataset
+    from racon_tpu_torch.synth import simulate_truth, write_dataset
 
     dev = torch.device("cuda", 0)
     card = card_info()
@@ -140,7 +154,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="racon_chip_smoke_")
     rng = random.Random(42)
     t0 = time.perf_counter()
-    truth, draft, reads, paf = simulate(rng, 200_000, 30, 8000, 0.12, 0.10)
+    truth, draft, reads_t, paf = simulate_truth(rng, 200_000, 30, 8000, 0.12,
+                                                0.10)
+    reads = [(r[0], r[1]) for r in reads_t]
     big_dir = os.path.join(workdir, "w200")
     os.makedirs(big_dir)
     big = write_dataset(big_dir, draft, reads, paf)
@@ -152,11 +168,14 @@ def main() -> int:
     kernels.append(k1)
     kernels.append(check_wavefront(dev, draft, reads, paf, report, notb2))
     check_golden(workdir, report)
-    k1_launches, k2_launches = main_path(dev, big, truth, draft, report)
-    kernels[0]["launches"] = k1_launches
-    kernels[1]["launches"] = k2_launches
+    check_fragment_golden(workdir, report)
+    contig = main_path(dev, big, truth, draft, report)
     profile_consensus(dev, windows, report)
     profile_align(dev, overlap_pairs(draft, reads, paf), report)
+    fragment = fragment_path(dev, truth, reads_t, workdir, report)
+    for k, a, b in zip(kernels, contig, fragment):
+        k["launches"] = a + b
+        k["launches_by_path"] = {"contig": a, "fragment": b}
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -675,6 +694,24 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
             "bound_by": by, "library_ms": None}
 
 
+def run_golden(flags, paths, golden: str) -> float:
+    """`python -m racon_tpu_torch` with `flags` on `paths` must write the
+    committed tests/data/`golden` byte for byte. Returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "racon_tpu_torch", *flags, "-m", "5", "-x",
+         "-4", "-g", "-8", "-t", str(os.cpu_count()), *paths],
+        cwd=HERE, capture_output=True, timeout=600)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
+        raise SystemExit(f"golden run {flags} failed (rc {proc.returncode})")
+    with open(os.path.join(HERE, "tests", "data", golden), "rb") as fh:
+        if proc.stdout != fh.read():
+            raise SystemExit(f"golden: {flags} output differs from "
+                             f"tests/data/{golden}")
+    return time.perf_counter() - t0
+
+
 def check_golden(workdir, report) -> None:
     """Phase 4: the CLI at -c 1 (device POA, host aligner, -b off) must
     reproduce the committed 50 kb golden byte for byte."""
@@ -685,24 +722,28 @@ def check_golden(workdir, report) -> None:
     d = os.path.join(workdir, "w50")
     os.makedirs(d)
     paths = write_dataset(d, draft, reads, paf)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "racon_tpu_torch", "-c", "1", "-m", "5",
-         "-x", "-4", "-g", "-8", "-t", str(os.cpu_count()), *paths],
-        cwd=HERE, capture_output=True, timeout=600)
-    if proc.returncode != 0:
-        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
-        raise SystemExit(f"golden run failed (rc {proc.returncode})")
-    with open(os.path.join(HERE, "tests", "data",
-                           "synth_50kb_golden.fasta"), "rb") as fh:
-        golden = fh.read()
-    if proc.stdout != golden:
-        raise SystemExit("golden: 50 kb -c 1 output differs from "
-                         "tests/data/synth_50kb_golden.fasta")
-    s = time.perf_counter() - t0
+    s = run_golden(["-c", "1"], paths, "synth_50kb_golden.fasta")
     log(f"[chip_smoke] golden: 50 kb x 20x -c 1 byte-identical to the "
         f"committed golden ({s:.1f} s)")
     report["golden_s"] = s
+
+
+def check_fragment_golden(workdir, report) -> None:
+    """Phase 4b: the CLI at -f -c 1 (device POA, host aligner, -b off)
+    must reproduce the committed fragment golden byte for byte: 50 reads
+    of 8 kb off a 40 kb genome at 10x, with their all-vs-all overlaps."""
+    from racon_tpu_torch.synth import (ava_overlaps, simulate_truth,
+                                       write_fragment_dataset)
+
+    _, _, reads, _ = simulate_truth(random.Random(42), 40_000, 10, 8000,
+                                    0.12, 0.10)
+    d = os.path.join(workdir, "frag40")
+    os.makedirs(d)
+    paths = write_fragment_dataset(d, reads, ava_overlaps(reads))
+    s = run_golden(["-f", "-c", "1"], paths, "synth_frag_golden.fasta")
+    log(f"[chip_smoke] fragment golden: {len(reads)} reads of 8 kb -f -c 1 "
+        f"byte-identical to the committed golden ({s:.1f} s)")
+    report["fragment_golden_s"] = s
 
 
 def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
@@ -767,11 +808,13 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
     return k1, k2
 
 
-def profile_phase(label: str, run, kernel: str, short: str) -> dict:
+def profile_phase(label: str, run, kernel: str, short: str,
+                  prefix: str | None = None) -> dict:
     """One torch.profiler pass over `run()`: the summed device time of the
     kernel whose name holds `kernel`, the device's busy share of the
-    host-clocked wall (the union of its kernel and copy intervals), and
-    the five host-side ranges with the longest summed time."""
+    host-clocked wall (the union of its kernel and copy intervals), the
+    five host-side ranges with the longest summed time, and with `prefix`
+    the summed time of every host range whose name starts with it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -799,6 +842,12 @@ def profile_phase(label: str, run, kernel: str, short: str) -> dict:
                    for k in prof.key_averages()
                    if k.device_type == DeviceType.CPU),
                   reverse=True)[:5]
+    named: dict = {}
+    for k in prof.key_averages():
+        # a range also has a device-side entry of the same name
+        if (prefix and k.key.startswith(prefix)
+                and k.device_type == DeviceType.CPU):
+            named[k.key] = named.get(k.key, 0.0) + k.cpu_time_total / 1e3
     share = busy_us / (wall_s * 1e6)
     log(f"[chip_smoke] profile: {label} wall {wall_s:.3f} s under the "
         f"profiler; {short} device time {k_us / 1e3:.1f} ms over "
@@ -811,7 +860,7 @@ def profile_phase(label: str, run, kernel: str, short: str) -> dict:
             "kernel_launches": len(mine), "device_busy_ms": busy_us / 1e3,
             "device_busy_share": share,
             "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
-                            for us, n, c in host]}
+                            for us, n, c in host], "ranges_ms": named}
 
 
 def profile_consensus(dev, windows, report) -> None:
@@ -837,6 +886,242 @@ def profile_align(dev, pairs, report) -> None:
     report["profile_align"] = profile_phase(
         "align phase", lambda: al.align(pairs), "align_wavefront_kernel",
         "K2")
+
+
+class FragmentCapture:
+    """For one run, patches the session engine's dispatch and the
+    aligner's entry point: keeps the fullest K1 batch of each bucket (a
+    device-side copy of its inputs, taken without a sync), the pairs of
+    every align call (references) and the calls' summed wall. Both call
+    through, so every launch is the run's own and is counted where it
+    launches."""
+
+    def __init__(self):
+        self.k1: dict = {}          # (nb, lb) -> (real jobs, inputs)
+        self.k1_jobs = 0
+        self.align_calls: list = []
+        self.align_s = 0.0
+        self._n = 0
+
+    def __enter__(self):
+        from racon_tpu_torch.ops.align import BatchAligner
+        from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+
+        self._saved = (DeviceGraphPOA._dispatch, DeviceGraphPOA.run_bucket,
+                       BatchAligner.align)
+        dispatch, run_bucket, align = self._saved
+        cap = self
+
+        def _dispatch(eng, jobs, sel, nb, lb, B):
+            cap._n = len(sel)
+            cap.k1_jobs += len(sel)
+            return dispatch(eng, jobs, sel, nb, lb, B)
+
+        def _run_bucket(eng, nb, lb, *args):
+            if cap._n > cap.k1.get((nb, lb), (0,))[0]:
+                cap.k1[(nb, lb)] = (cap._n, [a.clone() for a in args])
+            return run_bucket(eng, nb, lb, *args)
+
+        def _align(al, pairs, progress=None):
+            cap.align_calls.append(pairs)
+            t0 = time.perf_counter()
+            try:
+                return align(al, pairs, progress)
+            finally:
+                cap.align_s += time.perf_counter() - t0
+
+        DeviceGraphPOA._dispatch = _dispatch
+        DeviceGraphPOA.run_bucket = _run_bucket
+        BatchAligner.align = _align
+        return self
+
+    def __exit__(self, *exc):
+        from racon_tpu_torch.ops.align import BatchAligner
+        from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+
+        (DeviceGraphPOA._dispatch, DeviceGraphPOA.run_bucket,
+         BatchAligner.align) = self._saved
+        return False
+
+
+def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
+    """Phase 8: fragment correction at full size through the wrapper
+    (shard 0 of 4 of the reads split at 800,000 bytes), launch counters
+    zeroed just before and read just after; then the fullest batch of
+    each shape it launched held against the plain version and timed, and
+    one traced align pass over the shard's pairs. Returns the launches
+    of K1 and K2."""
+    import io
+
+    import torch
+
+    from racon_tpu_torch import wrapper
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.ops import align_kernels, poa_kernels
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.poa_graph import MAX_PRED, graph_aligner
+    from racon_tpu_torch.synth import (ava_overlaps, truth_segment,
+                                       write_fragment_dataset)
+
+    t0 = time.perf_counter()
+    paf = ava_overlaps(reads, min_overlap=1000)
+    d = os.path.join(workdir, "frag200")
+    os.makedirs(d)
+    paths = write_fragment_dataset(d, reads, paf)
+    log(f"[chip_smoke] fragment path: {len(reads)} reads, {len(paf)} "
+        f"all-vs-all overlap rows ({time.perf_counter() - t0:.1f} s)")
+
+    out = io.BytesIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FragmentCapture() as cap:
+        poa_kernels.reset_launches()
+        align_kernels.reset_launches()
+        t0 = time.perf_counter()
+        pols = wrapper.run(*paths, split=800_000, fragment_correction=True,
+                           threads=os.cpu_count(), cuda_poa_batches=1,
+                           cuda_aligner_batches=1, device="cuda",
+                           num_shards=4, shard_id=0, out=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = poa_kernels.launches
+        k1_by_shape = dict(poa_kernels.launches_by_shape)
+        k2 = align_kernels.launches
+        k2_by_shape = dict(align_kernels.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def total(f):
+        return sum(f(p) for p in pols)
+
+    align_s = total(lambda p: p.phase_s["align"])
+    consensus_s = total(lambda p: p.phase_s["consensus"])
+    n_pairs = total(lambda p: p.n_aligner_pairs)
+    n_windows = total(lambda p: p.poa.n_device + p.poa.n_host
+                      + p.poa.n_backbone)
+    n_targets = total(lambda p: p.n_targets)
+    n_dropped = total(lambda p: p.n_dropped)
+    lines = out.getvalue().split(b"\n")
+    written = list(zip(lines[0::2], lines[1::2]))
+    # shard 0 holds the first chunks, and chunks are consecutive reads
+    by_name = {r[0]: r for r in reads[:n_targets]}
+    raw = fixed = raw_all = 0
+    for head, seq in written:
+        read = by_name[head[1:].split(b" ")[0].decode()[:-1]]
+        seg = truth_segment(truth, read)
+        raw += edit_distance(read[1], seg)
+        fixed += edit_distance(seq, seg)
+    for read in by_name.values():
+        raw_all += edit_distance(read[1], truth_segment(truth, read))
+    by_bucket: dict = {}
+    sizer = BatchAligner(device=dev)
+    for pairs in cap.align_calls:
+        for q, t in pairs:
+            edge = sizer._bucket_of(max(len(q), len(t)))
+            by_bucket[edge] = by_bucket.get(edge, 0) + 1
+    frag = {
+        "chunks": len(pols), "targets": n_targets, "dropped": n_dropped,
+        "written": len(written), "overlap_rows": len(paf),
+        "wall_s": wall, "align_s": align_s,
+        # BatchAligner.align's share of the align phase (the rest: the
+        # pairs' spans, CIGARs from the runs, breaking points)
+        "batch_aligner_s": cap.align_s, "consensus_s": consensus_s,
+        "pairs": n_pairs, "pairs_per_s": n_pairs / align_s,
+        "pairs_by_bucket": {str(k): v for k, v in sorted(
+            by_bucket.items(), key=lambda kv: kv[0] or 1 << 30)},
+        "windows": n_windows, "windows_per_s": n_windows / consensus_s,
+        "pairs_device": total(lambda p: p.n_aligner_device),
+        "pairs_host": total(lambda p: p.n_aligner_host_fallback),
+        "pairs_unbucketable": total(lambda p: p.aligner.n_unbucketed),
+        "pairs_band_rejects": total(lambda p: p.aligner.n_band_rejects),
+        "windows_device": total(lambda p: p.poa.n_device),
+        "windows_host": total(lambda p: p.poa.n_host),
+        "windows_backbone": total(lambda p: p.poa.n_backbone),
+        "layer_jobs": total(
+            lambda p: p.poa.engine.last_stats.get("committed", 0)),
+        "k1_launches": k1, "k2_launches": k2,
+        "k1_launches_by_bucket": {f"{a}x{b}": n
+                                  for (a, b), n in sorted(k1_by_shape.items())},
+        "k2_launches_by_edge_band": {
+            f"{a}/{b}": n for (a, b), n in sorted(k2_by_shape.items())},
+        "k1_jobs_per_launch": cap.k1_jobs / max(k1, 1),
+        "peak_device_bytes": peak,
+        "raw_distance_written": raw, "corrected_distance": fixed,
+        "raw_distance_all_targets": raw_all,
+    }
+    report["fragment_path"] = frag
+    for k, v in frag.items():
+        log(f"[chip_smoke] fragment path {k}: {v}")
+    if k1 <= 0 or k2 <= 0:
+        raise SystemExit(f"fragment path did not launch both kernels "
+                         f"(window_sweep {k1}, wavefront_align {k2})")
+    if not fixed < raw:
+        raise SystemExit(f"corrected distance {fixed} not below the raw "
+                         f"reads' {raw}")
+    if len(written) != n_targets - n_dropped:
+        raise SystemExit(f"fragment path wrote {len(written)} reads, not "
+                         f"{n_targets} targets less {n_dropped} dropped")
+
+    # the fullest batch of each K1 bucket, against the plain version
+    rows = []
+    for (nb, lb), (n, args) in sorted(cap.k1.items()):
+        got = poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = graph_aligner(nb, lb, MAX_PRED, MATCH, MISMATCH, GAP)(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(got, want):
+            raise SystemExit(f"K1 window_sweep disagrees with its plain "
+                             f"version on the fragment path at bucket "
+                             f"{(nb, lb)}")
+        ms = cuda_ms(lambda: poa_kernels.window_sweep(
+            *args, MATCH, MISMATCH, GAP), reps=3)
+        b_ms, by = window_sweep_bound(args)
+        rows.append({"kernel": "K1", "shape": [nb, lb], "jobs": n,
+                     "rows": args[0].shape[0], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by})
+    # the fullest batch of each K2 (edge, band), as the polishers batched
+    # their pairs
+    fullest: dict = {}
+    for pairs in cap.align_calls:
+        for edge, band, idx in BatchAligner(device=dev).chunks(pairs):
+            if len(idx) > fullest.get((edge, band), (0,))[0]:
+                fullest[(edge, band)] = (len(idx), pairs, idx)
+    al = BatchAligner(device=dev)
+    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
+        c = (edge, band, al.operands(pairs, edge, band, idx))
+        ops, meta, plain_ms, _ = compare_wavefront(dev, c)
+        q, t, ql, tl, offs = c[2]
+        ms = cuda_ms(lambda: align_kernels.wavefront_align(
+            q, t, ql, tl, offs, band), reps=2)
+        b_ms, by = wavefront_bound(ql, tl, offs, band, meta[:, 0])
+        rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
+                     "touched": int(meta[:, 2].sum()), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by})
+        del ops, meta, c, q, t, ql, tl, offs
+    for r in rows:
+        log(f"[chip_smoke] fragment path {r['kernel']} fullest batch at "
+            f"{tuple(r['shape'])}: "
+            + (f"{r['jobs']} jobs / {r['rows']} rows"
+               if r["kernel"] == "K1" else
+               f"{r['pairs']} pairs ({r['touched']} band-touched)")
+            + f" identical; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    report["fragment_batches"] = rows
+
+    all_pairs = [p for pairs in cap.align_calls for p in pairs]
+    prof = profile_phase("fragment align phase",
+                         lambda: BatchAligner(device=dev).align(all_pairs),
+                         "align_wavefront_kernel", "K2", prefix="align.")
+    per_pair = {k: v / len(all_pairs) for k, v in prof["ranges_ms"].items()}
+    prof["ms_per_pair"] = per_pair
+    log(f"[chip_smoke] profile fragment align phase over {len(all_pairs)} "
+        f"pairs: ms per pair {per_pair}")
+    report["profile_fragment_align"] = prof
+    return k1, k2
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             output unpolished target sequences
         -f, --fragment-correction
             perform fragment correction instead of contig polishing
-            (not yet ported: raises)
+            (overlaps file should contain dual/self overlaps!)
         -w, --window-length <int>
             default: 500
             size of window on which POA is performed

@@ -5,7 +5,8 @@ per-lane band offsets and returns (ops [B, n_waves] i32 in traceback
 order, meta [B, 3] i32 = (count, dist, touched)). On a CUDA tensor it
 launches the hand-written kernel and raises if the launch fails; on a CPU
 tensor it runs the plain PyTorch version (align.banded_nw + traceback).
-`launches` counts kernel launches, and nothing else.
+`launches` counts kernel launches, and nothing else; `launches_by_shape`
+splits the same count by the batch's (edge, band).
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from .. import _build
 from ..errors import DeviceError
 from .align import banded_nw, traceback
 
-#: kernel launches since import (or the last reset)
+#: kernel launches since import (or the last reset), in all and per
+#: (edge, band)
 launches = 0
+launches_by_shape: dict[tuple[int, int], int] = {}
 
 #: the widest band the kernel takes: its shared-memory path, at 32 cells
 #: a thread, fits this band's two int32 wavefronts, staging rings and edge
@@ -31,6 +34,7 @@ _NAMES = ("q", "t", "q_lens", "t_lens", "offsets")
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_shape.clear()
 
 
 def scratch(B: int, n_waves: int, band: int, dev) -> torch.Tensor:
@@ -76,4 +80,6 @@ def wavefront_align(q, t, q_lens, t_lens, offsets, band: int):
             meta.data_ptr(), B, edge, band, n_waves, stream)
     _build.check(lib, rc, "wavefront_align")
     launches += 1
+    launches_by_shape[(edge, band)] = launches_by_shape.get((edge, band),
+                                                            0) + 1
     return ops, meta

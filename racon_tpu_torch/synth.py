@@ -5,12 +5,17 @@ each at rate/3), and PAF overlaps from the simulation's coordinates.
 The same generator, stream for stream, as the repository's
 tools/synthbench.py (`mutate`, `simulate`; Python `random`), so a seed
 gives the same bytes here and there; `write_dataset` writes the
-reads/overlaps/draft files the CLI takes. `poa_jobs` makes seeded
+reads/overlaps/draft files the CLI takes. For fragment correction
+(`-f`), `simulate_truth` keeps each read's source interval and strand,
+`ava_overlaps` makes the all-vs-all PAF rows the reads correct each
+other with, and `write_fragment_dataset` writes them. `poa_jobs` makes seeded
 window-sweep jobs (numpy) for the kernel's edge cases, `align_pairs`
 seeded pairs for the banded aligner's.
 
     rng = random.Random(42)
     truth, draft, reads, paf = simulate(rng, 50_000, 20, 8000, 0.12, 0.10)
+    _, _, reads, _ = simulate_truth(rng, 6000, 10, 2000, 0.12, 0.10)
+    paths = write_fragment_dataset(d, reads, ava_overlaps(reads))
 """
 
 from __future__ import annotations
@@ -40,7 +45,12 @@ def mutate(rng, s, rate):
     return bytes(out)
 
 
-def simulate(rng, genome_len, coverage, read_len, read_err, draft_err):
+def simulate_truth(rng, genome_len, coverage, read_len, read_err,
+                   draft_err):
+    """simulate's draws, with each read's truth: returns (truth, draft,
+    reads, paf) where reads are (name, read, start, end, strand), the
+    read drawn from truth[start:end] and reverse-complemented when
+    `strand` is True."""
     truth = bytes(rng.choice(ACGT) for _ in range(genome_len))
     draft = mutate(rng, truth, draft_err)
 
@@ -52,35 +62,98 @@ def simulate(rng, genome_len, coverage, read_len, read_err, draft_err):
         end = min(genome_len, start + read_len)
         fwd = mutate(rng, truth[start:end], read_err)
         strand = rng.random() < 0.5
-        if strand:
-            comp = bytes.maketrans(b"ACGT", b"TGCA")
-            read = fwd.translate(comp)[::-1]
-        else:
-            read = fwd
+        read = revcomp(fwd) if strand else fwd
         name = f"read{i}"
         t_begin = int(start * scale)
         t_end = min(len(draft), int(end * scale))
-        reads.append((name, read))
+        reads.append((name, read, start, end, strand))
         paf.append(f"{name}\t{len(read)}\t0\t{len(read)}\t"
                    f"{'-' if strand else '+'}\tdraft\t{len(draft)}\t"
                    f"{t_begin}\t{t_end}\t{end - start}\t{end - start}\t60")
     return truth, draft, reads, paf
 
 
+def simulate(rng, genome_len, coverage, read_len, read_err, draft_err):
+    truth, draft, reads, paf = simulate_truth(rng, genome_len, coverage,
+                                              read_len, read_err, draft_err)
+    return truth, draft, [(r[0], r[1]) for r in reads], paf
+
+
+def revcomp(s: bytes) -> bytes:
+    return s.translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
+
+
+def truth_segment(truth: bytes, read) -> bytes:
+    """The truth a read of simulate_truth was drawn from, on the read's
+    own strand."""
+    _, _, start, end, strand = read
+    return revcomp(truth[start:end]) if strand else truth[start:end]
+
+
+def ava_overlaps(reads, min_overlap=1000) -> list[str]:
+    """All-vs-all PAF rows between reads of simulate_truth: one row for
+    every ordered pair of distinct reads whose truth intervals share at
+    least `min_overlap` bases (so both directions are present), grouped
+    by query. The strand is relative ('+' when both reads lie on the same
+    strand); each read's interval is the shared truth interval scaled
+    into the read by len(read) / (end - start), clamped, and mirrored
+    onto the read's own forward sequence when it is reverse-stranded."""
+    def span(read, a, b):
+        _, seq, start, end, strand = read
+        n = len(seq)
+        scale = n / (end - start)
+        x0 = min(n, max(0, int((a - start) * scale)))
+        x1 = min(n, max(0, int((b - start) * scale)))
+        return (n - x1, n - x0) if strand else (x0, x1)
+
+    paf = []
+    for qi, q in enumerate(reads):
+        for ti, t in enumerate(reads):
+            a, b = max(q[2], t[2]), min(q[3], t[3])
+            if qi == ti or b - a < min_overlap:
+                continue
+            q0, q1 = span(q, a, b)
+            t0, t1 = span(t, a, b)
+            paf.append(f"{q[0]}\t{len(q[1])}\t{q0}\t{q1}\t"
+                       f"{'+' if q[4] == t[4] else '-'}\t{t[0]}\t"
+                       f"{len(t[1])}\t{t0}\t{t1}\t{b - a}\t{b - a}\t60")
+    return paf
+
+
+def _write_reads(path, reads) -> None:
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        for name, read, *_ in reads:
+            f.write(b">" + name.encode() + b"\n" + read + b"\n")
+
+
+def _write_paf(path, paf) -> None:
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(("\n".join(paf) + "\n").encode())
+
+
 def write_dataset(directory, draft, reads, paf) -> tuple[str, str, str]:
     """Write (reads.fasta.gz, ovl.paf.gz, draft.fasta.gz) as
     tools/synthbench.py does; returns their paths."""
     reads_path = os.path.join(directory, "reads.fasta.gz")
-    with gzip.open(reads_path, "wb", compresslevel=1) as f:
-        for name, read in reads:
-            f.write(b">" + name.encode() + b"\n" + read + b"\n")
+    _write_reads(reads_path, reads)
     paf_path = os.path.join(directory, "ovl.paf.gz")
-    with gzip.open(paf_path, "wb", compresslevel=1) as f:
-        f.write(("\n".join(paf) + "\n").encode())
+    _write_paf(paf_path, paf)
     draft_path = os.path.join(directory, "draft.fasta.gz")
     with gzip.open(draft_path, "wb", compresslevel=1) as f:
         f.write(b">draft\n" + draft + b"\n")
     return reads_path, paf_path, draft_path
+
+
+def write_fragment_dataset(directory, reads, paf) -> tuple[str, str, str]:
+    """Write reads.fasta.gz and ava.paf.gz (all-vs-all overlaps, as
+    ava_overlaps makes them) for fragment correction; returns the CLI's triple
+    (reads, overlaps, reads): the reads are both the sequences and the
+    targets."""
+    reads_path = os.path.join(directory, "reads.fasta.gz")
+    _write_reads(reads_path, reads)
+    paf_path = os.path.join(directory, "ava.paf.gz")
+    _write_paf(paf_path, paf)
+    return reads_path, paf_path, reads_path
 
 
 def poa_jobs(seed, B, N, L, P, bands, far=0, pad_rows=0, empty_layers=0):

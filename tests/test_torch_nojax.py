@@ -1,7 +1,9 @@
 """The port never loads JAX or the JAX package: in a fresh interpreter
 where importing jax fails, racon_tpu_torch polishes a tiny dataset on the
-CPU through both device paths, and afterwards no `jax` or `racon_tpu`
-module is loaded."""
+CPU through both device paths, corrects a tiny read set with -f (both
+device paths) and through the wrapper (split into chunks, sharded), runs
+rampler and preprocess, and afterwards no `jax` or `racon_tpu` module is
+loaded."""
 
 import os
 import subprocess
@@ -14,19 +16,39 @@ import io, random, sys, tempfile
 sys.modules["jax"] = None
 import torch
 torch.set_num_threads(1)
-from racon_tpu_torch import cli
-from racon_tpu_torch.synth import simulate, write_dataset
+from racon_tpu_torch import cli, preprocess, rampler, wrapper
+from racon_tpu_torch.synth import (ava_overlaps, simulate, simulate_truth,
+                                   write_dataset, write_fragment_dataset)
+
+def run(main, argv):
+    buf = io.BytesIO()
+    out, text = sys.stdout, io.TextIOWrapper(buf)
+    sys.stdout = text
+    try:
+        rc = main(argv)
+        text.flush()
+    finally:
+        sys.stdout = out
+    assert rc == 0, (main, rc)
+    return buf.getvalue()
+
 _, draft, reads, paf = simulate(random.Random(3), 2500, 6, 1500, 0.12, 0.10)
 paths = write_dataset(tempfile.mkdtemp(), draft, reads, paf)
-buf = io.BytesIO()
-out, wrapper = sys.stdout, io.TextIOWrapper(buf)
-sys.stdout = wrapper
-rc = cli.main(["--device", "cpu", "-c", "1", "--cudaaligner-batches", "1",
-               *paths])
-wrapper.flush()
-fasta = buf.getvalue()
-sys.stdout = out
-assert rc == 0 and fasta.startswith(b">draft LN:i:"), rc
+fasta = run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
+                       "1", *paths])
+assert fasta.startswith(b">draft LN:i:")
+_, _, reads, _ = simulate_truth(random.Random(3), 2500, 4, 1500, 0.12, 0.10)
+frag = write_fragment_dataset(tempfile.mkdtemp(), reads, ava_overlaps(reads))
+# the wrapper's scores (5, -4, -8) are not the CLI's defaults
+fasta = run(cli.main, ["--device", "cpu", "-f", "-c", "1",
+                       "--cudaaligner-batches", "1", "-m", "5", "-x", "-4",
+                       "-g", "-8", *frag])
+assert fasta.startswith(b">read") and b"r LN:i:" in fasta, fasta[:100]
+shard = run(wrapper.main, ["--device", "cpu", "-f", "--split", "3000",
+                           "--num-shards", "2", "--shard-id", "1", *frag])
+assert shard.startswith(b">read") and shard in fasta
+assert len(rampler.split(frag[0], 3000, tempfile.mkdtemp())) > 1
+assert run(preprocess.main, [frag[0]]).startswith(b"@read01")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
              and sys.modules[m] is not None)

@@ -83,9 +83,3 @@ def test_cuda_device_without_card_raises(tiny, capsysbinary):
     capsysbinary.readouterr()
     assert cli.main(["-c", "1", *tiny]) == 1
     assert b"no CUDA device" in capsysbinary.readouterr().err
-
-
-def test_fragment_correction_not_yet_ported(tiny):
-    with pytest.raises(RaconError, match="not yet ported"):
-        create_polisher(*tiny, PolisherType.kF, 500, 10.0, 0.3,
-                        device="cpu")
