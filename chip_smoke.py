@@ -2,40 +2,57 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any mismatch or exception exits non-zero:
+Both kernels come in four instantiations: int32 or int16 scores (int16
+where the bucket's overflow proof holds, ops/dtypes.py) times int8 or
+2-bit packed operands (ops/encode.py). The main path runs the default
+posture (`--cuda-dtype auto`, packing on). Phases, in order; any
+mismatch or exception exits non-zero:
 
   1. build: the CUDA kernels (nvcc, sm_90a) and the C++ host library,
      from the sources in this checkout;
   2. K1 (csrc/poa_window_sweep.cu) against its plain PyTorch version on
-     real session jobs of the full-size workload, at every bucket that
-     occurs, plus a padding row (nnodes == 0) and an adversarial batch at
-     the (2048, 640) bucket (synth.poa_jobs: predecessors farther back
-     than the kernel's shared-memory ring, band-0 rows at 640 columns,
-     in-degree 8): ranks must be identical. Prints the largest
-     predecessor distance of the main path's jobs, ns per DP row, real
-     jobs per launch, and the traceback's share of the kernel time (a
-     scratch copy of the source without the traceback, built beside the
-     kernels and timed on the same batches);
+     real session jobs of the full-size workload: the fullest batch of
+     every bucket that occurs at each instantiation the bucket allows
+     (the plain version once per score width, both operand forms held
+     against it), a padding row (nnodes == 0), and two adversarial
+     batches (synth.poa_jobs: predecessors farther back than the
+     kernel's shared-memory ring, band-0 rows at 640 columns, in-degree
+     8): at (2048, 640), int32 only, and at (1280, 640), where int16
+     holds and the predecessors lie beyond the int16 ring too. Ranks
+     must be identical. Every captured batch of an int16 bucket is also
+     run at int32 and int16, whose ranks must agree (the cross-width
+     check). Prints the largest predecessor distance of the main path's
+     jobs, the ring rows at both widths, each instantiation's time on the
+     fullest batches, ns per DP row, real jobs per launch, and the
+     traceback's share of the kernel time (a scratch copy of the source
+     without the traceback, built beside the kernels and timed on the
+     same batches);
   3. K2 (csrc/align_wavefront.cu) against its plain version on the
      workload's real overlap pairs, batched as the main path batches
      them (the fullest batch of each (edge, band) and the last, partial
-     one), and on two adversarial batches (synth.align_pairs at the main
-     path's (8192, 896), where some pair must be band-touched, and at
-     edge 512 with the widest band the wrapper takes): ops, count,
-     distance and touched flag must be identical. Prints ns per wavefront
-     (kernel ms over the batch's largest m + n), the traceback's share (a
-     no-traceback copy of the source, as for K1) and the plane's bytes;
+     one, at each instantiation the edge allows), and on adversarial
+     batches (synth.align_pairs at the main path's (8192, 896), where
+     some pair must be band-touched, int32 with N bases; and at edge 512
+     with the widest band the wrapper takes, on the shared-memory path,
+     at both widths, with N bases and ACGT-only in both forms): ops,
+     count, distance and touched flag must be identical. Every captured
+     batch of an int16 edge is also run at both widths, whose runs and
+     reject decisions must agree. Prints each instantiation's time, ns
+     per wavefront (kernel ms over the batch's largest m + n), the
+     traceback's share (a no-traceback copy of the source, as for K1)
+     and the plane's bytes;
   4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
      synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
-     byte for byte;
+     byte for byte, at the default posture and at `--cuda-dtype int32`;
   4b. fragment golden: `python -m racon_tpu_torch -f -c 1` on a 40 kb,
      10x, 8 kb-read all-vs-all read set (synth.simulate_truth +
      ava_overlaps, seed 42; 50 reads) must reproduce
      tests/data/synth_frag_golden.fasta byte for byte;
   5. the main path at full size: 200 kb genome, 30x, 8 kb reads (12%
      read error, 10% draft error, w 500, seed 42) polished with
-     `-c 1 --cudaaligner-batches 1`; both kernels must launch, and the
-     polished contig must be closer to the simulated truth than the draft;
+     `-c 1 --cudaaligner-batches 1`; both kernels must launch, K1 at
+     both score widths and both kernels packed, and the polished contig
+     must be closer to the simulated truth than the draft;
   6. one torch.profiler pass over a consensus phase of the same workload
      (after the timed main path): K1's summed device time, the device's
      busy share of the phase's wall, the five longest host-side ranges;
@@ -48,14 +65,17 @@ Phases, in order; any mismatch or exception exits non-zero:
      corrected reads must lie closer to their truth than the raw reads,
      and every target not dropped as unpolished must be written. The
      fullest batch of each K1 bucket and of each K2 (edge, band) this
-     path launched is held identical to its plain version and timed, and
-     one BatchAligner.align pass over the shard's pairs is traced.
+     path launched is held identical to its plain version at the
+     instantiation it ran and timed, and cross-checked at both widths
+     where int16 holds; one BatchAligner.align pass over the shard's
+     pairs is traced.
 
 Prints per-phase numbers, then the kernel line (launches on the contig
-path of phase 5 and the fragment path of phase 8, in all and by path),
-the card's name and power limit, and as the last line {"ok": true,
-"device": {...}}. Exits non-zero without a result when no CUDA device is present or when run outside the
-repository. Imports nothing of JAX or of the JAX package.
+path of phase 5 and the fragment path of phase 8, in all, by path and by
+instantiation), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero without a result when no
+CUDA device is present or when run outside the repository. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,9 +99,27 @@ PEAK_OPS = 132 * 64 * 1.98e9
 
 MATCH, MISMATCH, GAP = 5, -4, -8
 
+#: the kernels' instantiations: (score dtype, packed operands)
+PLANS = (("int32", False), ("int32", True), ("int16", False),
+         ("int16", True))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def plan_name(dtype: str, packed: bool) -> str:
+    return f"{dtype}/{'packed' if packed else 'int8'}"
+
+
+def by_plan(launches_by_shape: dict) -> dict:
+    """A wrapper's launches_by_shape ((shape..., dtype, packed) -> n)
+    summed per instantiation name."""
+    out: dict = {}
+    for key, n in launches_by_shape.items():
+        name = plan_name(*key[-2:])
+        out[name] = out.get(name, 0) + n
+    return dict(sorted(out.items()))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -135,9 +173,9 @@ def main() -> int:
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
     notb = build_without_traceback("poa_window_sweep.cu",
-                                   "rt_poa_window_sweep", 11, 7)
+                                   "rt_poa_window_sweep", 11, 9)
     notb2 = build_without_traceback("align_wavefront.cu",
-                                    "rt_align_wavefront", 8, 4)
+                                    "rt_align_wavefront", 8, 6)
     _build.kernels()
     k_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -173,9 +211,13 @@ def main() -> int:
     profile_consensus(dev, windows, report)
     profile_align(dev, overlap_pairs(draft, reads, paf), report)
     fragment = fragment_path(dev, truth, reads_t, workdir, report)
-    for k, a, b in zip(kernels, contig, fragment):
+    for k, (a, a_plan), (b, b_plan) in zip(kernels, contig, fragment):
         k["launches"] = a + b
         k["launches_by_path"] = {"contig": a, "fragment": b}
+        k["launches_by_plan"] = {"contig": a_plan, "fragment": b_plan}
+        for row in k["instantiations"]:
+            row["launches"] = (a_plan.get(row["plan"], 0)
+                               + b_plan.get(row["plan"], 0))
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -236,38 +278,47 @@ def load_without_traceback(notb):
     return fn
 
 
-def sweep_without_traceback(fn, args):
-    """One launch of the no-traceback copy, scratch allocated as the
-    wrapper allocates it (not counted as a launch of K1)."""
+def sweep(args, plan):
+    """One K1 launch through the wrapper at instantiation `plan`."""
+    from racon_tpu_torch.ops import poa_kernels
+
+    return poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP, *plan)
+
+
+def sweep_without_traceback(fn, args, plan):
+    """One launch of the no-traceback copy at instantiation `plan`,
+    scratch allocated as the wrapper allocates it (not counted as a
+    launch of K1)."""
     import torch
 
     from racon_tpu_torch.ops.poa_kernels import scratch
 
-    B, N = args[0].shape
-    L = args[4].shape[1]
-    P = args[1].shape[2]
+    dtype, packed = plan
+    B, N, P = args[1].shape
+    L = args[4].shape[1] * (4 if packed else 1)
     dev = args[0].device
-    spill, bps = scratch(B, N, L, dev)
+    spill, bps = scratch(B, N, L, dev, dtype)
     out = torch.empty((B, L), dtype=torch.int32, device=dev)
     rc = fn(
         *(t.data_ptr() for t in args), spill.data_ptr(), bps.data_ptr(),
         out.data_ptr(), B, N, L, P, MATCH, MISMATCH, GAP,
+        2 if dtype == "int16" else 4, int(packed),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise SystemExit(f"no-traceback copy failed to launch: {rc}")
     return out
 
 
-def adversarial_batch(dev, ring_band0):
-    """128 jobs at the (2048, 640) bucket from synth.poa_jobs: band 0
+def adversarial_batch(dev, n_nodes, ring_band0):
+    """128 jobs at the (n_nodes, 640) bucket from synth.poa_jobs: band 0
     and band 256 alternating, in-degree up to 8, a predecessor at least
-    300 ranks back on every fifth node (beyond the ring of a band-0 job),
-    a length-0 layer and a padding job."""
+    300 ranks back on every fifth node (beyond the ring of a band-0
+    job, `ring_band0` rows), a length-0 layer and a padding job."""
     import torch
 
     from racon_tpu_torch.synth import max_pred_distance, poa_jobs
 
-    jobs = poa_jobs(2, 128, 2048, 640, 8, (0, 256), far=300, pad_rows=1,
+    jobs = poa_jobs(2, 128, n_nodes, 640, 8, (0, 256), far=300, pad_rows=1,
                     empty_layers=1)
     dist = max_pred_distance(jobs[1], jobs[7])
     if dist <= ring_band0:
@@ -276,18 +327,20 @@ def adversarial_batch(dev, ring_band0):
     return dist, [torch.from_numpy(a).to(dev) for a in jobs]
 
 
-def window_sweep_bound(args) -> tuple[float, str]:
-    """Least time for one window_sweep batch: its inputs read once and
-    its ranks written once, or the DP this data needs. A real node row
-    needs only its in-band columns (all lens + 1 when the band is 0);
-    each such cell takes, per in-edge, 2 adds (diagonal, vertical),
-    2 maxes and the 2 equality tests of the backpointer, and per cell the
-    substitution compare and the running max (subtract, max, add):
-    6 x in-degree + 4 operations."""
+def window_sweep_bound(args, L) -> tuple[float, str]:
+    """Least time for one window_sweep batch: its inputs read once (in
+    the form given: packed operands are a quarter of the int8 bytes) and
+    its int32 ranks [B, L] written once, or the DP this data needs. A
+    real node row needs only its in-band columns (all lens + 1 when the
+    band is 0); each such cell takes, per in-edge, 2 adds (diagonal,
+    vertical), 2 maxes and the 2 equality tests of the backpointer, and
+    per cell the substitution compare and the running max (subtract,
+    max, add): 6 x in-degree + 4 operations, at either score width."""
     import torch
 
     codes, preds, centers, sinks, seq, lens, band, nnodes = args
-    nbytes = sum(t.numel() * t.element_size() for t in args) + seq.numel() * 4
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + preds.shape[0] * L * 4)
     deg = (preds >= 0).sum(dim=2)                                 # [B, N]
     N = deg.shape[1]
     rows = torch.arange(N, device=deg.device)[None, :] < nnodes[:, None]
@@ -300,13 +353,14 @@ def window_sweep_bound(args) -> tuple[float, str]:
     return bound(nbytes, ops)
 
 
-def wavefront_bound(q_lens, t_lens, offsets, band,
-                    count) -> tuple[float, str]:
-    """Least time for one wavefront_align batch: each pair's bases,
-    lengths and band offsets up to wavefront m + n read once, its ops and
-    meta written once; or the DP cells inside both the band and the
-    matrix, at 8 operations each (the substitution compare, 3 adds,
-    2 mins and the 2 compares that pick the backpointer)."""
+def wavefront_bound(q_lens, t_lens, offsets, band, count,
+                    packed=False) -> tuple[float, str]:
+    """Least time for one wavefront_align batch: each pair's bases (a
+    quarter byte each when packed), lengths and band offsets up to
+    wavefront m + n read once, its ops and meta written once; or the DP
+    cells inside both the band and the matrix, at 8 operations each (the
+    substitution compare, 3 adds, 2 mins and the 2 compares that pick
+    the backpointer), at either score width."""
     import torch
 
     m = q_lens.long()[:, None]
@@ -317,7 +371,8 @@ def wavefront_bound(q_lens, t_lens, offsets, band,
     lo = torch.maximum(off, (d - n).clamp(min=0))
     hi = torch.minimum(off + band - 1, torch.minimum(d, m))
     cells = ((hi - lo + 1).clamp(min=0) * (d <= m + n)).sum()
-    nbytes = float(mn.sum() + 4 * (mn + 1).sum() + 4 * count.long().sum()
+    base_bytes = mn.sum() / 4 if packed else mn.sum()
+    nbytes = float(base_bytes + 4 * (mn + 1).sum() + 4 * count.long().sum()
                    + 20 * len(mn))
     return bound(nbytes, 8.0 * float(cells))
 
@@ -328,20 +383,100 @@ def replay_ms(fn, batches) -> float:
     return cuda_ms(lambda: [fn(b) for b in batches], reps=1)
 
 
+def k1_forms(args, N, L):
+    """The int8 and the 2-bit packed form of one K1 batch, on its device.
+    The packed form is None when a layer base or a node code is not ACGT
+    or L is not a multiple of 4 (such a batch runs int8)."""
+    import torch
+
+    from racon_tpu_torch.ops.encode import pack_2bit, packable, unpack_2bit
+
+    codes, seq, lens, nnodes = args[0], args[4], args[5], args[7]
+    if codes.dtype == torch.uint8:
+        a8 = [unpack_2bit(codes, N, nnodes), *args[1:4],
+              unpack_2bit(seq, L, lens), *args[5:]]
+        return a8, list(args)
+    c, s, ln, nn = (x.cpu().numpy() for x in (codes, seq, lens, nnodes))
+    if L % 4 or not (packable(s, ln) and packable(c, nn)):
+        return list(args), None
+    return list(args), [torch.from_numpy(pack_2bit(c)).to(codes.device),
+                        *args[1:4],
+                        torch.from_numpy(pack_2bit(s)).to(codes.device),
+                        *args[5:]]
+
+
+def hold_k1(args, N, L, what: str, time_it: bool = True,
+            widths=None) -> dict:
+    """K1 against its plain version on one batch at every instantiation
+    the bucket allows (int16 where the overflow proof holds, packed where
+    every base is ACGT): the plain version once per score width, both
+    operand forms held against it. Exits on a difference. Returns
+    {plan: row} with the kernel's CUDA-event ms (mean of 3 after a
+    warm-up), the plain version's host-clocked ms and the bound."""
+    import torch
+
+    from racon_tpu_torch.ops.dtypes import poa_int16_ok
+    from racon_tpu_torch.ops.poa_graph import graph_aligner
+
+    P = args[1].shape[2]
+    a8, ap = k1_forms(args, N, L)
+    if widths is None:
+        widths = ("int32", "int16") if poa_int16_ok(
+            N, L, MATCH, MISMATCH, GAP) else ("int32",)
+    rows = {}
+    for dtype in widths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = graph_aligner(N, L, P, MATCH, MISMATCH, GAP, dtype)(*a8)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for packed, a in ((False, a8), (True, ap)):
+            if a is None:
+                continue
+            plan = (dtype, packed)
+            got = sweep(a, plan)
+            err = int((got.long() - want.long()).abs().max())
+            if err or not torch.equal(got, want):
+                raise SystemExit(f"K1 window_sweep {plan_name(*plan)} "
+                                 f"disagrees with its plain version on "
+                                 f"{what}: max |diff| {err}")
+            row = {"plain_ms": plain_ms, "err": err}
+            if time_it:
+                row["ms"] = cuda_ms(lambda: sweep(a, plan), reps=3)
+                row["bound_ms"], row["bound_by"] = window_sweep_bound(a, L)
+            rows[plan] = row
+    return rows
+
+
+def log_plans(kernel: str, what: str, rows: dict) -> None:
+    """One line: the instantiations held identical, their kernel times
+    and the plain version's time at each score width."""
+    times = "; ".join(f"{plan_name(*p)} {r['ms']:.3f} ms"
+                      for p, r in rows.items() if "ms" in r)
+    plain = ", ".join(sorted({f"{p[0]} {r['plain_ms']:.1f} ms"
+                              for p, r in rows.items()}))
+    log(f"[chip_smoke] {kernel} {what}: identical at "
+        f"{', '.join(plan_name(*p) for p in rows)}; kernel {times}; "
+        f"plain {plain}")
+
+
 def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
     """Phase 2: capture every padded batch a consensus pass over the
-    whole workload launches (the main path's own batches: same windows,
-    same engine), hold K1 to its plain version on the fullest batch of
-    each bucket, a padding row and an adversarial batch, and time K1
-    over all of them. Returns the kernel line's entry and the packed
-    windows (for phase 6)."""
+    whole workload launches at the default posture (the main path's own
+    batches: same windows, same engine), hold K1 to its plain version at
+    every instantiation on the fullest batch of each bucket, a padding
+    row and two adversarial batches, check the two widths against each
+    other on every batch of an int16 bucket, and time K1 over all of
+    them. Returns the kernel line's entry and the packed windows (for
+    phase 6)."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
     from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.ops.dtypes import poa_int16_ok
     from racon_tpu_torch.ops.poa import _pack
     from racon_tpu_torch.ops.poa_graph import (MAX_LEN, MAX_NODES, MAX_PRED,
-                                               DeviceGraphPOA, graph_aligner)
+                                               DeviceGraphPOA)
     from racon_tpu_torch.synth import max_pred_distance
 
     t0 = time.perf_counter()
@@ -355,7 +490,8 @@ def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
         batches: list = []
 
         def run_bucket(self, nb, lb, *args):
-            self.batches.append(((nb, lb), [a.clone() for a in args]))
+            plan = (self.plan_for(nb, lb), args[0].dtype == torch.uint8)
+            self.batches.append(((nb, lb), plan, [a.clone() for a in args]))
             return super().run_bucket(nb, lb, *args)
 
     eng = Capture(MATCH, MISMATCH, GAP, device=dev,
@@ -366,129 +502,157 @@ def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
     fullest: dict = {}
     n_real = 0
     dist = 0
-    for key, args in batches:
+    for key, plan, args in batches:
         n = int((args[-1] > 0).sum())
         n_real += n
         dist = max(dist, max_pred_distance(args[1].cpu().numpy(),
                                            args[7].cpu().numpy()))
         if n > fullest.get(key, (0,))[0]:
-            fullest[key] = (n, args)
+            fullest[key] = (n, plan, args)
+    n_by_plan: dict = {}
+    for _, plan, _ in batches:
+        n_by_plan[plan_name(*plan)] = n_by_plan.get(plan_name(*plan), 0) + 1
     log(f"[chip_smoke] K1 job capture: {len(batches)} batches in "
         f"{len(fullest)} buckets from {len(windows)} windows in "
         f"{time.perf_counter() - t0:.1f} s")
-    rings = {f"{nb}x{lb}": {"band256": poa_kernels.ring_rows(nb, lb, MAX_PRED,
-                                                             min(257, lb)),
-                            "band0": poa_kernels.ring_rows(nb, lb, MAX_PRED,
-                                                           lb)}
-             for nb, lb in sorted(fullest)}
+    rings = {f"{nb}x{lb}": {dt: {
+        "band256": poa_kernels.ring_rows(nb, lb, MAX_PRED, min(257, lb), dt),
+        "band0": poa_kernels.ring_rows(nb, lb, MAX_PRED, lb, dt)}
+        for dt in ("int32", "int16")} for nb, lb in sorted(fullest)}
     log(f"[chip_smoke] K1 main-path jobs: largest predecessor distance "
-        f"{dist}; ring rows per bucket {rings}; real jobs per launch "
-        f"{n_real / len(batches):.1f} ({n_real} jobs in {len(batches)} "
-        f"launches)")
+        f"{dist}; ring rows per bucket and score width {rings}; real jobs "
+        f"per launch {n_real / len(batches):.1f} ({n_real} jobs in "
+        f"{len(batches)} launches: {n_by_plan})")
     report["window_sweep_jobs"] = {
         "max_pred_distance": dist, "ring_rows": rings,
         "jobs_per_launch": n_real / len(batches), "jobs": n_real,
-        "launches": len(batches)}
+        "launches": len(batches), "launches_by_plan": n_by_plan}
 
-    def sweep(args):
-        return poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP)
-
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
+    # the fullest batch of each bucket, every instantiation
+    no_tb = load_without_traceback(notb)
     buckets = []
-    by = "bytes"
-    cases = sorted(fullest.items())
-    # the padding-row case: the first job of the first batch replaced by
-    # an empty row (nnodes == 0), the shape the batch tail is filled with
-    (nb, lb), (n, args) = cases[0]
-    pad = [a.clone() for a in args]
+    by = "operations"
+    err = 0
+    main_rows = []          # the instantiation the main path ran
+    inst: dict = {}         # plan -> summed fullest-batch numbers
+    for (nb, lb), (n, plan, args) in sorted(fullest.items()):
+        rows = hold_k1(args, nb, lb, f"the fullest {(nb, lb)} batch")
+        tb_free = cuda_ms(lambda: sweep_without_traceback(no_tb, args, plan),
+                          reps=3)
+        B = args[0].shape[0]
+        rows_k = int(args[7].max())
+        r = rows[plan]
+        ms = r["ms"]
+        for p, x in rows.items():
+            err = max(err, x["err"])
+            acc = inst.setdefault(p, {"batches": 0, "ms": 0.0,
+                                      "plain_ms": 0.0, "bound_ms": 0.0,
+                                      "bound_by": by})
+            for k in ("ms", "plain_ms", "bound_ms"):
+                acc[k] += x[k]
+            acc["batches"] += 1
+            acc["bound_by"] = x["bound_by"]
+        by = r["bound_by"]
+        main_rows.append(r)
+        buckets.append({
+            "bucket": [nb, lb], "jobs": n, "rows": B,
+            "plan": plan_name(*plan),
+            "instantiations": {plan_name(*p): x for p, x in rows.items()},
+            "ms": ms, "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": by, "dp_rows": rows_k,
+            "ns_per_dp_row": ms * 1e6 / rows_k, "no_traceback_ms": tb_free,
+            "traceback_share": 1.0 - tb_free / ms})
+        log_plans("K1", f"fullest batch at bucket {(nb, lb)} ({n} jobs / "
+                  f"{B} rows, main path ran {plan_name(*plan)})", rows)
+        log(f"[chip_smoke] K1 bucket {(nb, lb)} at {plan_name(*plan)}: "
+            f"bound {r['bound_ms']:.4f} ms ({by}); {ms * 1e6 / rows_k:.0f} "
+            f"ns per DP row over {rows_k} rows; without traceback "
+            f"{tb_free:.3f} ms (traceback share "
+            f"{100 * (1 - tb_free / ms):.1f}%)")
+
+    # the padding-row case: the first job of the first fullest batch
+    # replaced by an empty row (nnodes == 0), the shape the tail is
+    # filled with
+    (nb, lb), (n, plan, args) = sorted(fullest.items())[0]
+    pad = [a.clone() for a in k1_forms(args, nb, lb)[0]]
     pad[0][0] = 5
     pad[1][0] = -1
     for i in (2, 3, 5, 6, 7):
         pad[i][0] = 0
     pad[4][0] = 5
-    cases.append(((nb, lb, "pad"), (n - 1, pad)))
-    ring0 = poa_kernels.ring_rows(MAX_NODES, MAX_LEN, MAX_PRED, MAX_LEN)
-    adv_dist, adv = adversarial_batch(dev, ring0)
-    cases.append(((MAX_NODES, MAX_LEN, "adversarial"),
-                  (int((adv[-1] > 0).sum()), adv)))
-    no_tb = load_without_traceback(notb)
-    for key, (n, args) in cases:
-        B, N = args[0].shape
-        L = args[4].shape[1]
-        P = args[1].shape[2]
-        got = sweep(args)
-        plain_fn = graph_aligner(N, L, P, MATCH, MISMATCH, GAP)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = plain_fn(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got.long() - want.long()).abs().max())
-        if err or not torch.equal(got, want):
-            raise SystemExit(f"K1 window_sweep disagrees with its plain "
-                             f"version at bucket {key}: max |diff| {err}")
-        total["err"] = max(total["err"], err)
-        if key[-1] == "pad":
-            log(f"[chip_smoke] K1 padding row (nnodes 0) at bucket "
-                f"{key[:2]}: identical")
-            continue
-        if key[-1] == "adversarial":
-            ms = cuda_ms(lambda: sweep(args), reps=3)
-            log(f"[chip_smoke] K1 adversarial batch at {key[:2]}: {n} jobs "
-                f"(band 0 and 256, in-degree up to {P}, largest predecessor "
-                f"distance {adv_dist} > ring {ring0} rows of a band-0 job, "
-                f"a length-0 layer, a padding job) identical; kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-            report["window_sweep_adversarial"] = {
-                "jobs": n, "max_pred_distance": adv_dist, "ring_band0": ring0,
-                "ms": ms, "plain_ms": plain_ms}
-            continue
-        ms = cuda_ms(lambda: sweep(args), reps=3)
-        tb_free = cuda_ms(lambda: sweep_without_traceback(no_tb, args),
-                          reps=3)
-        b_ms, by = window_sweep_bound(args)
-        rows_k = int(args[7].max())
-        ns_row = ms * 1e6 / rows_k
-        row = {"bucket": list(key), "jobs": n, "rows": B, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-               "dp_rows": rows_k,
-               "ns_per_dp_row": ns_row,
-               "no_traceback_ms": tb_free,
-               "traceback_share": 1.0 - tb_free / ms}
-        buckets.append(row)
-        log(f"[chip_smoke] K1 bucket {key}: {n} jobs / {B} rows identical; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.4f} ms ({by}); "
-            f"{ns_row:.0f} ns per DP row over {rows_k} rows; "
-            f"without traceback {tb_free:.3f} ms "
-            f"(traceback share {100 * (1 - tb_free / ms):.1f}%)")
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += b_ms
-    all_args = [a for _, a in batches]
-    all_ms = replay_ms(sweep, all_args)
-    all_tb_free = replay_ms(lambda a: sweep_without_traceback(no_tb, a),
-                            all_args)
-    all_bound = sum(window_sweep_bound(a)[0] for a in all_args)
-    all_rows = sum(int(a[7].max()) for a in all_args)
+    rows = hold_k1(pad, nb, lb, "a padding row", time_it=False)
+    log(f"[chip_smoke] K1 padding row (nnodes 0) at bucket {(nb, lb)}: "
+        f"identical at {', '.join(plan_name(*p) for p in rows)}")
+
+    # adversarial batches: at (2048, 640) (int32 only at these scores),
+    # and at (1280, 640), where int16 holds, beyond the int16 ring too
+    adv = {}
+    for n_nodes in (MAX_NODES, 1280):
+        widths = ("int32", "int16") if poa_int16_ok(
+            n_nodes, MAX_LEN, MATCH, MISMATCH, GAP) else ("int32",)
+        ring0 = {dt: poa_kernels.ring_rows(n_nodes, MAX_LEN, MAX_PRED,
+                                           MAX_LEN, dt) for dt in widths}
+        adv_dist, batch = adversarial_batch(dev, n_nodes, max(ring0.values()))
+        n_jobs = int((batch[-1] > 0).sum())
+        rows = hold_k1(batch, n_nodes, MAX_LEN,
+                       f"the adversarial ({n_nodes}, {MAX_LEN}) batch")
+        log_plans("K1", f"adversarial batch at {(n_nodes, MAX_LEN)}: "
+                  f"{n_jobs} jobs (band 0 and 256, in-degree up to 8, "
+                  f"largest predecessor distance {adv_dist} > ring "
+                  f"{ring0} rows of a band-0 job, a length-0 layer, a "
+                  f"padding job)", rows)
+        adv[f"{n_nodes}x{MAX_LEN}"] = {
+            "jobs": n_jobs, "max_pred_distance": adv_dist,
+            "ring_band0": ring0,
+            "instantiations": {plan_name(*p): x for p, x in rows.items()}}
+        err = max([err] + [x["err"] for x in rows.values()])
+    report["window_sweep_adversarial"] = adv
+
+    # every captured batch: one launch each at the instantiation the main
+    # path ran, with and without the traceback
+    all_ms = replay_ms(lambda b: sweep(b[2], b[1]), batches)
+    all_tb_free = replay_ms(
+        lambda b: sweep_without_traceback(no_tb, b[2], b[1]), batches)
+    all_bound = sum(window_sweep_bound(a, k[1])[0] for k, _, a in batches)
+    all_rows = sum(int(a[7].max()) for _, _, a in batches)
     log(f"[chip_smoke] K1 over all {len(batches)} captured batches: "
         f"kernel {all_ms:.2f} ms, bound {all_bound:.4f} ms; "
         f"{all_ms * 1e6 / all_rows:.0f} ns per DP row over {all_rows} rows; "
         f"without traceback {all_tb_free:.2f} ms (traceback share "
         f"{100 * (1 - all_tb_free / all_ms):.1f}%)")
+    # the same batches of the int16 buckets at int32 (the main path ran
+    # them at int16): identical ranks at both widths, and the two times
+    narrow = [b for b in batches if b[1][0] == "int16"]
+    for (nb, lb), plan, args in narrow:
+        wide = sweep(args, ("int32", plan[1]))
+        if not torch.equal(wide, sweep(args, plan)):
+            raise SystemExit(f"K1 cross-width check: int16 and int32 ranks "
+                             f"differ on a captured {(nb, lb)} batch")
+    narrow_ms = replay_ms(lambda b: sweep(b[2], b[1]), narrow)
+    wide_ms = replay_ms(lambda b: sweep(b[2], ("int32", b[1][1])), narrow)
+    log(f"[chip_smoke] K1 cross-width check: {len(narrow)} batches of the "
+        f"int16 buckets give identical ranks at int16 and int32; one pass "
+        f"over them {narrow_ms:.2f} ms at int16, {wide_ms:.2f} ms at int32")
     report["window_sweep"] = buckets
     report["window_sweep_all"] = {
         "batches": len(batches), "ms": all_ms, "bound_ms": all_bound,
         "dp_rows": all_rows, "ns_per_dp_row": all_ms * 1e6 / all_rows,
         "no_traceback_ms": all_tb_free,
-        "traceback_share": 1.0 - all_tb_free / all_ms}
+        "traceback_share": 1.0 - all_tb_free / all_ms,
+        "cross_width_batches": len(narrow), "cross_width_int16_ms": narrow_ms,
+        "cross_width_int32_ms": wide_ms}
     batches.clear()
     return ({"name": "window_sweep", "route": "cuda",
              "source": "racon_tpu_torch/csrc/poa_window_sweep.cu",
              "replaces": "racon_tpu/ops/poa_pallas.py:91",
-             "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
-             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-             "bound_by": by, "library_ms": None}, windows)
+             "launches": 0, "max_abs_err": err,
+             "ms": sum(r["ms"] for r in main_rows),
+             "plain_ms": sum(r["plain_ms"] for r in main_rows),
+             "bound_ms": sum(r["bound_ms"] for r in main_rows),
+             "bound_by": by, "library_ms": None,
+             "instantiations": [{"plan": plan_name(*p), **inst[p]}
+                                for p in PLANS if p in inst]}, windows)
+
 
 
 def overlap_pairs(draft, reads, paf) -> list:
@@ -504,48 +668,31 @@ def overlap_pairs(draft, reads, paf) -> list:
     return pairs
 
 
-def adversarial_pairs(dev) -> list:
-    """Phase 3's adversarial batches (synth.align_pairs, every kind):
-    one at the main path's (8192, 896), one at edge 512 with the widest
-    band the wrapper takes."""
-    from racon_tpu_torch.ops.align import BatchAligner
+def k2_forms(al, pairs, edge, band, idx):
+    """The int8 and the 2-bit packed operands of one K2 batch, on the
+    aligner's device; the packed ones None when a base is not ACGT."""
+    from racon_tpu_torch.ops.encode import packable
+
+    a8 = al.operands(pairs, edge, band, idx, pack=False)
+    q, t, ql, tl = (x.cpu().numpy() for x in a8[:4])
+    if not (packable(q, ql) and packable(t, tl)):
+        return a8, None
+    return a8, al.operands(pairs, edge, band, idx, pack=True)
+
+
+def adversarial_pairs() -> list:
+    """Phase 3's adversarial batches (synth.align_pairs): at the main
+    path's (8192, 896) every kind, N bases included; at edge 512 with
+    the widest band the wrapper takes every kind, and every kind but the
+    N bases (so both operand forms run). (edge, band, pairs, label)."""
     from racon_tpu_torch.ops.align_kernels import MAX_BAND
-    from racon_tpu_torch.synth import align_pairs
+    from racon_tpu_torch.synth import ALIGN_KINDS, align_pairs
 
-    al = BatchAligner(device=dev)
-    out = []
-    for edge, band in ((8192, 896), (512, MAX_BAND)):
-        pairs = align_pairs(3, edge, band)
-        out.append((edge, band, al.operands(pairs, edge, band,
-                                            list(range(len(pairs))))))
-    return out
-
-
-def compare_wavefront(dev, c):
-    """K2 and its plain version on one batch: identical ops[:count],
-    count, distance and touched flag, or exit. Returns (ops, meta, plain
-    ms, max |diff| of meta)."""
-    import torch
-
-    from racon_tpu_torch.ops import align_kernels
-    from racon_tpu_torch.ops.align import banded_nw, traceback
-
-    edge, band, (q, t, ql, tl, offs) = c
-    ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bp, dist = banded_nw(q, t, ql, tl, offs, band)
-    w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    del bp
-    mask = mask_of(meta, ops)
-    err = int((meta - w_meta).abs().max())
-    if err or not torch.equal(ops * mask, w_ops * mask):
-        raise SystemExit(f"K2 wavefront_align disagrees with its plain "
-                         f"version at bucket {edge} band {band}: meta max "
-                         f"|diff| {err}")
-    return ops, meta, plain_ms, err
+    acgt = tuple(k for k in ALIGN_KINDS if k != "n_bases")
+    return [(8192, 896, align_pairs(3, 8192, 896), "with N bases"),
+            (512, MAX_BAND, align_pairs(3, 512, MAX_BAND), "with N bases"),
+            (512, MAX_BAND, align_pairs(3, 512, MAX_BAND, acgt),
+             "ACGT only")]
 
 
 def mask_of(meta, ops):
@@ -556,24 +703,30 @@ def mask_of(meta, ops):
     return (pos < meta[:, :1]).to(ops.dtype)
 
 
-def plane_bytes(c) -> int:
+def plane_bytes(band, args) -> int:
     """Bytes of the backpointer plane the wrapper allocates for a batch."""
     from racon_tpu_torch.ops import align_kernels
 
-    _, band, (q, _, _, _, offs) = c
+    q, offs = args[0], args[4]
     x = align_kernels.scratch(0, offs.shape[1], band, q.device)
     return q.shape[0] * x.shape[1] * x.shape[2] * x.element_size()
 
 
-def launch_k2(fn, c):
-    """One launch of a K2 C entry point (its no-traceback copy's) on
-    batch `c`, the plane allocated as the wrapper allocates it; not
-    counted as a launch of K2. Returns (ops, meta)."""
+def align_k2(args, band, plan):
+    """One K2 launch through the wrapper at instantiation `plan`."""
+    from racon_tpu_torch.ops import align_kernels
+
+    return align_kernels.wavefront_align(*args, band, *plan)
+
+
+def launch_k2(fn, edge, band, args, plan):
+    """One launch of a K2 C entry point (its no-traceback copy's) at
+    instantiation `plan`, the plane allocated as the wrapper allocates
+    it; not counted as a launch of K2. Returns (ops, meta)."""
     import torch
 
     from racon_tpu_torch.ops import align_kernels
 
-    edge, band, args = c
     q, offs = args[0], args[4]
     B, n_waves = q.shape[0], offs.shape[1]
     bps = align_kernels.scratch(B, n_waves, band, q.device)
@@ -581,30 +734,117 @@ def launch_k2(fn, c):
     meta = torch.empty((B, 3), dtype=torch.int32, device=q.device)
     rc = fn(*(x.data_ptr() for x in args), bps.data_ptr(), ops.data_ptr(),
             meta.data_ptr(), B, edge, band, n_waves,
+            2 if plan[0] == "int16" else 4, int(plan[1]),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise SystemExit(f"K2 no-traceback copy failed to launch: {rc}")
     return ops, meta
 
 
+def hold_k2(edge, band, a8, ap, what: str, time_it: bool = True,
+            widths=None) -> dict:
+    """K2 against its plain version on one batch at every instantiation
+    the edge allows (int16 where the overflow proof holds, packed when
+    `ap` is given): the plain version once per score width, both operand
+    forms held against it (ops[:count], count, distance, touched). Exits
+    on a difference. Returns {plan: row}, each with the kernel's
+    CUDA-event ms (mean of 2 after a warm-up), the plain version's
+    host-clocked ms, the bound and the band-touched pairs."""
+    import torch
+
+    from racon_tpu_torch.ops.align import banded_nw, traceback
+    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
+
+    if widths is None:
+        widths = ("int32", "int16") if aligner_int16_ok(edge) else \
+            ("int32",)
+    q, t, ql, tl, offs = a8
+    rows = {}
+    for dtype in widths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bp, dist = banded_nw(q, t, ql, tl, offs, band, dtype)
+        w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del bp
+        for packed, a in ((False, a8), (True, ap)):
+            if a is None:
+                continue
+            plan = (dtype, packed)
+            ops, meta = align_k2(a, band, plan)
+            mask = mask_of(meta, ops)
+            err = int((meta - w_meta).abs().max())
+            if err or not torch.equal(ops * mask, w_ops * mask):
+                raise SystemExit(f"K2 wavefront_align {plan_name(*plan)} "
+                                 f"disagrees with its plain version on "
+                                 f"{what}: meta max |diff| {err}")
+            row = {"plain_ms": plain_ms, "err": err,
+                   "touched": int(meta[:, 2].sum())}
+            if time_it:
+                row["ms"] = cuda_ms(lambda: align_k2(a, band, plan), reps=2)
+                row["bound_ms"], row["bound_by"] = wavefront_bound(
+                    ql, tl, offs, band, meta[:, 0], packed)
+            rows[plan] = row
+    return rows
+
+
+def decisions(ops, meta, q_lens, t_lens):
+    """Per lane: the ops in traceback order and whether BatchAligner
+    rejects the pair (touched, or an in-band cost above 0.4 x length):
+    what two score widths must agree on (the raw distance of a clamped
+    end cell is each width's sentinel)."""
+    import torch
+
+    mask = mask_of(meta, ops)
+    lens = torch.maximum(q_lens, t_lens)
+    reject = (meta[:, 2] > 0) | (meta[:, 1].double() > 0.4 * lens.double())
+    return ops * mask, meta[:, 0], reject
+
+
+def cross_width_k2(args, band, packed, what: str) -> None:
+    """The int16 and the int32 kernel on one batch: identical runs,
+    counts and reject decisions, or exit."""
+    import torch
+
+    wide = decisions(*align_k2(args, band, ("int32", packed)), args[2],
+                     args[3])
+    narrow = decisions(*align_k2(args, band, ("int16", packed)), args[2],
+                       args[3])
+    if not all(torch.equal(a, b) for a, b in zip(wide, narrow)):
+        raise SystemExit(f"K2 cross-width check: int16 and int32 runs or "
+                         f"reject decisions differ on {what}")
+
+
 def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
     """Phase 3: K2 against its plain version on the workload's overlap
     pairs, batched as the main path batches them: the fullest (first)
     batch of each (edge, band) and the last, partial batch of each that
-    has several, compared; the fullest timed, with and without the
-    traceback (the no-traceback copy `notb`); every batch replayed; then
-    the adversarial batches (adversarial_pairs) compared and timed."""
-    from racon_tpu_torch.ops import align_kernels
+    has several, at every instantiation the edge allows; the fullest
+    timed at each, and with and without the traceback (the no-traceback
+    copy `notb`) at the main path's; every batch replayed at the main
+    path's instantiation and, where int16 holds, checked at both widths;
+    then the adversarial batches (adversarial_pairs) compared and
+    timed."""
+    import torch
+
     from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
 
     pairs = overlap_pairs(draft, reads, paf)
     al = BatchAligner(device=dev)
-    chunks = [(edge, band, al.operands(pairs, edge, band, idx))
-              for edge, band, idx in al.chunks(pairs)]
+    # each batch in the form and at the dtype the main path runs it
+    chunks = []
+    for edge, band, idx in al.chunks(pairs):
+        args = al.operands(pairs, edge, band, idx)
+        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
+        chunks.append((edge, band, idx, args, plan))
     no_tb = load_without_traceback(notb)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0}
-    rows = []
-    by = "bytes"
+    main_rows = []
+    inst: dict = {}
+    rows_out = []
+    err = 0
+    by = "operations"
     cases = []
     for c in chunks:
         same = [x for x in chunks if x[:2] == c[:2]]
@@ -612,86 +852,117 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
             cases.append(("fullest", c))
         elif c is same[-1]:
             cases.append(("last partial", c))
-    cases += [("adversarial", c) for c in adversarial_pairs(dev)]
-    for kind, c in cases:
-        edge, band, (q, t, ql, tl, offs) = c
-        ops, meta, plain_ms, err = compare_wavefront(dev, c)
-        total["err"] = max(total["err"], err)
-        n_touched = int(meta[:, 2].sum())
+    for kind, (edge, band, idx, args, plan) in cases:
+        a8, ap = k2_forms(al, pairs, edge, band, idx)
+        rows = hold_k2(edge, band, a8, ap,
+                       f"the {kind} ({edge}, {band}) batch",
+                       time_it=kind == "fullest")
+        err = max([err] + [x["err"] for x in rows.values()])
+        n_touched = rows[plan]["touched"]
+        if kind == "last partial":
+            log(f"[chip_smoke] K2 last partial batch at bucket {edge} band "
+                f"{band}: {len(idx)} pairs identical at "
+                f"{', '.join(plan_name(*p) for p in rows)} ({n_touched} "
+                f"band-touched)")
+            continue
+        r = rows[plan]
+        ms = r["ms"]
+        tb_free = cuda_ms(lambda: launch_k2(no_tb, edge, band, args, plan),
+                          reps=2)
+        waves = int((args[2].long() + args[3].long()).max()) + 1
+        plane = plane_bytes(band, args)
+        by = r["bound_by"]
+        main_rows.append(r)
+        for p, x in rows.items():
+            acc = inst.setdefault(p, {"batches": 0, "ms": 0.0,
+                                      "plain_ms": 0.0, "bound_ms": 0.0,
+                                      "bound_by": by})
+            for k in ("ms", "plain_ms", "bound_ms"):
+                acc[k] += x[k]
+            acc["batches"] += 1
+            acc["bound_by"] = x["bound_by"]
+        rows_out.append({
+            "kind": kind, "edge": edge, "band": band, "pairs": len(idx),
+            "plan": plan_name(*plan),
+            "instantiations": {plan_name(*p): x for p, x in rows.items()},
+            "ms": ms, "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": by, "touched": n_touched, "wavefronts": waves,
+            "ns_per_wavefront": ms * 1e6 / waves,
+            "no_traceback_ms": tb_free,
+            "traceback_share": 1.0 - tb_free / ms, "plane_bytes": plane})
+        log_plans("K2", f"fullest batch at bucket {edge} band {band} "
+                  f"({len(idx)} pairs, {n_touched} band-touched; main path "
+                  f"ran {plan_name(*plan)})", rows)
+        log(f"[chip_smoke] K2 bucket {edge} band {band} at "
+            f"{plan_name(*plan)}: bound {r['bound_ms']:.4f} ms ({by}); "
+            f"{ms * 1e6 / waves:.0f} ns per wavefront over {waves}; "
+            f"without traceback {tb_free:.3f} ms (traceback share "
+            f"{100 * (1 - tb_free / ms):.1f}%); plane {plane} bytes")
+    adv_rows = []
+    for edge, band, adv_pairs, label in adversarial_pairs():
+        idx = list(range(len(adv_pairs)))
+        a8, ap = k2_forms(al, adv_pairs, edge, band, idx)
+        rows = hold_k2(edge, band, a8, ap,
+                       f"the adversarial ({edge}, {band}) batch {label}")
+        err = max([err] + [x["err"] for x in rows.values()])
+        n_touched = max(x["touched"] for x in rows.values())
         # a band narrower than the bucket can be touched, and the
         # band-edge pairs must touch it (a wider band covers every row of
         # every pair's matrix)
-        if kind == "adversarial" and band < edge and not n_touched:
+        if band < edge and not n_touched:
             raise SystemExit(f"K2 adversarial batch at bucket {edge} band "
                              f"{band}: no pair band-touched, so the "
                              f"traceback's band-edge cells went untested")
-        if kind == "last partial":
-            log(f"[chip_smoke] K2 last partial batch at bucket {edge} band "
-                f"{band}: {len(ql)} pairs identical ({n_touched} "
-                f"band-touched)")
-            continue
-        ms = cuda_ms(lambda: align_kernels.wavefront_align(
-            q, t, ql, tl, offs, band), reps=2)
-        tb_free = cuda_ms(lambda: launch_k2(no_tb, c),
-                          reps=2)
-        b_ms, by = wavefront_bound(ql, tl, offs, band, meta[:, 0])
-        waves = int((ql.long() + tl.long()).max()) + 1
-        plane = plane_bytes(c)
-        row = {"kind": kind, "edge": edge, "band": band, "pairs": len(ql),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": by,
-               "touched": n_touched, "wavefronts": waves,
-               "ns_per_wavefront": ms * 1e6 / waves,
-               "no_traceback_ms": tb_free,
-               "traceback_share": 1.0 - tb_free / ms, "plane_bytes": plane}
-        rows.append(row)
-        log(f"[chip_smoke] K2 {kind} batch at bucket {edge} band {band}: "
-            f"{len(ql)} pairs identical ({n_touched} band-touched); kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-            f"({by}); {ms * 1e6 / waves:.0f} ns "
-            f"per wavefront over {waves}; without traceback {tb_free:.3f} "
-            f"ms (traceback share {100 * (1 - tb_free / ms):.1f}%); plane "
-            f"{plane} bytes")
-        if kind == "fullest":
-            total["ms"] += ms
-            total["plain_ms"] += plain_ms
-            total["bound_ms"] += b_ms
+        log_plans("K2", f"adversarial batch at bucket {edge} band {band} "
+                  f"{label} ({len(idx)} pairs, {n_touched} band-touched)",
+                  rows)
+        adv_rows.append({"edge": edge, "band": band, "label": label,
+                         "pairs": len(idx), "touched": n_touched,
+                         "instantiations": {plan_name(*p): x
+                                            for p, x in rows.items()}})
 
-    def align(c):
-        edge, band, (q, t, ql, tl, offs) = c
-        return align_kernels.wavefront_align(q, t, ql, tl, offs, band)
-
-    all_ms = replay_ms(align, chunks)
-    all_tb_free = replay_ms(lambda c: launch_k2(no_tb, c),
-                            chunks)
+    all_ms = replay_ms(lambda c: align_k2(c[3], c[1], c[4]), chunks)
+    all_tb_free = replay_ms(
+        lambda c: launch_k2(no_tb, c[0], c[1], c[3], c[4]), chunks)
     all_bound = 0.0
     all_waves = all_plane = 0
-    for c in chunks:
-        _, band, (q, t, ql, tl, offs) = c
-        cnt = align(c)[1][:, 0]
-        all_bound += wavefront_bound(ql, tl, offs, band, cnt)[0]
-        all_waves += int((ql.long() + tl.long()).max()) + 1
-        all_plane += plane_bytes(c)
+    for edge, band, idx, args, plan in chunks:
+        cnt = align_k2(args, band, plan)[1][:, 0]
+        all_bound += wavefront_bound(args[2], args[3], args[4], band, cnt,
+                                     plan[1])[0]
+        all_waves += int((args[2].long() + args[3].long()).max()) + 1
+        all_plane += plane_bytes(band, args)
+    narrow = [c for c in chunks if aligner_int16_ok(c[0])]
+    for edge, band, idx, args, plan in narrow:
+        cross_width_k2(args, band, plan[1],
+                       f"a captured ({edge}, {band}) batch")
     log(f"[chip_smoke] K2 over all {len(chunks)} batches: kernel "
         f"{all_ms:.2f} ms, bound {all_bound:.4f} ms; "
         f"{all_ms * 1e6 / all_waves:.0f} ns per wavefront over "
         f"{all_waves}; without traceback {all_tb_free:.2f} ms (traceback "
         f"share {100 * (1 - all_tb_free / all_ms):.1f}%); planes "
-        f"{all_plane} bytes")
-    report["wavefront_align"] = rows
+        f"{all_plane} bytes; cross-width check: {len(narrow)} batches of "
+        f"int16 edges give identical runs and reject decisions at int16 "
+        f"and int32")
+    report["wavefront_align"] = rows_out
+    report["wavefront_align_adversarial"] = adv_rows
     report["wavefront_align_all"] = {
         "batches": len(chunks), "ms": all_ms, "bound_ms": all_bound,
         "wavefronts": all_waves,
         "ns_per_wavefront": all_ms * 1e6 / all_waves,
         "no_traceback_ms": all_tb_free,
         "traceback_share": 1.0 - all_tb_free / all_ms,
-        "plane_bytes": all_plane}
+        "plane_bytes": all_plane, "cross_width_batches": len(narrow)}
     return {"name": "wavefront_align", "route": "cuda",
             "source": "racon_tpu_torch/csrc/align_wavefront.cu",
             "replaces": "racon_tpu/ops/align_pallas.py:91",
-            "launches": 0, "max_abs_err": total["err"], "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": None}
+            "launches": 0, "max_abs_err": err,
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": by, "library_ms": None,
+            "instantiations": [{"plan": plan_name(*p), **inst[p]}
+                               for p in PLANS if p in inst]}
 
 
 def run_golden(flags, paths, golden: str) -> float:
@@ -712,9 +983,12 @@ def run_golden(flags, paths, golden: str) -> float:
     return time.perf_counter() - t0
 
 
+
+
 def check_golden(workdir, report) -> None:
     """Phase 4: the CLI at -c 1 (device POA, host aligner, -b off) must
-    reproduce the committed 50 kb golden byte for byte."""
+    reproduce the committed 50 kb golden byte for byte, at the default
+    score-dtype posture and at --cuda-dtype int32."""
     from racon_tpu_torch.synth import simulate, write_dataset
 
     rng = random.Random(42)
@@ -722,10 +996,12 @@ def check_golden(workdir, report) -> None:
     d = os.path.join(workdir, "w50")
     os.makedirs(d)
     paths = write_dataset(d, draft, reads, paf)
-    s = run_golden(["-c", "1"], paths, "synth_50kb_golden.fasta")
-    log(f"[chip_smoke] golden: 50 kb x 20x -c 1 byte-identical to the "
-        f"committed golden ({s:.1f} s)")
-    report["golden_s"] = s
+    report["golden_s"] = {}
+    for flags in (["-c", "1"], ["-c", "1", "--cuda-dtype", "int32"]):
+        s = run_golden(flags, paths, "synth_50kb_golden.fasta")
+        log(f"[chip_smoke] golden: 50 kb x 20x {' '.join(flags)} "
+            f"byte-identical to the committed golden ({s:.1f} s)")
+        report["golden_s"][" ".join(flags)] = s
 
 
 def check_fragment_golden(workdir, report) -> None:
@@ -746,9 +1022,13 @@ def check_fragment_golden(workdir, report) -> None:
     report["fragment_golden_s"] = s
 
 
-def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
-    """Phase 5: the full-size polish with both device paths on; the
-    launch counters are zeroed just before and read just after."""
+
+
+def main_path(dev, paths, truth, draft, report):
+    """Phase 5: the full-size polish with both device paths on at the
+    default posture; the launch counters are zeroed just before and read
+    just after. K1 must launch at both score widths and both kernels
+    packed. Returns ((K1 launches, by instantiation), (K2 ...))."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
@@ -773,6 +1053,8 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
     k1 = poa_kernels.launches
     k1_by_shape = dict(poa_kernels.launches_by_shape)
     k2 = align_kernels.launches
+    k2_by_shape = dict(align_kernels.launches_by_shape)
+    k1_plans, k2_plans = by_plan(k1_by_shape), by_plan(k2_by_shape)
     eng = pol.poa.engine
     d_draft = edit_distance(draft, truth)
     d_pol = edit_distance(polished[0].data, truth)
@@ -784,8 +1066,13 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
         "windows_per_s": n_windows / pol.phase_s["consensus"],
         "pairs_per_s": pol.n_aligner_pairs / pol.phase_s["align"],
         "k1_launches": k1, "k2_launches": k2,
-        "k1_launches_by_bucket": {f"{a}x{b}": n
-                                  for (a, b), n in k1_by_shape.items()},
+        "k1_launches_by_bucket": {
+            f"{a}x{b} {plan_name(dt, pk)}": n
+            for (a, b, dt, pk), n in sorted(k1_by_shape.items())},
+        "k2_launches_by_edge_band": {
+            f"{a}/{b} {plan_name(dt, pk)}": n
+            for (a, b, dt, pk), n in sorted(k2_by_shape.items())},
+        "k1_launches_by_plan": k1_plans, "k2_launches_by_plan": k2_plans,
         "windows_device": pol.poa.n_device, "windows_host": pol.poa.n_host,
         "windows_backbone": pol.poa.n_backbone,
         "layer_jobs": eng.last_stats.get("committed", 0),
@@ -802,10 +1089,19 @@ def main_path(dev, paths, truth, draft, report) -> tuple[int, int]:
     if k1 <= 0 or k2 <= 0:
         raise SystemExit(f"main path did not launch both kernels "
                          f"(window_sweep {k1}, wavefront_align {k2})")
+    widths = {name.split("/")[0] for name in k1_plans}
+    if widths != {"int16", "int32"}:
+        raise SystemExit(f"main path launched K1 at {sorted(widths)}, not "
+                         f"at both score widths")
+    for name, plans in (("window_sweep", k1_plans),
+                        ("wavefront_align", k2_plans)):
+        if not any(p.endswith("/packed") for p in plans):
+            raise SystemExit(f"main path never launched {name} packed "
+                             f"({plans})")
     if not d_pol < d_draft:
         raise SystemExit(f"polished distance {d_pol} not below the "
                          f"draft's {d_draft}")
-    return k1, k2
+    return (k1, k1_plans), (k2, k2_plans)
 
 
 def profile_phase(label: str, run, kernel: str, short: str,
@@ -888,22 +1184,26 @@ def profile_align(dev, pairs, report) -> None:
         "K2")
 
 
+
+
 class FragmentCapture:
     """For one run, patches the session engine's dispatch and the
     aligner's entry point: keeps the fullest K1 batch of each bucket (a
-    device-side copy of its inputs, taken without a sync), the pairs of
-    every align call (references) and the calls' summed wall. Both call
-    through, so every launch is the run's own and is counted where it
-    launches."""
+    device-side copy of its inputs, taken without a sync, with the
+    instantiation it ran), the pairs of every align call (references)
+    and the calls' summed wall. Both call through, so every launch is the
+    run's own and is counted where it launches."""
 
     def __init__(self):
-        self.k1: dict = {}          # (nb, lb) -> (real jobs, inputs)
+        self.k1: dict = {}          # (nb, lb) -> (real jobs, plan, inputs)
         self.k1_jobs = 0
         self.align_calls: list = []
         self.align_s = 0.0
         self._n = 0
 
     def __enter__(self):
+        import torch
+
         from racon_tpu_torch.ops.align import BatchAligner
         from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
 
@@ -919,7 +1219,8 @@ class FragmentCapture:
 
         def _run_bucket(eng, nb, lb, *args):
             if cap._n > cap.k1.get((nb, lb), (0,))[0]:
-                cap.k1[(nb, lb)] = (cap._n, [a.clone() for a in args])
+                plan = (eng.plan_for(nb, lb), args[0].dtype == torch.uint8)
+                cap.k1[(nb, lb)] = (cap._n, plan, [a.clone() for a in args])
             return run_bucket(eng, nb, lb, *args)
 
         def _align(al, pairs, progress=None):
@@ -944,13 +1245,14 @@ class FragmentCapture:
         return False
 
 
-def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
+def fragment_path(dev, truth, reads, workdir, report):
     """Phase 8: fragment correction at full size through the wrapper
-    (shard 0 of 4 of the reads split at 800,000 bytes), launch counters
-    zeroed just before and read just after; then the fullest batch of
-    each shape it launched held against the plain version and timed, and
-    one traced align pass over the shard's pairs. Returns the launches
-    of K1 and K2."""
+    (shard 0 of 4 of the reads split at 800,000 bytes) at the default
+    posture, launch counters zeroed just before and read just after;
+    then the fullest batch of each shape it launched held against the
+    plain version at the instantiation it ran, timed, and checked at
+    both widths where int16 holds; and one traced align pass over the
+    shard's pairs. Returns ((K1 launches, by instantiation), (K2 ...))."""
     import io
 
     import torch
@@ -959,7 +1261,7 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
     from racon_tpu_torch.native import edit_distance
     from racon_tpu_torch.ops import align_kernels, poa_kernels
     from racon_tpu_torch.ops.align import BatchAligner
-    from racon_tpu_torch.ops.poa_graph import MAX_PRED, graph_aligner
+    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
     from racon_tpu_torch.synth import (ava_overlaps, truth_segment,
                                        write_fragment_dataset)
 
@@ -989,6 +1291,7 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
         k2 = align_kernels.launches
         k2_by_shape = dict(align_kernels.launches_by_shape)
     peak = torch.cuda.max_memory_allocated(dev)
+    k1_plans, k2_plans = by_plan(k1_by_shape), by_plan(k2_by_shape)
 
     def total(f):
         return sum(f(p) for p in pols)
@@ -1039,10 +1342,13 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
         "layer_jobs": total(
             lambda p: p.poa.engine.last_stats.get("committed", 0)),
         "k1_launches": k1, "k2_launches": k2,
-        "k1_launches_by_bucket": {f"{a}x{b}": n
-                                  for (a, b), n in sorted(k1_by_shape.items())},
+        "k1_launches_by_bucket": {
+            f"{a}x{b} {plan_name(dt, pk)}": n
+            for (a, b, dt, pk), n in sorted(k1_by_shape.items())},
         "k2_launches_by_edge_band": {
-            f"{a}/{b}": n for (a, b), n in sorted(k2_by_shape.items())},
+            f"{a}/{b} {plan_name(dt, pk)}": n
+            for (a, b, dt, pk), n in sorted(k2_by_shape.items())},
+        "k1_launches_by_plan": k1_plans, "k2_launches_by_plan": k2_plans,
         "k1_jobs_per_launch": cap.k1_jobs / max(k1, 1),
         "peak_device_bytes": peak,
         "raw_distance_written": raw, "corrected_distance": fixed,
@@ -1061,26 +1367,26 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
         raise SystemExit(f"fragment path wrote {len(written)} reads, not "
                          f"{n_targets} targets less {n_dropped} dropped")
 
-    # the fullest batch of each K1 bucket, against the plain version
+    # the fullest batch of each K1 bucket at the instantiation it ran,
+    # against the plain version, and at both widths where int16 holds
     rows = []
-    for (nb, lb), (n, args) in sorted(cap.k1.items()):
-        got = poa_kernels.window_sweep(*args, MATCH, MISMATCH, GAP)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = graph_aligner(nb, lb, MAX_PRED, MATCH, MISMATCH, GAP)(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not torch.equal(got, want):
-            raise SystemExit(f"K1 window_sweep disagrees with its plain "
-                             f"version on the fragment path at bucket "
-                             f"{(nb, lb)}")
-        ms = cuda_ms(lambda: poa_kernels.window_sweep(
-            *args, MATCH, MISMATCH, GAP), reps=3)
-        b_ms, by = window_sweep_bound(args)
+    n_cross = 0
+    for (nb, lb), (n, plan, args) in sorted(cap.k1.items()):
+        held = hold_k1(args, nb, lb,
+                       f"the fragment path's fullest {(nb, lb)} batch",
+                       widths=(plan[0],))
+        r = held[plan]
+        if plan[0] == "int16":
+            if not torch.equal(sweep(args, plan),
+                               sweep(args, ("int32", plan[1]))):
+                raise SystemExit(f"K1 cross-width check: int16 and int32 "
+                                 f"ranks differ on the fragment path's "
+                                 f"fullest {(nb, lb)} batch")
+            n_cross += 1
         rows.append({"kernel": "K1", "shape": [nb, lb], "jobs": n,
-                     "rows": args[0].shape[0], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": by})
+                     "rows": args[0].shape[0], "plan": plan_name(*plan),
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
     # the fullest batch of each K2 (edge, band), as the polishers batched
     # their pairs
     fullest: dict = {}
@@ -1090,27 +1396,36 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
                 fullest[(edge, band)] = (len(idx), pairs, idx)
     al = BatchAligner(device=dev)
     for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
-        c = (edge, band, al.operands(pairs, edge, band, idx))
-        ops, meta, plain_ms, _ = compare_wavefront(dev, c)
-        q, t, ql, tl, offs = c[2]
-        ms = cuda_ms(lambda: align_kernels.wavefront_align(
-            q, t, ql, tl, offs, band), reps=2)
-        b_ms, by = wavefront_bound(ql, tl, offs, band, meta[:, 0])
+        args = al.operands(pairs, edge, band, idx)
+        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
+        a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
+                                                  pack=False)
+        held = hold_k2(edge, band, a8, args if plan[1] else None,
+                       f"the fragment path's fullest ({edge}, {band}) batch",
+                       widths=(plan[0],))
+        r = held[plan]
+        if aligner_int16_ok(edge):
+            cross_width_k2(args, band, plan[1], f"the fragment path's "
+                           f"fullest ({edge}, {band}) batch")
+            n_cross += 1
         rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
-                     "touched": int(meta[:, 2].sum()), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": by})
-        del ops, meta, c, q, t, ql, tl, offs
+                     "plan": plan_name(*plan), "touched": r["touched"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+        del args, a8
     for r in rows:
         log(f"[chip_smoke] fragment path {r['kernel']} fullest batch at "
-            f"{tuple(r['shape'])}: "
+            f"{tuple(r['shape'])}, {r['plan']}: "
             + (f"{r['jobs']} jobs / {r['rows']} rows"
                if r["kernel"] == "K1" else
                f"{r['pairs']} pairs ({r['touched']} band-touched)")
             + f" identical; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+    log(f"[chip_smoke] fragment path cross-width check: {n_cross} fullest "
+        f"batches of int16 shapes identical at int16 and int32")
     report["fragment_batches"] = rows
+    report["fragment_cross_width_batches"] = n_cross
 
     all_pairs = [p for pairs in cap.align_calls for p in pairs]
     prof = profile_phase("fragment align phase",
@@ -1121,7 +1436,7 @@ def fragment_path(dev, truth, reads, workdir, report) -> tuple[int, int]:
     log(f"[chip_smoke] profile fragment align phase over {len(all_pairs)} "
         f"pairs: ms per pair {per_pair}")
     report["profile_fragment_align"] = prof
-    return k1, k2
+    return (k1, k1_plans), (k2, k2_plans)
 
 
 if __name__ == "__main__":

@@ -115,11 +115,11 @@ def _build_kernels() -> pathlib.Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rt_poa_window_sweep.restype = i32
-    lib.rt_poa_window_sweep.argtypes = [vp] * 11 + [i32] * 7 + [vp]
+    lib.rt_poa_window_sweep.argtypes = [vp] * 11 + [i32] * 9 + [vp]
     lib.rt_poa_ring_rows.restype = i32
-    lib.rt_poa_ring_rows.argtypes = [i32] * 4
+    lib.rt_poa_ring_rows.argtypes = [i32] * 5
     lib.rt_align_wavefront.restype = i32
-    lib.rt_align_wavefront.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+    lib.rt_align_wavefront.argtypes = [vp] * 8 + [i32] * 6 + [vp]
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_error_string.argtypes = [i32]
     return lib

@@ -3,9 +3,9 @@
 The reference CLI (src/main.cpp:47-169): the same common options plus the
 upstream racon-gpu device flags (-c/--cudapoa-batches,
 --cudaaligner-batches, --cudaaligner-band-width,
--b/--cuda-banded-alignment) and --device. Polished FASTA goes to stdout;
-errors print as `[racon_tpu_torch::...] error: ...` on stderr with exit
-status 1.
+-b/--cuda-banded-alignment), --device and --cuda-dtype. Polished FASTA
+goes to stdout; errors print as `[racon_tpu_torch::...] error: ...` on
+stderr with exit status 1.
 """
 
 from __future__ import annotations
@@ -80,6 +80,12 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             default: cuda
             device of the GPU paths; cuda raises when no card is present,
             cpu runs the kernels' plain PyTorch versions
+        --cuda-dtype <auto|int32|int16>
+            default: auto
+            DP score dtype policy: auto shrinks each bucket to int16
+            when its overflow envelope proof holds (half the DP bytes,
+            bit-identical results), int32 forces the wide oracle
+            everywhere
 """
 
 
@@ -103,6 +109,7 @@ def parse_args(argv: list[str]) -> dict | None:
         "cuda_aligner_band_width": 0,
         "cuda_banded_alignment": False,
         "device": "cuda",
+        "score_dtype": "auto",
         "paths": [],
     }
 
@@ -110,6 +117,13 @@ def parse_args(argv: list[str]) -> dict | None:
         if v not in ("cuda", "cpu"):
             print("racon_tpu_torch: --device must be 'cuda' or 'cpu'",
                   file=sys.stderr)
+            sys.exit(1)
+        return v
+
+    def _dtype_choice(v: str) -> str:
+        if v not in ("auto", "int32", "int16"):
+            print("racon_tpu_torch: --cuda-dtype must be 'auto', 'int32' or "
+                  "'int16'", file=sys.stderr)
             sys.exit(1)
         return v
 
@@ -129,7 +143,8 @@ def parse_args(argv: list[str]) -> dict | None:
                   "threads": ("num_threads", int),
                   "cudaaligner-batches": ("cuda_aligner_batches", int),
                   "cudaaligner-band-width": ("cuda_aligner_band_width", int),
-                  "device": ("device", _device_choice)}
+                  "device": ("device", _device_choice),
+                  "cuda-dtype": ("score_dtype", _dtype_choice)}
 
     def flag(name: str) -> bool:
         if name in ("u", "include-unpolished"):
@@ -244,7 +259,7 @@ def main(argv: list[str] | None = None) -> int:
             opts["mismatch"], opts["gap"], opts["num_threads"],
             opts["cuda_poa_batches"], opts["cuda_banded_alignment"],
             opts["cuda_aligner_batches"], opts["cuda_aligner_band_width"],
-            opts["device"])
+            opts["device"], opts["score_dtype"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:

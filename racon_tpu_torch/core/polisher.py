@@ -28,6 +28,7 @@ import numpy as np
 from ..device import resolve
 from ..errors import RaconError
 from ..io.parsers import create_sequence_parser, create_overlap_parser
+from ..ops.dtypes import plan_split
 from ..utils.cigar import cigar_from_ops
 from ..utils.logger import Logger, flush_dedup, log_info, reset_dedup
 from .sequence import Sequence, create_sequence
@@ -50,10 +51,13 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     cuda_banded_alignment: bool = True,
                     cuda_aligner_batches: int = 0,
                     cuda_aligner_band_width: int = 0,
-                    device: str = "cuda") -> "Polisher":
+                    device: str = "cuda", score_dtype: str = "auto",
+                    pack_bases: bool = True) -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
-    POA included; the CLI defaults -b off."""
+    POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
+    int16) and `pack_bases` set both device engines' kernel posture
+    (ops/dtypes.py, ops/encode.py)."""
     if not isinstance(type_, PolisherType):
         raise RaconError("createPolisher", "invalid polisher type!")
     if window_length == 0:
@@ -72,7 +76,8 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     return Polisher(sparser, oparser, tparser, type_, window_length,
                     quality_threshold, error_threshold, trim, match, mismatch,
                     gap, num_threads, cuda_poa_batches, cuda_banded_alignment,
-                    cuda_aligner_batches, cuda_aligner_band_width, dev)
+                    cuda_aligner_batches, cuda_aligner_band_width, dev,
+                    score_dtype, pack_bases)
 
 
 class Polisher:
@@ -82,7 +87,8 @@ class Polisher:
                  gap: int, num_threads: int = 1, cuda_poa_batches: int = 0,
                  cuda_banded_alignment: bool = True,
                  cuda_aligner_batches: int = 0,
-                 cuda_aligner_band_width: int = 0, device="cuda"):
+                 cuda_aligner_band_width: int = 0, device="cuda",
+                 score_dtype: str = "auto", pack_bases: bool = True):
         self.sparser = sparser
         self.oparser = oparser
         self.tparser = tparser
@@ -100,6 +106,8 @@ class Polisher:
         self.cuda_aligner_batches = cuda_aligner_batches
         self.cuda_aligner_band_width = cuda_aligner_band_width
         self.device = resolve(device)
+        self.score_dtype = score_dtype
+        self.pack_bases = pack_bases
 
         self.sequences: list[Sequence] = []
         self.windows: list[Window] = []
@@ -364,7 +372,8 @@ class Polisher:
 
                 self.aligner = BatchAligner(
                     band_width=self.cuda_aligner_band_width,
-                    device=self.device)
+                    device=self.device, score_dtype=self.score_dtype,
+                    pack_bases=self.pack_bases)
                 runs = self.aligner.align(pairs, progress=bar_n)
 
             rest = [i for i, r in enumerate(runs) if r is None]
@@ -388,7 +397,8 @@ class Polisher:
                          f"{self.n_aligner_host_fallback} on host "
                          f"({a.n_unbucketed} unbucketable, "
                          f"{a.n_band_rejects} band-clipped or over the "
-                         "cost limit)")
+                         "cost limit); batches by score dtype and operand "
+                         f"form: {plan_split(a.batches_by_plan)}")
 
         for o in overlaps:
             if o.is_valid and o.cigar:
@@ -407,7 +417,9 @@ class Polisher:
                             self.window_length, num_threads=self.num_threads,
                             device_batches=self.cuda_poa_batches,
                             banded=self.cuda_banded_alignment,
-                            logger=self.logger, device=self.device)
+                            logger=self.logger, device=self.device,
+                            score_dtype=self.score_dtype,
+                            pack_bases=self.pack_bases)
         t0 = time.perf_counter()
         self.poa.generate_consensus(self.windows, self.trim)
         if self.device.type == "cuda":

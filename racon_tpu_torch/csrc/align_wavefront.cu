@@ -6,7 +6,7 @@
 // Replaces racon_tpu/ops/align_pallas.py::wavefront_align (the Pallas
 // TPU kernel) and computes, cell for cell, what its XLA twin
 // racon_tpu/ops/align.py::_banded_nw_kernel + _traceback compute: the
-// same INF clamp (1<<28), the same tie order (diag < up < left), the same
+// same INF clamp, the same tie order (diag < up < left), the same
 // clipped operand reads q[clamp(i-1)] / t[clamp(j-1)] on the padded
 // [B, edge] code arrays (so even cells outside the matrix carry the same
 // backpointer), the distance recorded at (m, n), and the same walk.
@@ -18,6 +18,19 @@
 // meta [B, 3] i32 = (count, dist, touched). Scratch from the wrapper: the
 // backpointer plane [B, n_waves, ceil(band / 16)] u32, 16 cells of 2 bits
 // per word (cell k of a wavefront in word k / 16, bits 2 (k % 16)).
+//
+// Two instantiation axes, as the JAX programs have them:
+//   - the score type S: int32_t (INF 1<<28) or int16_t (INF 1<<14, legal
+//     where 2 edge + 1 < 1<<14, ops/dtypes.aligner_int16_ok). Every value
+//     is min-clamped at INF each wavefront, so the DP runs in 32-bit
+//     registers either way and computes the integers the int16 program
+//     computes; S is the width of what passes through shared memory (the
+//     edge cells, and the wavefronts of the shared-memory path) and the
+//     sentinel, which shows as `dist` when (m, n) lies outside the band;
+//   - the operand form: int8 codes, or q, t [B, edge / 4] u8 2-bit packed
+//     (encode.pack_2bit), expanded where the staging loads them and PAD
+//     restored at positions at or beyond the lane's length, so every
+//     byte that reaches the rings is the int8 form's.
 //
 // What bounds it on this card: the chain of m + n wavefronts. Wavefront d
 // needs d - 1 and d - 2 finished and holds only `band` cells of about 15
@@ -82,7 +95,7 @@
 
 namespace {
 
-constexpr int kInf = 1 << 28;
+constexpr int kPad = 5;
 constexpr int kDiag = 0, kUp = 1, kLeft = 2;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxChunk = 256;
@@ -99,10 +112,16 @@ constexpr int kLoads = kTile * kTileWords / 32;
 // index to leave the tile (a query row at most 2 past the row's last)
 constexpr int kPitch = kTile + 4;
 
+// The sentinel of score type S.
+template <typename S>
+__host__ __device__ constexpr int inf_of() {
+    return sizeof(S) == 2 ? 1 << 14 : 1 << 28;
+}
+
 // One pair's geometry and staging state, uniform over the CTA.
 struct Pair {
-    const int8_t* q;
-    const int8_t* t;
+    const uint8_t* q;
+    const uint8_t* t;
     const int32_t* offs;
     uint32_t* bp;
     int m, n, edge, band, n_waves, wpr, last;
@@ -111,14 +130,16 @@ struct Pair {
 
 // Shared-memory staging: offsets of the current chunk, the two operand
 // rings, every thread's edge cells (parity, first/last, thread).
+template <typename S>
 struct Stage {
     int* offs;
-    int* edges;
+    S* edges;
     int8_t* qr;
     int8_t* tr;
 };
 
 // One DP cell, exactly as the reference computes it.
+template <int kInf>
 __device__ __forceinline__ int cell(int up, int left, int diag, int qi,
                                     int tj, int i, int j, int m, int n,
                                     int& code) {
@@ -139,14 +160,23 @@ __device__ __forceinline__ int cell(int up, int left, int diag, int qi,
     return valid ? min(score, kInf) : kInf;
 }
 
-__device__ __forceinline__ int8_t clamped(const int8_t* x, int idx,
-                                          int edge) {
-    return x[min(max(idx, 0), edge - 1)];
+// x[clamp(idx)] of a padded code row whose first `len` bases are real:
+// a byte of the int8 form, or a base expanded from the packed form with
+// PAD at or beyond `len`, where the int8 form holds it.
+template <bool PACKED>
+__device__ __forceinline__ int8_t clamped(const uint8_t* x, int idx,
+                                          int edge, int len) {
+    const int c = min(max(idx, 0), edge - 1);
+    if constexpr (PACKED)
+        return c < len ? (int8_t)((x[c >> 2] >> (2 * (c & 3))) & 3) : kPad;
+    else
+        return (int8_t)x[c];
 }
 
 // Operand and offset staging, chunk by chunk. Thread tid < chunk holds
 // one query byte, one target byte and one offset in registers between
 // chunks; the fill points hq / ht (next ring index to fill) are uniform.
+template <typename S, bool PACKED>
 struct Prefetch {
     int off, qi, ti;
     int8_t qv, tv;
@@ -154,7 +184,7 @@ struct Prefetch {
 
     // Chunk 0, synchronously: its offsets, query rows [-1, band + C - 1)
     // and target columns [-band, C - 1).
-    __device__ __forceinline__ void first(const Pair& p, const Stage& s,
+    __device__ __forceinline__ void first(const Pair& p, const Stage<S>& s,
                                           int tid, int nt) {
         const int C = p.chunk;
         for (int x = tid; x < C; x += nt)
@@ -162,16 +192,16 @@ struct Prefetch {
         hq = p.band + C - 1;
         ht = C - 1;
         for (int x = -1 + tid; x < hq; x += nt)
-            s.qr[x & p.ring_mask] = clamped(p.q, x, p.edge);
+            s.qr[x & p.ring_mask] = clamped<PACKED>(p.q, x, p.edge, p.m);
         for (int x = -p.band + tid; x < ht; x += nt)
-            s.tr[x & p.ring_mask] = clamped(p.t, x, p.edge);
+            s.tr[x & p.ring_mask] = clamped<PACKED>(p.t, x, p.edge, p.n);
     }
 
     // At the start of chunk d0 (after a barrier, offsets in place): issue
     // the loads of what chunk d0 + C needs. Query rows reach at most
     // a0 + band + 2C - 2 and target columns d - a0 + 2C - 2 before then,
     // and each fill point moves by at most C per chunk.
-    __device__ __forceinline__ void issue(const Pair& p, const Stage& s,
+    __device__ __forceinline__ void issue(const Pair& p, const Stage<S>& s,
                                           int d0, int tid) {
         const int C = p.chunk;
         const int a = s.offs[0];
@@ -184,11 +214,11 @@ struct Prefetch {
             if (x < p.n_waves) off = p.offs[x];
             if (hq + tid < nq) {
                 qi = hq + tid;
-                qv = clamped(p.q, qi, p.edge);
+                qv = clamped<PACKED>(p.q, qi, p.edge, p.m);
             }
             if (ht + tid < nt) {
                 ti = ht + tid;
-                tv = clamped(p.t, ti, p.edge);
+                tv = clamped<PACKED>(p.t, ti, p.edge, p.n);
             }
         }
         hq = nq;
@@ -197,7 +227,7 @@ struct Prefetch {
 
     // Before the barrier that opens the next chunk (the previous chunk's
     // reads are done): store what `issue` loaded.
-    __device__ __forceinline__ void store(const Pair& p, const Stage& s,
+    __device__ __forceinline__ void store(const Pair& p, const Stage<S>& s,
                                           int tid) const {
         if (tid < p.chunk) {
             s.offs[tid] = off;
@@ -213,11 +243,13 @@ struct Prefetch {
 // past the band's ends. Every thread posts both to shared memory (two
 // parities, so one block barrier a wavefront suffices); shuffles within
 // the warp measured slower.
-__device__ __forceinline__ void exchange(const Stage& s, int first, int last,
-                                         int par, int& L, int& R) {
+template <typename S>
+__device__ __forceinline__ void exchange(const Stage<S>& s, int first,
+                                         int last, int par, int& L, int& R) {
+    constexpr int kInf = inf_of<S>();
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    int* e = s.edges + par * 2 * nt;
+    S* e = s.edges + par * 2 * nt;
     e[tid] = first;
     e[nt + tid] = last;
     __syncthreads();
@@ -234,9 +266,11 @@ __device__ __forceinline__ void exchange(const Stage& s, int first, int last,
 // does not) with one new base each from the rings. A thread whose run
 // lies inside the matrix and the band takes the interior cell (no
 // boundary tests); the others take `cell`.
-template <int RUN>
-__device__ __forceinline__ void sweep_registers(const Pair& p, const Stage& s,
+template <int RUN, typename S, bool PACKED>
+__device__ __forceinline__ void sweep_registers(const Pair& p,
+                                                const Stage<S>& s,
                                                 int* s_dist) {
+    constexpr int kInf = inf_of<S>();
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
     const int k0 = tid * RUN;
@@ -248,7 +282,7 @@ __device__ __forceinline__ void sweep_registers(const Pair& p, const Stage& s,
     for (int x = 0; x <= RUN; ++x) P[x] = kInf;
     int L1 = kInf, R1 = kInf;
     int a1 = 0;
-    Prefetch pf;
+    Prefetch<S, PACKED> pf;
     pf.first(p, s, tid, nt);
     for (int d0 = 0; d0 <= p.last; d0 += p.chunk) {
         if (d0 > 0) {
@@ -302,8 +336,9 @@ __device__ __forceinline__ void sweep_registers(const Pair& p, const Stage& s,
                 for (int c = 0; c < RUN; ++c) {
                     const int diag = d1 ? P[c + 1] : P[c];
                     int code;
-                    const int v = cell(U[c], U[c + 1], diag, qv[c], tv[c],
-                                       i0 + c, j0 - c, p.m, p.n, code);
+                    const int v = cell<kInf>(U[c], U[c + 1], diag, qv[c],
+                                             tv[c], i0 + c, j0 - c, p.m, p.n,
+                                             code);
                     s1[c] = k0 + c < p.band ? v : kInf;
                     codes |= (uint32_t)code << (2 * c);
                 }
@@ -348,17 +383,19 @@ __device__ __forceinline__ void sweep_registers(const Pair& p, const Stage& s,
 // The shared-memory path: `run` (16 or 32) cells a thread, its two
 // wavefronts at sc[c * nt + tid] (s1) and sc[(run + c) * nt + tid] (s2),
 // the new wavefront written over s2 as the sweep passes.
-__device__ __forceinline__ void sweep_shared(const Pair& p, const Stage& s,
-                                             int* sc, int run, int* s_dist) {
+template <typename S, bool PACKED>
+__device__ __forceinline__ void sweep_shared(const Pair& p, const Stage<S>& s,
+                                             S* sc, int run, int* s_dist) {
+    constexpr int kInf = inf_of<S>();
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
     const int k0 = tid * run;
-    int* S1 = sc;
-    int* S2 = sc + run * nt;
+    S* S1 = sc;
+    S* S2 = sc + run * nt;
     for (int c = 0; c < run; ++c) S1[c * nt + tid] = S2[c * nt + tid] = kInf;
     int L1 = kInf, R1 = kInf, L2 = kInf, R2 = kInf;
     int a1 = 0, a2 = 0;
-    Prefetch pf;
+    Prefetch<S, PACKED> pf;
     pf.first(p, s, tid, nt);
     for (int d0 = 0; d0 <= p.last; d0 += p.chunk) {
         if (d0 > 0) {
@@ -388,7 +425,8 @@ __device__ __forceinline__ void sweep_shared(const Pair& p, const Stage& s,
                 const int qi = s.qr[(i - 1) & p.ring_mask];
                 const int tj = s.tr[(j - 1) & p.ring_mask];
                 int code;
-                int v = cell(up, left, diag, qi, tj, i, j, p.m, p.n, code);
+                int v = cell<kInf>(up, left, diag, qi, tj, i, j, p.m, p.n,
+                                   code);
                 v = k0 + c < p.band ? v : kInf;
                 if (d == p.m + p.n && i == p.m && k0 + c < p.band)
                     *s_dist = v;
@@ -409,7 +447,7 @@ __device__ __forceinline__ void sweep_shared(const Pair& p, const Stage& s,
             L2 = L1;
             R2 = R1;
             exchange(s, first, last, d & 1, L1, R1);
-            int* tmp = S2;
+            S* tmp = S2;
             S2 = S1;
             S1 = tmp;
             a2 = a1;
@@ -446,9 +484,9 @@ __host__ __device__ constexpr int max_threads(int run) {
     return run > 0 ? kMaxThreads / 2 : kMaxThreads;
 }
 
-template <int RUN>
+template <int RUN, typename S, bool PACKED>
 __global__ void __launch_bounds__(max_threads(RUN)) align_wavefront_kernel(
-    const int8_t* __restrict__ q, const int8_t* __restrict__ t,
+    const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
     const int32_t* __restrict__ q_lens, const int32_t* __restrict__ t_lens,
     const int32_t* __restrict__ offsets, uint32_t* __restrict__ bps,
     int32_t* __restrict__ ops, int32_t* __restrict__ meta, int edge,
@@ -459,8 +497,9 @@ __global__ void __launch_bounds__(max_threads(RUN)) align_wavefront_kernel(
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
     Pair p;
-    p.q = q + (size_t)b * edge;
-    p.t = t + (size_t)b * edge;
+    const int width = PACKED ? (edge + 3) / 4 : edge;
+    p.q = q + (size_t)b * width;
+    p.t = t + (size_t)b * width;
     p.offs = offsets + (size_t)b * n_waves;
     p.m = q_lens[b];
     p.n = t_lens[b];
@@ -472,18 +511,17 @@ __global__ void __launch_bounds__(max_threads(RUN)) align_wavefront_kernel(
     p.last = min(p.m + p.n, n_waves - 1);
     p.chunk = chunk;
     p.ring_mask = ring - 1;
-    int* base = reinterpret_cast<int*>(smem4);
-    Stage s;
-    s.edges = base;
-    s.offs = base + 2 * 2 * nt;
-    int* sc = s.offs + chunk;
+    Stage<S> s;
+    s.offs = reinterpret_cast<int*>(smem4);
+    s.edges = reinterpret_cast<S*>(s.offs + chunk);
+    S* sc = s.edges + 2 * 2 * nt;
     s.qr = reinterpret_cast<int8_t*>(sc + (RUN ? 0 : 2 * run * nt));
     s.tr = s.qr + ring;
-    if (tid == 0) s_dist = kInf;
+    if (tid == 0) s_dist = inf_of<S>();
     if constexpr (RUN > 0)
-        sweep_registers<RUN>(p, s, &s_dist);
+        sweep_registers<RUN, S, PACKED>(p, s, &s_dist);
     else
-        sweep_shared(p, s, sc, run, &s_dist);
+        sweep_shared<S, PACKED>(p, s, sc, run, &s_dist);
     __syncthreads();
 
     // -- traceback --
@@ -626,7 +664,7 @@ struct Shape {
     size_t smem;
 };
 
-Shape shape_of(int band) {
+Shape shape_of(int band, int score_bytes) {
     Shape sh;
     int run = band <= 2048 ? 4 : 8;
     if ((band + run - 1) / run <= max_threads(run)) {
@@ -640,50 +678,79 @@ Shape shape_of(int band) {
     sh.chunk = sh.threads < kMaxChunk ? sh.threads : kMaxChunk;
     sh.ring = 1;
     while (sh.ring < band + 2 * sh.chunk) sh.ring *= 2;
-    sh.smem = (size_t)(2 * 2 * sh.threads + sh.chunk) * 4 +
+    sh.smem = (size_t)sh.chunk * 4 + (size_t)2 * 2 * sh.threads * score_bytes +
               2 * (size_t)sh.ring;
-    if (!sh.kernel_run) sh.smem += 2 * (size_t)run * sh.threads * 4;
+    if (!sh.kernel_run)
+        sh.smem += 2 * (size_t)run * sh.threads * score_bytes;
     if (sh.smem < sizeof(Tile)) sh.smem = sizeof(Tile);
     return sh;
 }
 
-template <int RUN>
+template <int RUN, typename S, bool PACKED>
 int launch(const Shape& sh, const void* q, const void* t, const void* q_lens,
            const void* t_lens, const void* offsets, void* bps, void* ops,
            void* meta, int B, int edge, int band, int n_waves,
            cudaStream_t stream) {
     if (sh.smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            align_wavefront_kernel<RUN>,
+            align_wavefront_kernel<RUN, S, PACKED>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
         if (e != cudaSuccess) return (int)e;
     }
-    align_wavefront_kernel<RUN><<<B, sh.threads, sh.smem, stream>>>(
-        (const int8_t*)q, (const int8_t*)t, (const int32_t*)q_lens,
+    align_wavefront_kernel<RUN, S, PACKED><<<B, sh.threads, sh.smem, stream>>>(
+        (const uint8_t*)q, (const uint8_t*)t, (const int32_t*)q_lens,
         (const int32_t*)t_lens, (const int32_t*)offsets, (uint32_t*)bps,
         (int32_t*)ops, (int32_t*)meta, edge, band, n_waves, sh.run,
         sh.chunk, sh.ring);
     return (int)cudaGetLastError();
 }
 
+// The kernel path of a launch shape, at one score type and operand form.
+template <typename S, bool PACKED>
+int dispatch(const Shape& sh, const void* q, const void* t,
+             const void* q_lens, const void* t_lens, const void* offsets,
+             void* bps, void* ops, void* meta, int B, int edge, int band,
+             int n_waves, cudaStream_t st) {
+    switch (sh.kernel_run) {
+        case 4:
+            return launch<4, S, PACKED>(sh, q, t, q_lens, t_lens, offsets,
+                                        bps, ops, meta, B, edge, band,
+                                        n_waves, st);
+        case 8:
+            return launch<8, S, PACKED>(sh, q, t, q_lens, t_lens, offsets,
+                                        bps, ops, meta, B, edge, band,
+                                        n_waves, st);
+        default:
+            return launch<0, S, PACKED>(sh, q, t, q_lens, t_lens, offsets,
+                                        bps, ops, meta, B, edge, band,
+                                        n_waves, st);
+    }
+}
+
 }  // namespace
 
+// score_bytes: 4 (int32 scores) or 2 (int16); packed: q and t are 2-bit
+// packed [B, edge / 4] u8 rather than [B, edge] i8.
 extern "C" int rt_align_wavefront(
     const void* q, const void* t, const void* q_lens, const void* t_lens,
     const void* offsets, void* bps, void* ops, void* meta, int B, int edge,
-    int band, int n_waves, void* stream) {
-    const Shape sh = shape_of(band);
+    int band, int n_waves, int score_bytes, int packed, void* stream) {
+    const Shape sh = shape_of(band, score_bytes);
     auto st = (cudaStream_t)stream;
-    switch (sh.kernel_run) {
-        case 4:
-            return launch<4>(sh, q, t, q_lens, t_lens, offsets, bps, ops,
-                             meta, B, edge, band, n_waves, st);
-        case 8:
-            return launch<8>(sh, q, t, q_lens, t_lens, offsets, bps, ops,
-                             meta, B, edge, band, n_waves, st);
-        default:
-            return launch<0>(sh, q, t, q_lens, t_lens, offsets, bps, ops,
-                             meta, B, edge, band, n_waves, st);
-    }
+    if (score_bytes == 4)
+        return packed ? dispatch<int32_t, true>(sh, q, t, q_lens, t_lens,
+                                                offsets, bps, ops, meta, B,
+                                                edge, band, n_waves, st)
+                      : dispatch<int32_t, false>(sh, q, t, q_lens, t_lens,
+                                                 offsets, bps, ops, meta, B,
+                                                 edge, band, n_waves, st);
+    if (score_bytes == 2)
+        return packed ? dispatch<int16_t, true>(sh, q, t, q_lens, t_lens,
+                                                offsets, bps, ops, meta, B,
+                                                edge, band, n_waves, st)
+                      : dispatch<int16_t, false>(sh, q, t, q_lens, t_lens,
+                                                 offsets, bps, ops, meta, B,
+                                                 edge, band, n_waves, st);
+    return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,7 @@
 // traceback. One (window, layer) job per block of four warps.
 //
 // Replaces racon_tpu/ops/poa_pallas.py::window_sweep (the Pallas TPU
-// kernel). Same inputs, same int32 arithmetic, same tie order
+// kernel). Same inputs, same arithmetic, same tie order
 // (diagonal > vertical > horizontal, predecessors in edge order, sink
 // ties to the smallest rank), so the ranks equal the plain version
 // (ops/poa_graph.py::graph_aligner) and the consensus stays
@@ -13,8 +13,23 @@
 // row; -1 pad), centers [B,N] i16, sinks [B,N] u8, seq [B,L] i8,
 // lens/band/nnodes [B] i32 -> ranks [B,L] i32 (node rank, -1 insertion,
 // -2 beyond lens). Scratch from the wrapper: a band-compact score spill
-// [B,N,Lw] i32 and backpointer plane [B,N,Lw] i8 (Lw = L rounded up to
-// 16), of which a job uses nnodes rows of its own window width.
+// [B,N,Lw] of the score type and backpointer plane [B,N,Lw] i8 (Lw = L
+// rounded up to 16), of which a job uses nnodes rows of its own window
+// width.
+//
+// Two instantiation axes, as the JAX programs have them:
+//   - the score type S: int32_t (sentinel kNeg -(1<<29)) or int16_t
+//     (-(1<<14), legal where (N + L + 2) * mp <= 16383,
+//     ops/dtypes.poa_int16_ok). The proof bounds every value and
+//     intermediate of the bucket, the drift of unreachable cells below
+//     the sentinel included, so the DP runs in 32-bit registers either
+//     way and computes the integers the int16 program computes; S is the
+//     width of the stored scores: the ring rows and their guards, the
+//     spill, and so the traceback's cache, which reuses the ring;
+//   - the operand form: int8 codes, or codes [B, N/4] and seq [B, L/4]
+//     u8 2-bit packed (encode.pack_2bit), expanded as the staging loads
+//     them. Staging covers the nnodes codes and lens bases a job reads,
+//     so no PAD needs restoring.
 //
 // What bounds it on this card: the per-row dependency chain. Row k needs
 // every predecessor row finished, and a row holds at most band+1 (257)
@@ -73,8 +88,7 @@
 //
 // Limits: a row window is at most 128 * 5 = 640 columns, P is 4 or 8, and
 // the staged operands plus two ring rows must fit 227 KB (N up to ~5,000
-// at P = 8 and 640 columns). int16 scores (the JAX package's
-// poa_int16_ok variant) are not carried over.
+// at P = 8 and 640 columns at int32).
 
 #include <cstdint>
 #include <climits>
@@ -82,7 +96,6 @@
 
 namespace {
 
-constexpr int kNeg = -(1 << 29);
 constexpr int kWarp = 32;
 constexpr int kTeam = 128;  // one job's threads: four warps
 constexpr int kWarps = kTeam / kWarp;
@@ -95,22 +108,29 @@ constexpr int kMaxRun = 5;  // window cells a thread at most: 640 columns
 // plain loads
 constexpr int kGuard = 8;
 
+// The sentinel of score type S.
+template <typename S>
+__host__ __device__ constexpr int neg_of() {
+    return sizeof(S) == 2 ? -(1 << 14) : -(1 << 29);
+}
+
 __host__ __device__ inline size_t align16(size_t x) {
     return (x + 15) & ~size_t(15);
 }
 
 // row strides of a job whose windows are `width` columns wide, each row
-// 16-byte aligned: int32 scores in the spill, int8 backpointers, and a
-// ring row (the window between guards, then room for the reads of the
-// threads past the window's end)
-__host__ __device__ inline int score_stride(int width) {
-    return width > 4 ? (width + 3) & ~3 : 4;
+// 16-byte aligned: scores of `sb` bytes in the spill, int8 backpointers,
+// and a ring row (the window between guards, then room for the reads of
+// the threads past the window's end)
+__host__ __device__ inline int score_stride(int width, int sb) {
+    const int a = 16 / sb;
+    return width > a ? (width + a - 1) / a * a : a;
 }
 __host__ __device__ inline int bp_stride(int width) {
     return width > 16 ? (width + 15) & ~15 : 16;
 }
-__host__ __device__ inline int ring_stride(int width) {
-    return score_stride(kGuard + width + kGuard + kMaxRun + 1);
+__host__ __device__ inline int ring_stride(int width, int sb) {
+    return score_stride(kGuard + width + kGuard + kMaxRun + 1, sb);
 }
 
 // staged operands: the team's totals, col0 [N+1] i32, edges [N*P] i32,
@@ -124,21 +144,23 @@ __host__ __device__ inline size_t operand_bytes(int N, int L, int P) {
 }
 
 // ring rows for a job whose row windows are `width` columns wide, in
-// `smem` bytes of shared memory (at most N: then the ring holds the job)
+// `smem` bytes of shared memory, at `sb`-byte scores (at most N: then the
+// ring holds the job)
 __host__ __device__ inline int ring_rows(int N, int L, int P, int width,
-                                         int smem) {
+                                         int smem, int sb) {
     const long long avail =
         (long long)smem - (long long)operand_bytes(N, L, P);
-    const long long slot = 4LL * ring_stride(width) + bp_stride(width);
+    const long long slot =
+        (long long)sb * ring_stride(width, sb) + bp_stride(width);
     const long long r = avail > 0 ? avail / slot : 0;
     const int cap = N > 0 ? N : 1;
     return r < cap ? (int)r : cap;
 }
 
-inline int smem_bytes(int N, int L, int P) {
+inline int smem_bytes(int N, int L, int P, int sb) {
     const size_t want =
         operand_bytes(N, L, P) +
-        (size_t)(N > 0 ? N : 1) * (4 * ring_stride(L) + bp_stride(L));
+        (size_t)(N > 0 ? N : 1) * (sb * ring_stride(L, sb) + bp_stride(L));
     return want < (size_t)kMaxSmem ? (int)want : kMaxSmem;
 }
 
@@ -172,6 +194,21 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int nbytes,
     for (int i = done + t; i < nbytes; i += kTeam) d[i] = s[i];
 }
 
+// the first n codes of a row into shared memory: bytes of the int8 form,
+// or bases expanded from the packed form (four a byte, base i in bits
+// 2i..2i+1)
+template <bool PACKED>
+__device__ __forceinline__ void stage_codes(int8_t* dst, const void* src,
+                                            int n, int t) {
+    if constexpr (PACKED) {
+        const uint8_t* s = static_cast<const uint8_t*>(src);
+        for (int i = t; i < n; i += kTeam)
+            dst[i] = (int8_t)((s[i >> 2] >> (2 * (i & 3))) & 3);
+    } else {
+        stage(dst, src, n, t);
+    }
+}
+
 // copy n16 16-byte words with the warp (the global backpointer plane to
 // the traceback's cache)
 __device__ __forceinline__ void copy16(void* dst, const void* src, int n16,
@@ -197,17 +234,19 @@ struct Staged {
     int8_t* bp0;     // [nn] column-0 backpointers
     int8_t* nedge;   // [nn] entries in each compacted list
     int8_t* seq;     // [slen]
-    int32_t* ring;   // [R][Wr] scores of the last R rows, from kGuard on
+    void* ring;      // [R][Wr] scores of the last R rows, from kGuard on
     int8_t* bring;   // [R][Wb] their backpointers
 };
 
 // One job's band geometry and stored rows, shared by the sweep and the
 // traceback. Row r >= 1 is node rank r - 1; row 0 is the virtual source.
+template <typename S>
 struct Job {
+    static constexpr int kNeg = neg_of<S>();
     int slen, gap, Ws, Wb, Wr, R;
     const int32_t* win;
     const int32_t* col0;
-    const int32_t* spill;  // every swept row's window, Ws apart
+    const S* spill;  // every swept row's window, Ws apart
 
     // H[r][j] of a swept row (or the source), read from the spill
     __device__ int score(int r, int j) const {
@@ -223,9 +262,10 @@ struct Job {
 // Backpointer of a cell outside its row's window, where H is kNeg: the
 // same equality tests the sweep makes, on the spilled scores, over the
 // row's n-entry compacted predecessor list.
-template <int P>
-__device__ int off_window_code(const Job& q, const int32_t* pk, int n, int r,
-                               int j, int s) {
+template <int P, typename S>
+__device__ int off_window_code(const Job<S>& q, const int32_t* pk, int n,
+                               int r, int j, int s) {
+    constexpr int kNeg = neg_of<S>();
     for (int e = 0; e < n; ++e) {
         const int pr = edge_row(pk[e]);
         const int hd = (pr >= 0 && pr < r) ? q.score(pr, j - 1) : kNeg;
@@ -255,10 +295,10 @@ __device__ __forceinline__ void load_edges(const int32_t* p, int (&e)[P]) {
 // H[r][j0-1 .. j0-1+RUN] of a predecessor row whose window is `wlen`
 // (>= 0) columns from offset 0 of `row`; `o0` is the offset of column
 // j0-1. Cells outside the window read kNeg; loads stay inside the row.
-template <int RUN>
-__device__ __forceinline__ void read_row(int (&v)[RUN + 1],
-                                         const int32_t* row, int o0,
-                                         int wlen) {
+template <int RUN, typename S>
+__device__ __forceinline__ void read_row(int (&v)[RUN + 1], const S* row,
+                                         int o0, int wlen) {
+    constexpr int kNeg = neg_of<S>();
     const int last = wlen > 0 ? wlen - 1 : 0;
 #pragma unroll
     for (int c = 0; c <= RUN; ++c) {
@@ -270,14 +310,16 @@ __device__ __forceinline__ void read_row(int (&v)[RUN + 1],
 
 // A ring row on its way to the spill, with the team: the window's cells
 // as 16-byte words, loaded together at the start of the next row and
-// stored once that row's predecessor reads are out.
-template <int RUN>
+// stored once that row's predecessor reads are out. n4 counts the score
+// row's 16-byte words, n16 the backpointer row's.
+template <int RUN, typename S>
 struct SpillCopy {
-    static constexpr int kS = (RUN * kTeam / 4 + kTeam - 1) / kTeam;
+    static constexpr int kS =
+        (RUN * kTeam * (int)sizeof(S) / 16 + kTeam - 1) / kTeam;
     static constexpr int kB = (RUN * kTeam / 16 + kTeam - 1) / kTeam;
     int4 h[kS], b[kB];
 
-    __device__ __forceinline__ void load(const int32_t* hs, int n4,
+    __device__ __forceinline__ void load(const S* hs, int n4,
                                          const int8_t* bs, int n16,
                                          int t) {
 #pragma unroll
@@ -289,7 +331,7 @@ struct SpillCopy {
             if (t + i * kTeam < n16)
                 b[i] = reinterpret_cast<const int4*>(bs)[t + i * kTeam];
     }
-    __device__ __forceinline__ void store(int32_t* hd, int n4, int8_t* bd,
+    __device__ __forceinline__ void store(S* hd, int n4, int8_t* bd,
                                           int n16, int t) const {
 #pragma unroll
         for (int i = 0; i < kS; ++i)
@@ -319,11 +361,15 @@ struct RowMeta {
 
 // The row sweep of one job, RUN cells a thread. Returns the sink argmax's
 // rank (before the rows-past-nnodes rule) and its score.
-template <int P, int RUN>
-__device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
-                                           int nn, int32_t* sp, int8_t* bp,
+template <int P, int RUN, typename S>
+__device__ __forceinline__ int2 sweep_rows(const Job<S>& q, const Staged& s,
+                                           int nn, S* sp, int8_t* bp,
                                            int t, int match,
                                            int mismatch) {
+    constexpr int kNeg = neg_of<S>();
+    // 16-byte words of a spilled score row
+    constexpr int kPerWord = 16 / (int)sizeof(S);
+    S* const ring = static_cast<S*>(s.ring);
     const int lane = t % kWarp, warp = t / kWarp;
     const int gap = q.gap, slen = q.slen, Ws = q.Ws, Wb = q.Wb, Wr = q.Wr,
               R = q.R;
@@ -331,7 +377,7 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
     // the ring's guards: kNeg left of every window, and kGuard cells
     // right of it as each row is written
     for (int i = t; i < R * kGuard; i += kTeam)
-        s.ring[(size_t)(i / kGuard) * Wr + i % kGuard] = kNeg;
+        ring[(size_t)(i / kGuard) * Wr + i % kGuard] = kNeg;
     team_sync();
     int slot = 0;  // ring slot of row k, k % R
     RowMeta<P> next;
@@ -342,8 +388,8 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
         const int prev = slot;
         slot = slot + 1 == R ? 0 : slot + 1;
         // row k - 1 goes to the spill while this row computes
-        SpillCopy<RUN> cp;
-        cp.load(s.ring + (size_t)prev * Wr + kGuard, Ws / 4,
+        SpillCopy<RUN, S> cp;
+        cp.load(ring + (size_t)prev * Wr + kGuard, Ws / kPerWord,
                 s.bring + (size_t)prev * Wb, Wb / 16, t);
         const int jlo = win_lo(m.win), jhi = win_hi(m.win);
         const int wrow = max(0, jhi - jlo + 1);
@@ -381,8 +427,8 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
                 h0 = s.col0[r];
                 const int d = k - r;
                 const int ps = slot - d < 0 ? slot - d + R : slot - d;
-                const int32_t* row = s.ring + (size_t)ps * Wr +
-                                     (min(j0, jhi) - 1 - edge_lo(e) + kGuard);
+                const S* row = ring + (size_t)ps * Wr +
+                               (min(j0, jhi) - 1 - edge_lo(e) + kGuard);
 #pragma unroll
                 for (int c = 0; c <= RUN; ++c) v[c] = row[c];
                 if (j0 == 1) v[0] = h0;
@@ -409,11 +455,11 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
                 const int d = k - r;
                 if (d < R) {
                     const int ps = slot - d < 0 ? slot - d + R : slot - d;
-                    read_row<RUN>(v, s.ring + (size_t)ps * Wr + kGuard,
-                                  j0 - 1 - plo, wlen);
+                    read_row<RUN, S>(v, ring + (size_t)ps * Wr + kGuard,
+                                     j0 - 1 - plo, wlen);
                 } else {
-                    read_row<RUN>(v, sp + (size_t)(r - 1) * Ws, j0 - 1 - plo,
-                                  wlen);
+                    read_row<RUN, S>(v, sp + (size_t)(r - 1) * Ws,
+                                     j0 - 1 - plo, wlen);
                 }
                 if (j0 == 1) v[0] = h0;
             }
@@ -436,8 +482,8 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
             }
         }
         if (k > 1)
-            cp.store(sp + (size_t)(k - 2) * Ws, Ws / 4, bp + (size_t)(k - 2) * Wb,
-                     Wb / 16, t);
+            cp.store(sp + (size_t)(k - 2) * Ws, Ws / kPerWord,
+                     bp + (size_t)(k - 2) * Wb, Wb / 16, t);
 
         // in-row gap recurrence: running max of pre[j] - j*gap, seeded by
         // the columns left of the window (column 0 when jlo == 1, kNeg
@@ -464,7 +510,7 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
             if (w < warp) prefix = max(prefix, s.tot[w]);
         if (lane > 0) prefix = max(prefix, excl);
 
-        int32_t* hk = s.ring + (size_t)slot * Wr + kGuard;
+        S* hk = ring + (size_t)slot * Wr + kGuard;
         int8_t* bk = s.bring + (size_t)slot * Wb;
         // every row is a sink candidate, a non-sink at kNeg; one thread
         // per row (the owner of column slen of a sink, else thread 0)
@@ -484,7 +530,7 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
                                          : h == vmax[c] ? P + pv[c]
                                                         : 2 * P);
             if (c < nc) {
-                hk[c0 + c] = h;
+                hk[c0 + c] = (S)h;
                 bk[c0 + c] = code;
             }
             sink_v = sink_k && c < nc && j == slen ? h : sink_v;
@@ -500,11 +546,11 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
         }
         team_sync();  // row k is in the ring
     }
-    SpillCopy<RUN> cp;
-    cp.load(s.ring + (size_t)slot * Wr + kGuard, Ws / 4,
+    SpillCopy<RUN, S> cp;
+    cp.load(ring + (size_t)slot * Wr + kGuard, Ws / kPerWord,
             s.bring + (size_t)slot * Wb, Wb / 16, t);
-    cp.store(sp + (size_t)(nn - 1) * Ws, Ws / 4, bp + (size_t)(nn - 1) * Wb,
-             Wb / 16, t);
+    cp.store(sp + (size_t)(nn - 1) * Ws, Ws / kPerWord,
+             bp + (size_t)(nn - 1) * Wb, Wb / 16, t);
     // the team's best: the largest score, ties to the smallest rank
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1) {
@@ -531,15 +577,17 @@ __device__ __forceinline__ int2 sweep_rows(const Job& q, const Staged& s,
     return make_int2(best_r, best_v);
 }
 
-template <int P>
+template <int P, typename S, bool PACKED>
 __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
-    const int8_t* __restrict__ codes, const int16_t* __restrict__ preds,
+    const uint8_t* __restrict__ codes, const int16_t* __restrict__ preds,
     const int16_t* __restrict__ centers, const uint8_t* __restrict__ sinks,
-    const int8_t* __restrict__ seq, const int32_t* __restrict__ lens,
+    const uint8_t* __restrict__ seq, const int32_t* __restrict__ lens,
     const int32_t* __restrict__ bandw, const int32_t* __restrict__ nnodes,
-    int32_t* __restrict__ spill, int8_t* __restrict__ bps,
+    S* __restrict__ spill, int8_t* __restrict__ bps,
     int32_t* __restrict__ out, int N, int L, int match, int mismatch,
     int gap, int smem) {
+    constexpr int kNeg = neg_of<S>();
+    constexpr int sb = (int)sizeof(S);
     extern __shared__ __align__(16) unsigned char sm[];
     const int b = blockIdx.x;
     const int t = threadIdx.x;
@@ -549,16 +597,16 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
     const int nn = min(max(nnodes[b], 0), N);
     if (nn == 0) return;  // batch padding: no rows, nothing aligned
 
-    Job q;
+    Job<S> q;
     q.slen = min(max(lens[b], 0), L);
     const bool banded = bandw[b] > 0;
     const int b2 = bandw[b] / 2;
     q.gap = gap;
     const int W = banded ? min(2 * b2 + 1, q.slen) : q.slen;
-    q.Ws = score_stride(W);
-    q.Wr = ring_stride(W);
+    q.Ws = score_stride(W, sb);
+    q.Wr = ring_stride(W, sb);
     q.Wb = bp_stride(W);
-    q.R = ring_rows(N, L, P, W, smem);
+    q.R = ring_rows(N, L, P, W, smem, sb);
     const int slen = q.slen;
 
     Staged s;
@@ -581,13 +629,16 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
     at += align16(N);
     s.seq = reinterpret_cast<int8_t*>(at);
     at += align16(L);
-    s.ring = reinterpret_cast<int32_t*>(at);
-    s.bring = reinterpret_cast<int8_t*>(s.ring + (size_t)q.R * q.Wr);
+    s.ring = at;
+    s.bring = reinterpret_cast<int8_t*>(reinterpret_cast<S*>(at) +
+                                        (size_t)q.R * q.Wr);
 
     const int16_t* pg = preds + (size_t)b * N * P;
-    stage(s.codes, codes + (size_t)b * N, nn, t);
+    const int cw = PACKED ? (N + 3) / 4 : N;
+    const int sw = PACKED ? (L + 3) / 4 : L;
+    stage_codes<PACKED>(s.codes, codes + (size_t)b * cw, nn, t);
     stage(s.sinks, sinks + (size_t)b * N, nn, t);
-    stage(s.seq, seq + (size_t)b * L, slen, t);
+    stage_codes<PACKED>(s.seq, seq + (size_t)b * sw, slen, t);
     for (int i = t; i < nn; i += kTeam) {
         const int c = centers[(size_t)b * N + i];
         const int lo = banded ? max(1, c - b2) : 1;
@@ -627,7 +678,7 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
     }
     team_sync();
     const size_t job = (size_t)b * N * ((L + 15) & ~15);
-    int32_t* sp = spill + job;
+    S* sp = spill + job;
     int8_t* bp = bps + job;
     q.win = s.win;
     q.col0 = s.col0;
@@ -635,11 +686,11 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
 
     int2 best;
     if (W <= kTeam)
-        best = sweep_rows<P, 1>(q, s, nn, sp, bp, t, match, mismatch);
+        best = sweep_rows<P, 1, S>(q, s, nn, sp, bp, t, match, mismatch);
     else if (W <= kTeam * 3)
-        best = sweep_rows<P, 3>(q, s, nn, sp, bp, t, match, mismatch);
+        best = sweep_rows<P, 3, S>(q, s, nn, sp, bp, t, match, mismatch);
     else
-        best = sweep_rows<P, 5>(q, s, nn, sp, bp, t, match, mismatch);
+        best = sweep_rows<P, 5, S>(q, s, nn, sp, bp, t, match, mismatch);
     if (t >= kWarp) return;  // warp 0 traces back
 
     // -- traceback --
@@ -656,7 +707,7 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
         // the score ring is free now: a cache of M backpointer rows
         int8_t* cache = reinterpret_cast<int8_t*>(s.ring);
         const int cache_off = (int)(s.bring - cache);
-        const int M = (int)(((size_t)R * q.Wr * 4) / Wb);
+        const int M = (int)(((size_t)R * q.Wr * sb) / Wb);
         int cb = 1, ct = 0;  // cached rows cb..ct (none yet)
         int r = best_i + 1, j = slen;
         // a chase over topo-ordered preds takes at most r + j steps; the
@@ -689,8 +740,9 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
                 } else {
                     const int sc = s.seq[j - 1] == s.codes[r - 1] ? match
                                                                   : mismatch;
-                    code = off_window_code<P>(q, s.edges + (size_t)(r - 1) * P,
-                                              s.nedge[r - 1], r, j, sc);
+                    code = off_window_code<P, S>(
+                        q, s.edges + (size_t)(r - 1) * P, s.nedge[r - 1], r,
+                        j, sc);
                 }
                 const int e = code < P ? code : code < 2 * P ? code - P : 0;
                 nr = edge_row(s.edges[(size_t)(r - 1) * P + e]);
@@ -715,49 +767,84 @@ __global__ void __launch_bounds__(kTeam, 1) window_sweep_kernel(
     // -- end traceback --
 }
 
-template <int P>
+template <int P, typename S, bool PACKED>
 cudaError_t launch(const void* codes, const void* preds, const void* centers,
                    const void* sinks, const void* seq, const void* lens,
                    const void* band, const void* nnodes, void* spill,
                    void* bps, void* out, int B, int N, int L, int match,
                    int mismatch, int gap, cudaStream_t stream) {
-    const int smem = smem_bytes(N, L, P);
+    const int smem = smem_bytes(N, L, P, (int)sizeof(S));
     const cudaError_t e = cudaFuncSetAttribute(
-        window_sweep_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        window_sweep_kernel<P, S, PACKED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    window_sweep_kernel<P><<<B, kTeam, smem, stream>>>(
-        (const int8_t*)codes, (const int16_t*)preds, (const int16_t*)centers,
-        (const uint8_t*)sinks, (const int8_t*)seq, (const int32_t*)lens,
-        (const int32_t*)band, (const int32_t*)nnodes, (int32_t*)spill,
+    window_sweep_kernel<P, S, PACKED><<<B, kTeam, smem, stream>>>(
+        (const uint8_t*)codes, (const int16_t*)preds, (const int16_t*)centers,
+        (const uint8_t*)sinks, (const uint8_t*)seq, (const int32_t*)lens,
+        (const int32_t*)band, (const int32_t*)nnodes, (S*)spill,
         (int8_t*)bps, (int32_t*)out, N, L, match, mismatch, gap, smem);
     return cudaGetLastError();
 }
 
+template <typename S, bool PACKED>
+cudaError_t dispatch(const void* codes, const void* preds,
+                     const void* centers, const void* sinks, const void* seq,
+                     const void* lens, const void* band, const void* nnodes,
+                     void* spill, void* bps, void* out, int B, int N, int L,
+                     int P, int match, int mismatch, int gap,
+                     cudaStream_t st) {
+    switch (P) {
+        case 4:
+            return launch<4, S, PACKED>(codes, preds, centers, sinks, seq,
+                                        lens, band, nnodes, spill, bps, out,
+                                        B, N, L, match, mismatch, gap, st);
+        case 8:
+            return launch<8, S, PACKED>(codes, preds, centers, sinks, seq,
+                                        lens, band, nnodes, spill, bps, out,
+                                        B, N, L, match, mismatch, gap, st);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
+// score_bytes: 4 (int32 scores and spill) or 2 (int16); packed: codes and
+// seq are 2-bit packed [B, ceil(N/4)] and [B, ceil(L/4)] u8.
 extern "C" int rt_poa_window_sweep(
     const void* codes, const void* preds, const void* centers,
     const void* sinks, const void* seq, const void* lens, const void* band,
     const void* nnodes, void* spill, void* bps, void* out, int B, int N,
-    int L, int P, int match, int mismatch, int gap, void* stream) {
+    int L, int P, int match, int mismatch, int gap, int score_bytes,
+    int packed, void* stream) {
     if (B <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    switch (P) {
-        case 4:
-            return (int)launch<4>(codes, preds, centers, sinks, seq, lens,
-                                  band, nnodes, spill, bps, out, B, N, L,
-                                  match, mismatch, gap, st);
-        case 8:
-            return (int)launch<8>(codes, preds, centers, sinks, seq, lens,
-                                  band, nnodes, spill, bps, out, B, N, L,
-                                  match, mismatch, gap, st);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    cudaError_t e = cudaErrorInvalidValue;
+    if (score_bytes == 4)
+        e = packed ? dispatch<int32_t, true>(codes, preds, centers, sinks,
+                                             seq, lens, band, nnodes, spill,
+                                             bps, out, B, N, L, P, match,
+                                             mismatch, gap, st)
+                   : dispatch<int32_t, false>(codes, preds, centers, sinks,
+                                              seq, lens, band, nnodes, spill,
+                                              bps, out, B, N, L, P, match,
+                                              mismatch, gap, st);
+    else if (score_bytes == 2)
+        e = packed ? dispatch<int16_t, true>(codes, preds, centers, sinks,
+                                             seq, lens, band, nnodes, spill,
+                                             bps, out, B, N, L, P, match,
+                                             mismatch, gap, st)
+                   : dispatch<int16_t, false>(codes, preds, centers, sinks,
+                                              seq, lens, band, nnodes, spill,
+                                              bps, out, B, N, L, P, match,
+                                              mismatch, gap, st);
+    return (int)e;
 }
 
-// Ring rows a job of `width`-column windows gets at this launch shape.
-extern "C" int rt_poa_ring_rows(int N, int L, int P, int width) {
-    return ring_rows(N, L, P, width, smem_bytes(N, L, P));
+// Ring rows a job of `width`-column windows gets at this launch shape, at
+// `score_bytes`-byte scores.
+extern "C" int rt_poa_ring_rows(int N, int L, int P, int width,
+                                int score_bytes) {
+    return ring_rows(N, L, P, width, smem_bytes(N, L, P, score_bytes),
+                     score_bytes);
 }

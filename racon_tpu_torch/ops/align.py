@@ -10,9 +10,11 @@ traceback. Unit costs (match 0, mismatch 1, indel 1, minimize), ties
 fixed (diagonal < up/I < left/D), so the output is bit-stable.
 
 `banded_nw` + `traceback` are the plain PyTorch version of the CUDA
-kernel ops/align_kernels.wavefront_align; `BatchAligner` buckets pairs
-and runs them through the wrapper on its device, each batch under the
-profiler ranges align.operands, align.kernel and align.decode.
+kernel ops/align_kernels.wavefront_align, at either score dtype and
+operand form; `BatchAligner` buckets pairs, picks each batch's score
+dtype and operand form, and runs them through the wrapper on its
+device, each batch under the profiler ranges align.operands,
+align.kernel and align.decode.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve
+from .dtypes import INF16, aligner_int16_ok, resolve_dtype
+from .encode import unpack_2bit
 
 INF = 1 << 28
 
@@ -53,31 +57,42 @@ def band_offsets(q_len: int, t_len: int, band: int, n_waves: int) -> np.ndarray:
     return off.astype(np.int32)
 
 
-def banded_nw(q, t, q_lens, t_lens, offsets, band: int):
+def banded_nw(q, t, q_lens, t_lens, offsets, band: int,
+              score_dtype: str = "int32", packed: bool = False):
     """Plain batched banded edit-distance DP.
 
-    q, t: [B, edge] int8 codes (PAD beyond length); q_lens, t_lens: [B]
-    int32; offsets: [B, n_waves] int32 band starts. Returns (bp
-    [B, n_waves, band] int8 backpointers, dist [B] int32 distance at
-    (M, N)). Wavefronts run to the batch's largest m + n; rows past a
-    lane's own m + n are never read by its traceback.
+    q, t: [B, edge] int8 codes (PAD beyond length), or [B, edge / 4]
+    uint8 2-bit packed when `packed` (encode.pack_2bit; PAD restored
+    from the lengths); q_lens, t_lens: [B] int32; offsets: [B, n_waves]
+    int32 band starts. `score_dtype` 'int16' stores the wavefronts as
+    int16 with the sentinel INF16 (legal only under
+    dtypes.aligner_int16_ok). Returns (bp [B, n_waves, band] int8
+    backpointers, dist [B] distance at (M, N), at the score dtype; the
+    sentinel where (M, N) lies outside the band). Wavefronts run to the
+    batch's largest m + n; rows past a lane's own m + n are never read by
+    its traceback.
     """
     dev = q.device
+    if packed:
+        q = unpack_2bit(q, q.shape[1] * 4, q_lens)
+        t = unpack_2bit(t, t.shape[1] * 4, t_lens)
     B, edge = q.shape
     n_waves = offsets.shape[1]
     i32, i64 = torch.int32, torch.int64
-    inf = torch.tensor(INF, dtype=i32, device=dev)
+    dt = torch.int16 if score_dtype == "int16" else i32
+    big = INF16 if score_dtype == "int16" else INF
+    inf = torch.tensor(big, dtype=dt, device=dev)
     ks = torch.arange(band, dtype=i64, device=dev)
     ql = q_lens.to(i64)[:, None]
     tl = t_lens.to(i64)[:, None]
     offs = offsets.to(i64)
     q = q.to(i32)
     t = t.to(i32)
-    s1 = torch.full((B, band), INF, dtype=i32, device=dev)
+    s1 = torch.full((B, band), big, dtype=dt, device=dev)
     s2 = s1.clone()
     a1 = torch.zeros(B, dtype=i64, device=dev)
     a2 = a1.clone()
-    dist = torch.full((B,), INF, dtype=i32, device=dev)
+    dist = torch.full((B,), big, dtype=dt, device=dev)
     bp = torch.zeros((B, n_waves, band), dtype=torch.int8, device=dev)
     last = min(int((q_lens.to(i64) + t_lens.to(i64)).max()) if B else -1,
                n_waves - 1)
@@ -111,7 +126,7 @@ def banded_nw(q, t, q_lens, t_lens, offsets, band: int):
         code = torch.where(cl < score, BP_LEFT, code).to(torch.int8)
         score = torch.minimum(score, cl)
         score = torch.where((i == 0) & (j == 0), 0, score)
-        score = torch.where(valid, torch.minimum(score, inf), inf)
+        score = torch.where(valid, torch.minimum(score, inf), inf).to(dt)
         at_end = (i == ql) & (j == tl)
         dist = torch.where(at_end.any(dim=1),
                            torch.where(at_end, score, inf).amin(dim=1), dist)
@@ -193,6 +208,12 @@ class BatchAligner:
     <=30%-error overlap can produce come back as None, and the caller
     aligns them on the host — no overlap is ever dropped. Each reject is
     counted.
+
+    Each (edge, band) runs at the score dtype `score_dtype` resolves to
+    under the bucket's overflow proof (dtypes.resolve_dtype), and a
+    batch whose bases are all ACGT on both sides ships 2-bit packed
+    unless `pack_bases` is False. Batches and pairs are counted per
+    (dtype, packed).
     """
 
     #: length bucket edges (sequences are padded to the bucket edge)
@@ -201,12 +222,24 @@ class BatchAligner:
     MAX_BP_BYTES = 2 << 30
 
     def __init__(self, band_width: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 score_dtype: str = "auto", pack_bases: bool = True):
         self.band_width = band_width
         self.device = resolve(device)
+        resolve_dtype(True, score_dtype)  # reject an unknown posture now
+        self.score_dtype = score_dtype
+        self.pack_bases = pack_bases
         #: pairs sent back for host alignment, by reason
         self.n_unbucketed = 0
         self.n_band_rejects = 0
+        #: device batches and their pairs per (score dtype, packed)
+        self.batches_by_plan: dict[tuple[str, bool], int] = {}
+        self.pairs_by_plan: dict[tuple[str, bool], int] = {}
+
+    def plan_for(self, edge: int) -> str:
+        """The score dtype of bucket `edge` under this aligner's
+        posture."""
+        return resolve_dtype(aligner_int16_ok(edge), self.score_dtype)
 
     def _bucket_of(self, length: int) -> int | None:
         return next((edge for edge in self.BUCKETS if length <= edge), None)
@@ -237,15 +270,24 @@ class BatchAligner:
                 out.append((edge, band, idxs[s:s + max_lanes]))
         return out
 
-    def operands(self, pairs, edge: int, band: int, idx: list[int]):
-        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch."""
-        from .encode import encode_padded
+    def operands(self, pairs, edge: int, band: int, idx: list[int],
+                 pack: bool | None = None):
+        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch.
+        q and t are 2-bit packed uint8 (the kernel's packed form) when
+        `pack` is True, int8 codes when False; None packs when
+        `pack_bases` is on and both sides are all ACGT."""
+        from .encode import encode_padded, pack_2bit, packable
 
         n_waves = 2 * edge + 1
         q_arr, q_lens = encode_padded([pairs[i][0] for i in idx], edge)
         t_arr, t_lens = encode_padded([pairs[i][1] for i in idx], edge)
         offs = np.stack([band_offsets(int(a), int(b), band, n_waves)
                          for a, b in zip(q_lens, t_lens)])
+        if pack is None:
+            pack = (self.pack_bases and packable(q_arr, q_lens)
+                    and packable(t_arr, t_lens))
+        if pack:
+            q_arr, t_arr = pack_2bit(q_arr), pack_2bit(t_arr)
         return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                      for x in (q_arr, t_arr, q_lens, t_lens, offs))
 
@@ -260,8 +302,15 @@ class BatchAligner:
             with record_function("align.operands"):
                 q, t, q_lens, t_lens, offs = self.operands(pairs, edge, band,
                                                            idx)
+            dtype = self.plan_for(edge)
+            packed = q.dtype == torch.uint8
+            plan = (dtype, packed)
+            self.batches_by_plan[plan] = self.batches_by_plan.get(plan, 0) + 1
+            self.pairs_by_plan[plan] = self.pairs_by_plan.get(plan,
+                                                              0) + len(idx)
             with record_function("align.kernel"):
-                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band)
+                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band,
+                                            dtype, packed)
             # the copies back wait for the kernel
             with record_function("align.decode"):
                 ops = ops.cpu().numpy()

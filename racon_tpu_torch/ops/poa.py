@@ -10,7 +10,9 @@ reference. Two engines:
     the device while the graph bookkeeping stays in the C++ session; the
     consensus is byte-identical to the host engine's. Windows outside the
     kernel's shape envelope are built by the host engine inside the
-    session and counted.
+    session and counted. The device engine runs each bucket at the score
+    dtype `score_dtype` resolves to under its overflow proof, and ships
+    all-ACGT batches 2-bit packed unless `pack_bases` is False.
 
 Windows with fewer than 3 sequences keep their backbone (reference
 window.cpp:68-71); TGS windows are coverage-trimmed (window.cpp:118-139).
@@ -34,7 +36,8 @@ class BatchPOA:
                  window_length: int, num_threads: int = 1,
                  device_batches: int = 0, banded: bool = False,
                  logger: Logger | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 score_dtype: str = "auto", pack_bases: bool = True):
         self.match = match
         self.mismatch = mismatch
         self.gap = gap
@@ -47,6 +50,8 @@ class BatchPOA:
         self.banded_only = banded
         self.logger = logger
         self.device = resolve(device) if device_batches > 0 else None
+        self.score_dtype = score_dtype
+        self.pack_bases = pack_bases
         #: per-window outcome counts of the last pass
         self.n_device = 0
         self.n_host = 0
@@ -88,13 +93,15 @@ class BatchPOA:
         self.engine = DeviceGraphPOA(
             self.match, self.mismatch, self.gap, device=self.device,
             num_threads=self.num_threads, logger=self.logger,
-            banded_only=self.banded_only)
+            banded_only=self.banded_only, score_dtype=self.score_dtype,
+            pack_bases=self.pack_bases)
         results, statuses = self.engine.consensus([_pack(w) for w in todo])
         for w, (cons, cov) in zip(todo, results):
             w.apply_trim(cons, cov, trim)
         self.n_device = int((statuses == 0).sum())
         self.n_host = int((statuses == 1).sum())
-        log_session_stats(self.engine.last_stats, statuses)
+        log_session_stats(self.engine.last_stats, statuses,
+                          self.engine.batches_by_plan)
 
 
 def _pack(w):

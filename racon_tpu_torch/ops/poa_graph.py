@@ -39,6 +39,8 @@ from torch.profiler import record_function
 
 from ..device import free_bytes, resolve
 from ..utils.logger import Logger, log_info
+from .dtypes import NEG16, plan_split, poa_int16_ok, resolve_dtype
+from .encode import pack_2bit, packable, unpack_2bit
 
 #: kernel shape envelope: max graph nodes, max layer len, max node
 #: in-degree — sized so w=500 ONT polishing fits (the JAX package's
@@ -57,10 +59,18 @@ NEG = -(1 << 29)  # the host engine's kNegInf (INT32_MIN / 4)
 
 
 def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
-                  mismatch: int, gap: int):
+                  mismatch: int, gap: int, score_dtype: str = "int32",
+                  packed: bool = False):
     """Plain PyTorch batched graph-NW align + traceback for one shape
     bucket: the same function as the JAX package's `graph_aligner` and
     the CUDA kernel `window_sweep`, written with whole-batch tensor ops.
+
+    `score_dtype` 'int16' stores the DP rows as int16 with the sentinel
+    NEG16 (legal only under dtypes.poa_int16_ok), as the JAX int16
+    program does: with no per-row clamp, unreachable in-band cells drift
+    below NEG16 by up to mp a row, exactly as there. `packed` takes
+    codes [B, ceil(N/4)] and seq [B, ceil(L/4)] uint8 2-bit packed
+    (encode.pack_2bit), PAD restored beyond nnodes and lens.
 
     Returns fn(codes, preds, centers, sinks, seq, lens, band, nnodes=None)
     on tensors of one device:
@@ -82,6 +92,8 @@ def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
     result equals the full-N sweep.
     """
     N, L, P = n_nodes, seq_len, max_pred
+    dt = torch.int16 if score_dtype == "int16" else torch.int32
+    neg_v = NEG16 if score_dtype == "int16" else NEG
 
     def align(codes, preds, centers, sinks, seq, lens, band, nnodes=None):
         dev = codes.device
@@ -91,24 +103,29 @@ def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
         def c32(v):
             return torch.tensor(v, dtype=i32, device=dev)
 
-        neg, m32, mm32 = c32(NEG), c32(match), c32(mismatch)
-        codes = codes.to(i32)
+        # the arithmetic runs in int32 (by the proof it gives the int16
+        # program's integers); the rows are stored at the score dtype
+        neg, m32, mm32 = c32(neg_v), c32(match), c32(mismatch)
         preds = preds.to(i64)
-        centers = centers.to(i32)
-        seq = seq.to(i32)
-        l32 = lens.to(i32)
-        band = band.to(i32)
         if nnodes is None:
             real = (preds >= 0).any(dim=2)                        # [B, N]
             last = torch.where(real, torch.arange(1, N + 1, device=dev), 0)
             nnodes = last.amax(dim=1) if N else torch.zeros(B, device=dev)
+        if packed:
+            codes = unpack_2bit(codes, N, nnodes)
+            seq = unpack_2bit(seq, L, lens)
+        codes = codes.to(i32)
+        centers = centers.to(i32)
+        seq = seq.to(i32)
+        l32 = lens.to(i32)
+        band = band.to(i32)
         nn = nnodes.to(i64)
         n_real = int(nn.max()) if B else 0
 
         jidx = torch.arange(L + 1, dtype=i32, device=dev)
         jg = jidx * gap
         j1 = jidx[1:]
-        H = torch.full((B, N + 1, L + 1), NEG, dtype=i32, device=dev)
+        H = torch.full((B, N + 1, L + 1), neg_v, dtype=dt, device=dev)
         H[:, 0] = torch.where(jidx[None, :] <= l32[:, None], jg[None, :],
                               neg)
         bps = torch.full((B, N, L + 1), P, dtype=torch.int8, device=dev)
@@ -119,7 +136,7 @@ def graph_aligner(n_nodes: int, seq_len: int, max_pred: int, match: int,
         for k in range(1, n_real + 1):
             pk = preds[:, k - 1, :]                               # [B, P]
             rows = torch.gather(
-                H, 1, pk.clamp(0, N)[:, :, None].expand(B, P, L + 1))
+                H, 1, pk.clamp(0, N)[:, :, None].expand(B, P, L + 1)).to(i32)
             rows = torch.where((pk >= 0)[:, :, None], rows, neg)
             sub = torch.where(seq == codes[:, k - 1, None], m32, mm32)
             diag = rows[:, :, :-1] + sub[:, None, :]              # [B, P, L]
@@ -238,13 +255,25 @@ class DeviceGraphPOA:
 
     The envelope/bucket/batch-width knobs exist so tests can force tiny
     shapes (and the out-of-envelope host path).
+
+    Each bucket runs at the score dtype `score_dtype` resolves to under
+    its overflow proof (dtypes.resolve_dtype with poa_int16_ok), and a
+    batch whose layer bases and node codes are all ACGT ships both 2-bit
+    packed unless `pack_bases` is False (or the bucket's length is not a
+    multiple of 4). Batches are counted per (dtype, packed).
     """
 
     def __init__(self, match: int, mismatch: int, gap: int,
                  device: str | torch.device = "cuda", num_threads: int = 1,
                  logger: Logger | None = None, max_nodes: int = MAX_NODES,
                  max_len: int = MAX_LEN, buckets=None,
-                 batch_rows: int | None = None, banded_only: bool = False):
+                 batch_rows: int | None = None, banded_only: bool = False,
+                 score_dtype: str = "auto", pack_bases: bool = True):
+        resolve_dtype(True, score_dtype)  # reject an unknown posture now
+        self.score_dtype = score_dtype
+        self.pack_bases = pack_bases
+        #: batches per (score dtype, packed)
+        self.batches_by_plan: dict[tuple[str, bool], int] = {}
         self.device = resolve(device)
         self.match = match
         self.mismatch = mismatch
@@ -272,6 +301,12 @@ class DeviceGraphPOA:
             return forced
         row = _bytes_per_row(bucket[0], bucket[1], MAX_PRED)
         return pin_pow2_rows(device_budget(self.device) // 4, row)
+
+    def plan_for(self, nb: int, lb: int) -> str:
+        """The score dtype of bucket (nb, lb) under this engine's
+        posture."""
+        return resolve_dtype(poa_int16_ok(nb, lb, self.match, self.mismatch,
+                                          self.gap), self.score_dtype)
 
     def _bucket(self, n_nodes: int, length: int) -> tuple[int, int]:
         return next((nb, lb) for nb, lb in self.buckets
@@ -378,39 +413,53 @@ class DeviceGraphPOA:
         return batches
 
     def _dispatch(self, jobs, sel, nb, lb, B):
-        """Pad one bucket batch to its pinned width and launch it. Returns
-        (device_out, rows): `rows[j]` is the batch row job j landed on."""
+        """Pad one bucket batch to its pinned width, pack its bases when it
+        may, and launch it. Returns (device_out, rows): `rows[j]` is the
+        batch row job j landed on."""
         rows = np.arange(len(sel), dtype=np.int64)
 
         def take(arr, fill):
             out = np.full((B,) + arr.shape[1:], fill, dtype=arr.dtype)
             out[rows] = arr[sel]
-            return torch.from_numpy(out).to(self.device)
+            return out
 
+        args = [take(jobs["codes"][:, :nb], 5),
+                take(jobs["preds"][:, :nb], -1),
+                take(jobs["centers"][:, :nb], 0),
+                take(jobs["sinks"][:, :nb], 0),
+                take(jobs["seqs"][:, :lb], 5),
+                take(jobs["len"], 0), take(jobs["band"], 0),
+                take(jobs["nnodes"], 0)]
+        # 2-bit packing: every layer base and node code ACGT, and a layer
+        # length the packed form carries whole (a multiple of 4)
+        if (self.pack_bases and lb % 4 == 0 and packable(args[4], args[5])
+                and packable(args[0], args[7])):
+            args[0], args[4] = pack_2bit(args[0]), pack_2bit(args[4])
         return self.run_bucket(
-            nb, lb, take(jobs["codes"][:, :nb], 5),
-            take(jobs["preds"][:, :nb], -1),
-            take(jobs["centers"][:, :nb], 0),
-            take(jobs["sinks"][:, :nb], 0),
-            take(jobs["seqs"][:, :lb], 5),
-            take(jobs["len"], 0), take(jobs["band"], 0),
-            take(jobs["nnodes"], 0)), rows
+            nb, lb, *(torch.from_numpy(a).to(self.device) for a in args)), rows
 
     def run_bucket(self, nb, lb, codes, preds, centers, sinks, seqs, lens,
                    band, nnodes):
-        """Run ONE padded batch: the CUDA kernel on a CUDA device, the
-        plain version on the CPU (poa_kernels.window_sweep decides by the
-        tensors' device)."""
+        """Run ONE padded batch at its bucket's score dtype, in the operand
+        form it came in (uint8 codes: 2-bit packed): the CUDA kernel on a
+        CUDA device, the plain version on the CPU
+        (poa_kernels.window_sweep decides by the tensors' device)."""
         from .poa_kernels import window_sweep
 
+        plan = (self.plan_for(nb, lb), codes.dtype == torch.uint8)
+        self.batches_by_plan[plan] = self.batches_by_plan.get(plan, 0) + 1
         return window_sweep(codes, preds, centers, sinks, seqs, lens, band,
-                            nnodes, self.match, self.mismatch, self.gap)
+                            nnodes, self.match, self.mismatch, self.gap,
+                            *plan)
 
 
-def log_session_stats(stats: dict, statuses: np.ndarray) -> None:
+def log_session_stats(stats: dict, statuses: np.ndarray,
+                      by_plan: dict) -> None:
     log_info(f"[racon_tpu_torch::BatchPOA] device layer alignments: "
              f"{stats.get('committed', 0)} committed, "
              f"{stats.get('redos', 0)} banded-clip full-DP retries; "
              f"{int((statuses == 0).sum())} windows built on device, "
              f"{int((statuses == 1).sum())} on host (outside the kernel "
-             f"envelope), {int((statuses == 2).sum())} backbone-only")
+             f"envelope), {int((statuses == 2).sum())} backbone-only; "
+             f"batches by score dtype and operand form: "
+             f"{plan_split(by_plan)}")

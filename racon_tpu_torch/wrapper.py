@@ -7,7 +7,7 @@ chunks, then polish chunk by chunk so peak memory stays bounded; with
 --num-shards/--shard-id, polish only one contiguous block of the chunks.
 The port's copy of the JAX package's wrapper, byte for byte in its
 output, with the port CLI's device flags (-c/--cudapoa-batches,
---cudaaligner-batches, -b/--cuda-banded-alignment, --device).
+--cudaaligner-batches, -b/--cuda-banded-alignment, --device, --cuda-dtype).
 
 Differences from the reference, both deliberate:
   - rampler is the in-package racon_tpu_torch.rampler (no external
@@ -43,7 +43,7 @@ def run(sequences: str, overlaps: str, target_sequences: str,
         gap: int = -8, threads: int = 1, cuda_poa_batches: int = 0,
         cuda_aligner_batches: int = 0, cuda_banded_alignment: bool = False,
         device: str = "cuda", num_shards: int = 1, shard_id: int = 0,
-        out=None) -> list:
+        out=None, score_dtype: str = "auto") -> list:
     """Polish `target_sequences`, optionally subsampled/split, writing
     FASTA to `out` (default stdout). Returns the chunks' polishers, their
     data freed, for their counters and phase walls.
@@ -98,7 +98,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
                 PolisherType.kF if fragment_correction else PolisherType.kC,
                 window_length, quality_threshold, error_threshold, True,
                 match, mismatch, gap, threads, cuda_poa_batches,
-                cuda_banded_alignment, cuda_aligner_batches, device=dev)
+                cuda_banded_alignment, cuda_aligner_batches, device=dev,
+                score_dtype=score_dtype)
             polisher.initialize()
             for seq in polisher.polish(not include_unpolished):
                 out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")
@@ -143,6 +144,13 @@ def main(argv: list[str] | None = None) -> int:
                         help="device of the GPU paths; cuda raises when no "
                              "card is present, cpu runs the kernels' plain "
                              "PyTorch versions")
+    parser.add_argument("--cuda-dtype", choices=("auto", "int32", "int16"),
+                        default="auto",
+                        help="DP score dtype policy: auto shrinks each "
+                             "bucket to int16 when its overflow envelope "
+                             "proof holds (half the DP bytes, bit-identical "
+                             "results), int32 forces the wide oracle "
+                             "everywhere")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="file-level scatter over the --split chunks: "
                              "total shards of this workload (cat shard "
@@ -165,7 +173,7 @@ def main(argv: list[str] | None = None) -> int:
             cuda_aligner_batches=args.cudaaligner_batches,
             cuda_banded_alignment=args.cuda_banded_alignment,
             device=args.device, num_shards=args.num_shards,
-            shard_id=args.shard_id)
+            shard_id=args.shard_id, score_dtype=args.cuda_dtype)
     except RaconError as exc:
         print(str(exc), file=sys.stderr)
         return 1

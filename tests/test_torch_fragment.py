@@ -236,8 +236,9 @@ def test_golden_reproduced_by_host_path(tmp_path):
 @pytest.mark.gpu
 def test_kernels_match_plain_on_fragment_batches_on_card(small, monkeypatch):
     """On the card, the kF polish of the small set launches K1 and K2;
-    every batch they took is held against its plain version (ranks; ops,
-    count, distance, touched), and the FASTA equals the host path's."""
+    every batch they took is held against its plain version at the
+    instantiation (score dtype, operand form) it ran (ranks; ops, count,
+    distance, touched), and the FASTA equals the host path's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from racon_tpu_torch.ops import align_kernels, poa_kernels
@@ -250,7 +251,8 @@ def test_kernels_match_plain_on_fragment_batches_on_card(small, monkeypatch):
     align = BatchAligner.align
 
     def capture_bucket(self, nb, lb, *args):
-        k1_batches.append(((nb, lb), [a.clone() for a in args]))
+        plan = (self.plan_for(nb, lb), args[0].dtype == torch.uint8)
+        k1_batches.append(((nb, lb), plan, [a.clone() for a in args]))
         return run_bucket(self, nb, lb, *args)
 
     def capture_pairs(self, ps, progress=None):
@@ -265,14 +267,17 @@ def test_kernels_match_plain_on_fragment_batches_on_card(small, monkeypatch):
                              *SCORES, *small[2]])
     assert poa_kernels.launches == len(k1_batches) > 0
     assert align_kernels.launches > 0
-    for (nb, lb), args in k1_batches:
-        want = graph_aligner(nb, lb, MAX_PRED, 5, -4, -8)(*args)
-        assert torch.equal(poa_kernels.window_sweep(*args, 5, -4, -8), want)
+    for (nb, lb), plan, args in k1_batches:
+        want = graph_aligner(nb, lb, MAX_PRED, 5, -4, -8, *plan)(*args)
+        assert torch.equal(poa_kernels.window_sweep(*args, 5, -4, -8, *plan),
+                           want)
     al = BatchAligner(device="cuda")
     for edge, band, idx in al.chunks(pairs):
         q, t, ql, tl, offs = al.operands(pairs, edge, band, idx)
-        ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band)
-        bp, dist = banded_nw(q, t, ql, tl, offs, band)
+        plan = (al.plan_for(edge), q.dtype == torch.uint8)
+        ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band,
+                                                  *plan)
+        bp, dist = banded_nw(q, t, ql, tl, offs, band, *plan)
         w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
         assert torch.equal(meta, w_meta)
         for k in range(len(idx)):

@@ -1,9 +1,11 @@
 """The port never loads JAX or the JAX package: in a fresh interpreter
 where importing jax fails, racon_tpu_torch polishes a tiny dataset on the
-CPU through both device paths, corrects a tiny read set with -f (both
-device paths) and through the wrapper (split into chunks, sharded), runs
-rampler and preprocess, and afterwards no `jax` or `racon_tpu` module is
-loaded."""
+CPU through both device paths (at the default score-dtype posture and at
+int16), packs and unpacks bases and resolves a score dtype with its own
+copies of the JAX package's encode and dtypes modules, corrects a tiny
+read set with -f (both device paths) and through the wrapper (split into
+chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
+or `racon_tpu` module is loaded."""
 
 import os
 import subprocess
@@ -37,6 +39,16 @@ paths = write_dataset(tempfile.mkdtemp(), draft, reads, paf)
 fasta = run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
                        "1", *paths])
 assert fasta.startswith(b">draft LN:i:")
+assert run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
+                      "1", "--cuda-dtype", "int16", *paths]) == fasta
+from racon_tpu_torch.ops import dtypes, encode
+assert dtypes.resolve_dtype(dtypes.poa_int16_ok(768, 640, 5, -4, -8)) \
+    == "int16"
+codes, lens = encode.encode_padded([b"ACGTTGCA", b"GAT"], 8)
+assert encode.packable(codes, lens)
+packed = torch.from_numpy(encode.pack_2bit(codes))
+assert torch.equal(encode.unpack_2bit(packed, 8, torch.from_numpy(lens)),
+                   torch.from_numpy(codes))
 _, _, reads, _ = simulate_truth(random.Random(3), 2500, 4, 1500, 0.12, 0.10)
 frag = write_fragment_dataset(tempfile.mkdtemp(), reads, ava_overlaps(reads))
 # the wrapper's scores (5, -4, -8) are not the CLI's defaults
