@@ -43,36 +43,52 @@ mismatch or exception exits non-zero:
      and the plane's bytes;
   4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
      synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
-     byte for byte, at the default posture and at `--cuda-dtype int32`;
+     byte for byte, at the default posture and dispatch pipeline depth
+     (2), at `--cuda-pipeline-depth 0` and at `--cuda-dtype int32`;
+     then one run with both device paths (`--cudaaligner-batches 1`),
+     `--cuda-trace` and `--cuda-metrics`, whose trace must load and hold
+     the pipeline's stage spans and whose dump the `pipeline` namespace;
   4b. fragment golden: `python -m racon_tpu_torch -f -c 1` on a 40 kb,
      10x, 8 kb-read all-vs-all read set (synth.simulate_truth +
      ava_overlaps, seed 42; 50 reads) must reproduce
-     tests/data/synth_frag_golden.fasta byte for byte;
+     tests/data/synth_frag_golden.fasta byte for byte, at depth 2 and 0;
   5. the main path at full size: 200 kb genome, 30x, 8 kb reads (12%
      read error, 10% draft error, w 500, seed 42) polished with
-     `-c 1 --cudaaligner-batches 1`; both kernels must launch, K1 at
-     both score widths and both kernels packed, and the polished contig
-     must be closer to the simulated truth than the draft;
+     `-c 1 --cudaaligner-batches 1`, at pipeline depth 0 and then at the
+     default depth 2, whose FASTA must be byte-identical; each prints its
+     phase walls, the pipeline's stage seconds, chunks and launches, and
+     its peak device memory. At depth 2 (the main path) both kernels
+     must launch, K1 at both score widths and both kernels packed, and
+     the polished contig must be closer to the simulated truth than the
+     draft;
+  5b. the main path on a small read set whose reads carry N bases (40 kb,
+     15x, one base in 200 an N): both kernels must launch their int8
+     instantiations, the fullest batch of each shape is held against
+     the plain version, and the contig must beat the draft;
   6. one torch.profiler pass over a consensus phase of the same workload
      (after the timed main path): K1's summed device time, the device's
      busy share of the phase's wall, the five longest host-side ranges;
   7. the same over one BatchAligner.align pass over the workload's
-     overlap pairs, for K2;
+     overlap pairs, for K2, at depth 0 and through a depth-2 pipeline:
+     at depth 2 K2 must have run on at least 2 CUDA streams, and whether
+     the ranges of the pack and unpack worker threads reached the
+     capture is printed; then four untraced passes at depths 0, 2, 2, 0;
   8. the fragment path at full size: phase 5's reads with their
      all-vs-all overlaps (min_overlap 1,000), corrected by the port's
      wrapper in-process (`-f --split 800000 --num-shards 4 --shard-id 0
      -c 1 --cudaaligner-batches 1`); both kernels must launch, the
      corrected reads must lie closer to their truth than the raw reads,
-     and every target not dropped as unpolished must be written. The
-     fullest batch of each K1 bucket and of each K2 (edge, band) this
-     path launched is held identical to its plain version at the
-     instantiation it ran and timed, and cross-checked at both widths
+     and every target not dropped as unpolished must be written; it
+     runs at the default pipeline depth (2) and prints its stage
+     seconds. The fullest batch of each K1 bucket and of each K2 (edge,
+     band) this path launched is held identical to its plain version at
+     the instantiation it ran and timed, and cross-checked at both widths
      where int16 holds; one BatchAligner.align pass over the shard's
      pairs is traced.
 
 Prints per-phase numbers, then the kernel line (launches on the contig
-path of phase 5 and the fragment path of phase 8, in all, by path and by
-instantiation), the card's name and power limit, and as the last line
+path of phase 5 at depth 2, the N-base path of phase 5b and the fragment
+path of phase 8, in all, by path and by instantiation), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
 nothing of JAX or of the JAX package.
@@ -208,16 +224,18 @@ def main() -> int:
     check_golden(workdir, report)
     check_fragment_golden(workdir, report)
     contig = main_path(dev, big, truth, draft, report)
+    nbases = n_base_path(dev, workdir, report)
     profile_consensus(dev, windows, report)
     profile_align(dev, overlap_pairs(draft, reads, paf), report)
     fragment = fragment_path(dev, truth, reads_t, workdir, report)
-    for k, (a, a_plan), (b, b_plan) in zip(kernels, contig, fragment):
-        k["launches"] = a + b
-        k["launches_by_path"] = {"contig": a, "fragment": b}
-        k["launches_by_plan"] = {"contig": a_plan, "fragment": b_plan}
+    for k, *paths in zip(kernels, contig, nbases, fragment):
+        by_path = dict(zip(("contig", "nbases", "fragment"), paths))
+        k["launches"] = sum(n for n, _ in paths)
+        k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
+        k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
-            row["launches"] = (a_plan.get(row["plan"], 0)
-                               + b_plan.get(row["plan"], 0))
+            row["launches"] = sum(pl.get(row["plan"], 0)
+                                  for _, pl in paths)
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -988,7 +1006,8 @@ def run_golden(flags, paths, golden: str) -> float:
 def check_golden(workdir, report) -> None:
     """Phase 4: the CLI at -c 1 (device POA, host aligner, -b off) must
     reproduce the committed 50 kb golden byte for byte, at the default
-    score-dtype posture and at --cuda-dtype int32."""
+    posture and pipeline depth, at --cuda-pipeline-depth 0 and at
+    --cuda-dtype int32; then the traced run (check_trace_metrics)."""
     from racon_tpu_torch.synth import simulate, write_dataset
 
     rng = random.Random(42)
@@ -997,11 +1016,57 @@ def check_golden(workdir, report) -> None:
     os.makedirs(d)
     paths = write_dataset(d, draft, reads, paf)
     report["golden_s"] = {}
-    for flags in (["-c", "1"], ["-c", "1", "--cuda-dtype", "int32"]):
+    for flags in (["-c", "1"], ["-c", "1", "--cuda-pipeline-depth", "0"],
+                  ["-c", "1", "--cuda-dtype", "int32"]):
         s = run_golden(flags, paths, "synth_50kb_golden.fasta")
         log(f"[chip_smoke] golden: 50 kb x 20x {' '.join(flags)} "
             f"byte-identical to the committed golden ({s:.1f} s)")
         report["golden_s"][" ".join(flags)] = s
+    check_trace_metrics(d, paths, report)
+
+
+def check_trace_metrics(d, paths, report) -> None:
+    """`python -m racon_tpu_torch -c 1 --cudaaligner-batches 1` with
+    --cuda-trace and --cuda-metrics on `paths`: the trace must load as
+    Chrome trace JSON holding the pipeline's pack / device / unpack spans
+    of the aligner loop and the session's spans, and the dump must hold
+    the pipeline namespace with the aligner's chunks and launches."""
+    trace_path = os.path.join(d, "trace.json")
+    metrics_path = os.path.join(d, "metrics.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "racon_tpu_torch", "-c", "1",
+         "--cudaaligner-batches", "1", "-m", "5", "-x", "-4", "-g", "-8",
+         "-t", str(os.cpu_count()), "--cuda-trace", trace_path,
+         "--cuda-metrics", metrics_path, *paths],
+        cwd=HERE, capture_output=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not proc.stdout.startswith(b">"):
+        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
+        raise SystemExit(f"traced CLI run failed (rc {proc.returncode})")
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    with open(metrics_path) as fh:
+        metrics = json.load(fh)
+    spans: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    want = ("pipeline.pack", "pipeline.device", "pipeline.unpack",
+            "session.dispatch", "session.commit", "polisher.consensus")
+    missing = [n for n in want if not spans.get(n)]
+    pipe = metrics.get("pipeline", {})
+    if missing or not pipe.get("chunks") or not pipe.get("launches"):
+        raise SystemExit(f"traced CLI run: spans {missing} missing from "
+                         f"the trace, or no chunks / launches in the "
+                         f"metrics' pipeline namespace ({pipe})")
+    log(f"[chip_smoke] traced CLI run (50 kb, -c 1 --cudaaligner-batches 1, "
+        f"depth 2) in {wall:.1f} s: trace of {len(events)} events, spans "
+        f"{dict(sorted(spans.items()))}; metrics namespaces "
+        f"{sorted(metrics)}, pipeline {pipe}")
+    report["traced_cli"] = {"wall_s": wall, "spans": spans,
+                            "pipeline": pipe,
+                            "namespaces": sorted(metrics)}
 
 
 def check_fragment_golden(workdir, report) -> None:
@@ -1016,29 +1081,33 @@ def check_fragment_golden(workdir, report) -> None:
     d = os.path.join(workdir, "frag40")
     os.makedirs(d)
     paths = write_fragment_dataset(d, reads, ava_overlaps(reads))
-    s = run_golden(["-f", "-c", "1"], paths, "synth_frag_golden.fasta")
-    log(f"[chip_smoke] fragment golden: {len(reads)} reads of 8 kb -f -c 1 "
-        f"byte-identical to the committed golden ({s:.1f} s)")
-    report["fragment_golden_s"] = s
+    report["fragment_golden_s"] = {}
+    for flags in (["-f", "-c", "1"],
+                  ["-f", "-c", "1", "--cuda-pipeline-depth", "0"]):
+        s = run_golden(flags, paths, "synth_frag_golden.fasta")
+        log(f"[chip_smoke] fragment golden: {len(reads)} reads of 8 kb "
+            f"{' '.join(flags)} byte-identical to the committed golden "
+            f"({s:.1f} s)")
+        report["fragment_golden_s"][" ".join(flags)] = s
 
 
 
 
-def main_path(dev, paths, truth, draft, report):
-    """Phase 5: the full-size polish with both device paths on at the
-    default posture; the launch counters are zeroed just before and read
-    just after. K1 must launch at both score widths and both kernels
-    packed. Returns ((K1 launches, by instantiation), (K2 ...))."""
+def polish_once(paths, depth: int, **kw):
+    """One polish of `paths` with both device paths on at the default
+    posture and pipeline depth `depth`, the launch counters zeroed just
+    before and read just after. Returns (polisher, polished, numbers)."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
-    from racon_tpu_torch.native import edit_distance
     from racon_tpu_torch.ops import align_kernels, poa_kernels
 
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
                           cuda_poa_batches=1, cuda_banded_alignment=False,
-                          cuda_aligner_batches=1, device="cuda")
+                          cuda_aligner_batches=1, device="cuda",
+                          pipeline_depth=depth, **kw)
+    dev = pol.device
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     poa_kernels.reset_launches()
@@ -1050,42 +1119,81 @@ def main_path(dev, paths, truth, draft, report):
     polished = pol.polish()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    k1 = poa_kernels.launches
     k1_by_shape = dict(poa_kernels.launches_by_shape)
-    k2 = align_kernels.launches
     k2_by_shape = dict(align_kernels.launches_by_shape)
-    k1_plans, k2_plans = by_plan(k1_by_shape), by_plan(k2_by_shape)
-    eng = pol.poa.engine
-    d_draft = edit_distance(draft, truth)
-    d_pol = edit_distance(polished[0].data, truth)
-    main = {
+    stages = pol.stage_stats
+    return pol, polished, {
+        "pipeline_depth": depth,
         "initialize_s": t1 - t0, "align_s": pol.phase_s["align"],
         "consensus_s": pol.phase_s["consensus"],
         "stitch_s": pol.phase_s["stitch"], "polish_s": t2 - t1,
         "windows": n_windows,
         "windows_per_s": n_windows / pol.phase_s["consensus"],
         "pairs_per_s": pol.n_aligner_pairs / pol.phase_s["align"],
-        "k1_launches": k1, "k2_launches": k2,
+        "k1_launches": poa_kernels.launches,
+        "k2_launches": align_kernels.launches,
         "k1_launches_by_bucket": {
             f"{a}x{b} {plan_name(dt, pk)}": n
             for (a, b, dt, pk), n in sorted(k1_by_shape.items())},
         "k2_launches_by_edge_band": {
             f"{a}/{b} {plan_name(dt, pk)}": n
             for (a, b, dt, pk), n in sorted(k2_by_shape.items())},
-        "k1_launches_by_plan": k1_plans, "k2_launches_by_plan": k2_plans,
+        "k1_launches_by_plan": by_plan(k1_by_shape),
+        "k2_launches_by_plan": by_plan(k2_by_shape),
+        "pipeline_stages": {k: stages[k] for k in (
+            "pack_s", "device_s", "unpack_s", "fallback_s", "chunks",
+            "launches", "errors")},
         "windows_device": pol.poa.n_device, "windows_host": pol.poa.n_host,
         "windows_backbone": pol.poa.n_backbone,
-        "layer_jobs": eng.last_stats.get("committed", 0),
+        "layer_jobs": pol.poa.engine.last_stats.get("committed", 0),
         "pairs": pol.n_aligner_pairs, "pairs_device": pol.n_aligner_device,
         "pairs_host": pol.n_aligner_host_fallback,
         "pairs_unbucketable": pol.aligner.n_unbucketed,
         "pairs_band_rejects": pol.aligner.n_band_rejects,
-        "draft_distance": d_draft, "polished_distance": d_pol,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
     }
+
+
+def log_depth(label: str, m: dict) -> None:
+    st = m["pipeline_stages"]
+    log(f"[chip_smoke] {label} at pipeline depth {m['pipeline_depth']}: "
+        f"align {m['align_s']:.3f} s, consensus {m['consensus_s']:.3f} s; "
+        f"stages pack {st['pack_s']:.3f} s, device {st['device_s']:.3f} s, "
+        f"unpack {st['unpack_s']:.3f} s, fallback {st['fallback_s']:.3f} s "
+        f"over {st['chunks']} chunks / {st['launches']} launches; peak "
+        f"device memory {m['peak_device_bytes']} bytes allocated, "
+        f"{m.get('peak_reserved_bytes', 'not read')} reserved")
+
+
+def main_path(dev, paths, truth, draft, report):
+    """Phase 5: the full-size polish with both device paths on at the
+    default posture, at pipeline depth 0 and then at the default depth 2
+    (the main path: its counters make the kernel line); the FASTA must be
+    byte-identical. K1 must launch at both score widths and both kernels
+    packed. Returns ((K1 launches, by instantiation), (K2 ...))."""
+    from racon_tpu_torch.native import edit_distance
+
+    _, sync_out, sync = polish_once(paths, 0)
+    pol, polished, main = polish_once(paths, 2)
+    if [(p.name, p.data) for p in polished] != [(p.name, p.data)
+                                                for p in sync_out]:
+        raise SystemExit("main path: the FASTA at pipeline depth 2 differs "
+                         "from depth 0's")
+    d_draft = edit_distance(draft, truth)
+    d_pol = edit_distance(polished[0].data, truth)
+    main.update(draft_distance=d_draft, polished_distance=d_pol)
     report["main_path"] = main
+    report["main_path_depth0"] = sync
     for k, v in main.items():
         log(f"[chip_smoke] main path {k}: {v}")
+    log_depth("main path", sync)
+    log_depth("main path", main)
+    log("[chip_smoke] main path: FASTA byte-identical at pipeline depth 0 "
+        "and 2")
+    k1, k2 = main["k1_launches"], main["k2_launches"]
+    k1_plans, k2_plans = main["k1_launches_by_plan"], main[
+        "k2_launches_by_plan"]
     if k1 <= 0 or k2 <= 0:
         raise SystemExit(f"main path did not launch both kernels "
                          f"(window_sweep {k1}, wavefront_align {k2})")
@@ -1104,13 +1212,61 @@ def main_path(dev, paths, truth, draft, report):
     return (k1, k1_plans), (k2, k2_plans)
 
 
+def n_base_path(dev, workdir, report):
+    """Phase 5b: the main path on a small read set (40 kb genome, 15x,
+    8 kb reads, seed 7) in which one read base in 200 is an N, so that
+    batches ship int8: both kernels must launch their int8
+    instantiations, the fullest batch of each shape they launched is
+    held against the plain version at the instantiation it ran, and the
+    polished contig must beat the draft. Returns ((K1 launches, by
+    instantiation), (K2 ...))."""
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.synth import simulate, write_dataset
+
+    rng = random.Random(7)
+    truth, draft, reads, paf = simulate(rng, 40_000, 15, 8000, 0.12, 0.10)
+    with_n = []
+    for name, read in reads:
+        b = bytearray(read)
+        for i in range(rng.randrange(200), len(b), 200):
+            b[i] = ord("N")
+        with_n.append((name, bytes(b)))
+    d = os.path.join(workdir, "nbases")
+    os.makedirs(d)
+    paths = write_dataset(d, draft, with_n, paf)
+    with PathCapture() as cap:
+        pol, polished, m = polish_once(paths, 2)
+    d_draft = edit_distance(draft, truth)
+    d_pol = edit_distance(polished[0].data, truth)
+    m.update(draft_distance=d_draft, polished_distance=d_pol)
+    report["n_base_path"] = m
+    log(f"[chip_smoke] N-base path (40 kb x 15x, 1 base in 200 an N): "
+        f"K1 {m['k1_launches_by_plan']}, K2 {m['k2_launches_by_plan']}; "
+        f"distance {d_draft} -> {d_pol}")
+    log_depth("N-base path", m)
+    for name, plans in (("window_sweep", m["k1_launches_by_plan"]),
+                        ("wavefront_align", m["k2_launches_by_plan"])):
+        if not any(p.endswith("/int8") for p in plans):
+            raise SystemExit(f"N-base path never launched {name} int8 "
+                             f"({plans})")
+    if not d_pol < d_draft:
+        raise SystemExit(f"N-base path: polished distance {d_pol} not "
+                         f"below the draft's {d_draft}")
+    rows, n_cross = hold_captured(dev, cap, "N-base path")
+    report["n_base_batches"] = rows
+    report["n_base_cross_width_batches"] = n_cross
+    return ((m["k1_launches"], m["k1_launches_by_plan"]),
+            (m["k2_launches"], m["k2_launches_by_plan"]))
+
+
 def profile_phase(label: str, run, kernel: str, short: str,
                   prefix: str | None = None) -> dict:
     """One torch.profiler pass over `run()`: the summed device time of the
-    kernel whose name holds `kernel`, the device's busy share of the
-    host-clocked wall (the union of its kernel and copy intervals), the
-    five host-side ranges with the longest summed time, and with `prefix`
-    the summed time of every host range whose name starts with it."""
+    kernel whose name holds `kernel`, the streams it ran on (from the
+    capture's Chrome trace), the device's busy share of the host-clocked
+    wall (the union of its kernel and copy intervals), the five host-side
+    ranges with the longest summed time, and with `prefix` the summed
+    time and calls of every host range whose name starts with it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1139,24 +1295,39 @@ def profile_phase(label: str, run, kernel: str, short: str,
                    if k.device_type == DeviceType.CPU),
                   reverse=True)[:5]
     named: dict = {}
+    calls: dict = {}
     for k in prof.key_averages():
         # a range also has a device-side entry of the same name
         if (prefix and k.key.startswith(prefix)
                 and k.device_type == DeviceType.CPU):
             named[k.key] = named.get(k.key, 0.0) + k.cpu_time_total / 1e3
+            calls[k.key] = calls.get(k.key, 0) + k.count
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace_events = json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
+    streams = sorted({str(e.get("args", {}).get("stream", e.get("tid")))
+                      for e in trace_events
+                      if e.get("cat") == "kernel"
+                      and kernel in e.get("name", "")})
     share = busy_us / (wall_s * 1e6)
     log(f"[chip_smoke] profile: {label} wall {wall_s:.3f} s under the "
         f"profiler; {short} device time {k_us / 1e3:.1f} ms over "
-        f"{len(mine)} launches; device busy {busy_us / 1e3:.1f} ms = "
-        f"{100 * share:.1f}% of the wall")
+        f"{len(mine)} launches on streams {streams}; device busy "
+        f"{busy_us / 1e3:.1f} ms = {100 * share:.1f}% of the wall")
     for us, name, count in host:
         log(f"[chip_smoke] profile {label} host range {name}: "
             f"{us / 1e3:.1f} ms over {count} calls")
     return {"wall_s": wall_s, "kernel_device_ms": k_us / 1e3,
-            "kernel_launches": len(mine), "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": share,
+            "kernel_launches": len(mine), "kernel_streams": streams,
+            "device_busy_ms": busy_us / 1e3, "device_busy_share": share,
             "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
-                            for us, n, c in host], "ranges_ms": named}
+                            for us, n, c in host], "ranges_ms": named,
+            "range_calls": calls}
 
 
 def profile_consensus(dev, windows, report) -> None:
@@ -1175,20 +1346,90 @@ def profile_consensus(dev, windows, report) -> None:
 def profile_align(dev, pairs, report) -> None:
     """Phase 7: one profiled BatchAligner.align pass over the 200 kb
     workload's overlap pairs (its ranges align.operands, align.kernel,
-    align.decode); K2 is its kernel."""
+    align.decode; K2 is its kernel) at pipeline depth 0, then one through
+    a depth-2 pipeline. At depth 2, K2 must have launched on at least 2
+    CUDA streams (counted where the wrapper is called, and read from the
+    capture); whether the ranges recorded on the pack and unpack worker
+    threads reached the capture is printed, and the port's tracer records
+    the pass's stage spans beside the profiler. Then four untraced passes
+    at depths 0, 2, 2, 0, timed on the host clock."""
+    import torch
+
+    from racon_tpu_torch.obs import trace
+    from racon_tpu_torch.ops import align_kernels
     from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.pipeline import DispatchPipeline
 
-    al = BatchAligner(device=dev)
-    report["profile_align"] = profile_phase(
-        "align phase", lambda: al.align(pairs), "align_wavefront_kernel",
-        "K2")
+    out = {}
+    for depth in (0, 2):
+        al = BatchAligner(device=dev)
+        n_chunks = len(BatchAligner(device=dev).chunks(pairs))
+        launch_streams = set()
+        wrapped = align_kernels.wavefront_align
+
+        def counted(*args, **kw):
+            launch_streams.add(torch.cuda.current_stream(dev).cuda_stream)
+            return wrapped(*args, **kw)
+
+        align_kernels.wavefront_align = counted
+        rec = trace.configure(None)
+        try:
+            with DispatchPipeline(depth=depth) as pl:
+                prof = profile_phase(
+                    f"align phase at depth {depth}",
+                    lambda: al.align(pairs, pipeline=pl),
+                    "align_wavefront_kernel", "K2", prefix="align.")
+        finally:
+            align_kernels.wavefront_align = wrapped
+            trace.reset()
+        spans: dict = {}
+        for e in rec.events():
+            if e["ph"] == "X":
+                key = e["name"] + (f".{e['args']['seg']}"
+                                   if "seg" in e.get("args", {}) else "")
+                spans[key] = spans.get(key, 0.0) + e["dur"] / 1e3
+        prof["trace_span_ms"] = spans
+        st = pl.stats.snapshot()
+        calls = prof["range_calls"]
+        workers = all(calls.get(r, 0) >= n_chunks
+                      for r in ("align.operands", "align.decode"))
+        prof.update(pipeline_depth=depth, launch_streams=len(launch_streams),
+                    chunks=n_chunks, worker_ranges_captured=workers,
+                    pipeline_stages=st)
+        log(f"[chip_smoke] profile align phase at depth {depth}: K2 launched "
+            f"on {len(launch_streams)} streams (wrapper side), "
+            f"{len(prof['kernel_streams'])} in the capture; device busy "
+            f"{100 * prof['device_busy_share']:.1f}%; range calls {calls} "
+            f"over {n_chunks} chunks: worker-thread ranges "
+            f"{'captured' if workers else 'NOT captured'}; stages "
+            f"pack {st['pack_s']:.3f} s, device {st['device_s']:.3f} s, "
+            f"unpack {st['unpack_s']:.3f} s; tracer span ms {spans}")
+        out[depth] = prof
+    report["profile_align"] = out[0]
+    report["profile_align_depth2"] = out[2]
+    # untraced passes at the two depths in turns, for the spread
+    walls = []
+    for depth in (0, 2, 2, 0):
+        al = BatchAligner(device=dev)
+        with DispatchPipeline(depth=depth) as pl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            al.align(pairs, pipeline=pl)
+            torch.cuda.synchronize()
+            walls.append((depth, time.perf_counter() - t0))
+    log(f"[chip_smoke] align passes in turns (depth, wall s): "
+        f"{[(d, round(w, 4)) for d, w in walls]}")
+    report["align_walls_in_turns"] = walls
+    if out[2]["launch_streams"] < 2:
+        raise SystemExit(f"align phase at depth 2: K2 launched on "
+                         f"{out[2]['launch_streams']} stream(s), not >= 2")
 
 
 
 
-class FragmentCapture:
-    """For one run, patches the session engine's dispatch and the
-    aligner's entry point: keeps the fullest K1 batch of each bucket (a
+class PathCapture:
+    """For one run of a path, patches the session engine's dispatch and
+    the aligner's entry point: keeps the fullest K1 batch of each bucket (a
     device-side copy of its inputs, taken without a sync, with the
     instantiation it ran), the pairs of every align call (references)
     and the calls' summed wall. Both call through, so every launch is the
@@ -1223,11 +1464,11 @@ class FragmentCapture:
                 cap.k1[(nb, lb)] = (cap._n, plan, [a.clone() for a in args])
             return run_bucket(eng, nb, lb, *args)
 
-        def _align(al, pairs, progress=None):
+        def _align(al, pairs, progress=None, **kw):
             cap.align_calls.append(pairs)
             t0 = time.perf_counter()
             try:
-                return align(al, pairs, progress)
+                return align(al, pairs, progress, **kw)
             finally:
                 cap.align_s += time.perf_counter() - t0
 
@@ -1243,6 +1484,76 @@ class FragmentCapture:
         (DeviceGraphPOA._dispatch, DeviceGraphPOA.run_bucket,
          BatchAligner.align) = self._saved
         return False
+
+
+def hold_captured(dev, cap, label: str):
+    """The fullest batch of each K1 bucket and of each K2 (edge, band)
+    that a captured run (PathCapture) launched, held against its
+    plain version at the instantiation it ran, timed, and checked at both
+    widths where int16 holds. Returns (rows, cross-width batches)."""
+    import torch
+
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
+
+    # the fullest batch of each K1 bucket at the instantiation it ran,
+    # against the plain version, and at both widths where int16 holds
+    rows = []
+    n_cross = 0
+    for (nb, lb), (n, plan, args) in sorted(cap.k1.items()):
+        held = hold_k1(args, nb, lb,
+                       f"the {label}'s fullest {(nb, lb)} batch",
+                       widths=(plan[0],))
+        r = held[plan]
+        if plan[0] == "int16":
+            if not torch.equal(sweep(args, plan),
+                               sweep(args, ("int32", plan[1]))):
+                raise SystemExit(f"K1 cross-width check: int16 and int32 "
+                                 f"ranks differ on the {label}'s "
+                                 f"fullest {(nb, lb)} batch")
+            n_cross += 1
+        rows.append({"kernel": "K1", "shape": [nb, lb], "jobs": n,
+                     "rows": args[0].shape[0], "plan": plan_name(*plan),
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+    # the fullest batch of each K2 (edge, band), as the polishers batched
+    # their pairs
+    fullest: dict = {}
+    for pairs in cap.align_calls:
+        for edge, band, idx in BatchAligner(device=dev).chunks(pairs):
+            if len(idx) > fullest.get((edge, band), (0,))[0]:
+                fullest[(edge, band)] = (len(idx), pairs, idx)
+    al = BatchAligner(device=dev)
+    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
+        args = al.operands(pairs, edge, band, idx)
+        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
+        a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
+                                                  pack=False)
+        held = hold_k2(edge, band, a8, args if plan[1] else None,
+                       f"the {label}'s fullest ({edge}, {band}) batch",
+                       widths=(plan[0],))
+        r = held[plan]
+        if aligner_int16_ok(edge):
+            cross_width_k2(args, band, plan[1], f"the {label}'s "
+                           f"fullest ({edge}, {band}) batch")
+            n_cross += 1
+        rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
+                     "plan": plan_name(*plan), "touched": r["touched"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+        del args, a8
+    for r in rows:
+        log(f"[chip_smoke] {label} {r['kernel']} fullest batch at "
+            f"{tuple(r['shape'])}, {r['plan']}: "
+            + (f"{r['jobs']} jobs / {r['rows']} rows"
+               if r["kernel"] == "K1" else
+               f"{r['pairs']} pairs ({r['touched']} band-touched)")
+            + f" identical; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"[chip_smoke] {label} cross-width check: {n_cross} fullest "
+        f"batches of int16 shapes identical at int16 and int32")
+    return rows, n_cross
 
 
 def fragment_path(dev, truth, reads, workdir, report):
@@ -1261,7 +1572,6 @@ def fragment_path(dev, truth, reads, workdir, report):
     from racon_tpu_torch.native import edit_distance
     from racon_tpu_torch.ops import align_kernels, poa_kernels
     from racon_tpu_torch.ops.align import BatchAligner
-    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
     from racon_tpu_torch.synth import (ava_overlaps, truth_segment,
                                        write_fragment_dataset)
 
@@ -1276,7 +1586,7 @@ def fragment_path(dev, truth, reads, workdir, report):
     out = io.BytesIO()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    with FragmentCapture() as cap:
+    with PathCapture() as cap:
         poa_kernels.reset_launches()
         align_kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1350,6 +1660,10 @@ def fragment_path(dev, truth, reads, workdir, report):
             for (a, b, dt, pk), n in sorted(k2_by_shape.items())},
         "k1_launches_by_plan": k1_plans, "k2_launches_by_plan": k2_plans,
         "k1_jobs_per_launch": cap.k1_jobs / max(k1, 1),
+        "pipeline_depth": pols[0].pipeline_depth,
+        "pipeline_stages": {k: total(lambda p: p.stage_stats[k]) for k in (
+            "pack_s", "device_s", "unpack_s", "fallback_s", "chunks",
+            "launches", "errors")},
         "peak_device_bytes": peak,
         "raw_distance_written": raw, "corrected_distance": fixed,
         "raw_distance_all_targets": raw_all,
@@ -1357,6 +1671,8 @@ def fragment_path(dev, truth, reads, workdir, report):
     report["fragment_path"] = frag
     for k, v in frag.items():
         log(f"[chip_smoke] fragment path {k}: {v}")
+    log_depth("fragment path", dict(frag, align_s=align_s,
+                                    consensus_s=consensus_s))
     if k1 <= 0 or k2 <= 0:
         raise SystemExit(f"fragment path did not launch both kernels "
                          f"(window_sweep {k1}, wavefront_align {k2})")
@@ -1367,63 +1683,7 @@ def fragment_path(dev, truth, reads, workdir, report):
         raise SystemExit(f"fragment path wrote {len(written)} reads, not "
                          f"{n_targets} targets less {n_dropped} dropped")
 
-    # the fullest batch of each K1 bucket at the instantiation it ran,
-    # against the plain version, and at both widths where int16 holds
-    rows = []
-    n_cross = 0
-    for (nb, lb), (n, plan, args) in sorted(cap.k1.items()):
-        held = hold_k1(args, nb, lb,
-                       f"the fragment path's fullest {(nb, lb)} batch",
-                       widths=(plan[0],))
-        r = held[plan]
-        if plan[0] == "int16":
-            if not torch.equal(sweep(args, plan),
-                               sweep(args, ("int32", plan[1]))):
-                raise SystemExit(f"K1 cross-width check: int16 and int32 "
-                                 f"ranks differ on the fragment path's "
-                                 f"fullest {(nb, lb)} batch")
-            n_cross += 1
-        rows.append({"kernel": "K1", "shape": [nb, lb], "jobs": n,
-                     "rows": args[0].shape[0], "plan": plan_name(*plan),
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
-    # the fullest batch of each K2 (edge, band), as the polishers batched
-    # their pairs
-    fullest: dict = {}
-    for pairs in cap.align_calls:
-        for edge, band, idx in BatchAligner(device=dev).chunks(pairs):
-            if len(idx) > fullest.get((edge, band), (0,))[0]:
-                fullest[(edge, band)] = (len(idx), pairs, idx)
-    al = BatchAligner(device=dev)
-    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
-        args = al.operands(pairs, edge, band, idx)
-        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
-        a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
-                                                  pack=False)
-        held = hold_k2(edge, band, a8, args if plan[1] else None,
-                       f"the fragment path's fullest ({edge}, {band}) batch",
-                       widths=(plan[0],))
-        r = held[plan]
-        if aligner_int16_ok(edge):
-            cross_width_k2(args, band, plan[1], f"the fragment path's "
-                           f"fullest ({edge}, {band}) batch")
-            n_cross += 1
-        rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
-                     "plan": plan_name(*plan), "touched": r["touched"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
-        del args, a8
-    for r in rows:
-        log(f"[chip_smoke] fragment path {r['kernel']} fullest batch at "
-            f"{tuple(r['shape'])}, {r['plan']}: "
-            + (f"{r['jobs']} jobs / {r['rows']} rows"
-               if r["kernel"] == "K1" else
-               f"{r['pairs']} pairs ({r['touched']} band-touched)")
-            + f" identical; kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
-    log(f"[chip_smoke] fragment path cross-width check: {n_cross} fullest "
-        f"batches of int16 shapes identical at int16 and int32")
+    rows, n_cross = hold_captured(dev, cap, "fragment path")
     report["fragment_batches"] = rows
     report["fragment_cross_width_batches"] = n_cross
 

@@ -3,9 +3,11 @@
 The reference CLI (src/main.cpp:47-169): the same common options plus the
 upstream racon-gpu device flags (-c/--cudapoa-batches,
 --cudaaligner-batches, --cudaaligner-band-width,
--b/--cuda-banded-alignment), --device and --cuda-dtype. Polished FASTA
-goes to stdout; errors print as `[racon_tpu_torch::...] error: ...` on
-stderr with exit status 1.
+-b/--cuda-banded-alignment), --device and --cuda-dtype, and the
+counterparts of the JAX CLI's pipeline and observability flags
+(--cuda-pipeline-depth, --cuda-trace, --cuda-metrics, --cuda-log-level,
+--cuda-profile). Polished FASTA goes to stdout; errors print as
+`[racon_tpu_torch::...] error: ...` on stderr with exit status 1.
 """
 
 from __future__ import annotations
@@ -86,6 +88,30 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             when its overflow envelope proof holds (half the DP bytes,
             bit-identical results), int32 forces the wide oracle
             everywhere
+        --cuda-pipeline-depth <int>
+            default: 2
+            async dispatch pipeline depth: chunks packed / in flight
+            ahead of the one being unpacked (host pack, device compute,
+            host unpack and host-fallback alignment all overlap, each
+            chunk in flight on its own CUDA stream); 0 is the
+            synchronous path
+        --cuda-trace <file>
+            default: none
+            record a span trace of the run (pipeline stages per chunk,
+            session dispatch and commit, polisher phases) as Chrome
+            trace-event JSON loadable in Perfetto / chrome://tracing
+        --cuda-metrics <file>
+            default: none
+            dump the end-of-run metrics snapshot (pipeline / latency /
+            aligner namespaces) as JSON, and print it as a stderr table
+        --cuda-log-level <quiet|info|debug>
+            default: info
+            stderr verbosity: quiet silences progress and timing lines,
+            debug also shows every deduplicated warning
+        --cuda-profile <dir>
+            default: none
+            capture each device phase with torch.profiler into
+            <dir>/align.json and <dir>/consensus.json (Chrome trace)
 """
 
 
@@ -110,6 +136,11 @@ def parse_args(argv: list[str]) -> dict | None:
         "cuda_banded_alignment": False,
         "device": "cuda",
         "score_dtype": "auto",
+        "pipeline_depth": 2,
+        "trace_path": None,
+        "metrics_path": None,
+        "log_level": None,
+        "profile_dir": None,
         "paths": [],
     }
 
@@ -124,6 +155,16 @@ def parse_args(argv: list[str]) -> dict | None:
         if v not in ("auto", "int32", "int16"):
             print("racon_tpu_torch: --cuda-dtype must be 'auto', 'int32' or "
                   "'int16'", file=sys.stderr)
+            sys.exit(1)
+        return v
+
+    def _level_choice(v: str) -> str:
+        from .utils.logger import LEVEL_NAMES
+
+        if v not in LEVEL_NAMES:
+            names = ", ".join(f"'{n}'" for n in LEVEL_NAMES)
+            print(f"racon_tpu_torch: --cuda-log-level must be one of {names}",
+                  file=sys.stderr)
             sys.exit(1)
         return v
 
@@ -144,7 +185,12 @@ def parse_args(argv: list[str]) -> dict | None:
                   "cudaaligner-batches": ("cuda_aligner_batches", int),
                   "cudaaligner-band-width": ("cuda_aligner_band_width", int),
                   "device": ("device", _device_choice),
-                  "cuda-dtype": ("score_dtype", _dtype_choice)}
+                  "cuda-dtype": ("score_dtype", _dtype_choice),
+                  "cuda-pipeline-depth": ("pipeline_depth", int),
+                  "cuda-trace": ("trace_path", str),
+                  "cuda-metrics": ("metrics_path", str),
+                  "cuda-log-level": ("log_level", _level_choice),
+                  "cuda-profile": ("profile_dir", str)}
 
     def flag(name: str) -> bool:
         if name in ("u", "include-unpolished"):
@@ -248,6 +294,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     from .core.polisher import PolisherType, create_polisher
+    from .obs import trace
+    from .utils.logger import set_log_level
 
     try:
         polisher = create_polisher(
@@ -259,12 +307,21 @@ def main(argv: list[str] | None = None) -> int:
             opts["mismatch"], opts["gap"], opts["num_threads"],
             opts["cuda_poa_batches"], opts["cuda_banded_alignment"],
             opts["cuda_aligner_batches"], opts["cuda_aligner_band_width"],
-            opts["device"], opts["score_dtype"])
+            opts["device"], opts["score_dtype"],
+            pipeline_depth=opts["pipeline_depth"],
+            trace_path=opts["trace_path"],
+            metrics_path=opts["metrics_path"],
+            log_level=opts["log_level"], profile_dir=opts["profile_dir"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:
         print(str(exc), file=sys.stderr)
         return 1
+    finally:
+        # the level and the tracer are process-wide: a later in-process
+        # main() without the flags must not inherit them
+        set_log_level(None)
+        trace.reset()
     out = sys.stdout.buffer
     for seq in polished:
         out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")

@@ -12,6 +12,13 @@ package's Polisher, with both hot spots on the GPU:
   - window consensus: ops/poa.BatchPOA (the cudapoa role) when
     `cuda_poa_batches > 0`, else the host POA engine.
 
+Both phases run through the dispatch pipeline (pipeline/), at depth 2
+by default as in the JAX CLI: the aligner's pack / launch / decode
+stages overlap, and pairs the device rejects are host-aligned in the
+pipeline's fallback pool while the device pass runs. One PipelineStats,
+a HistogramSet and a MetricsRegistry (namespaces `pipeline`, `latency`,
+`aligner`) cover the run; the phases are trace spans (obs/trace.py).
+
 The two types differ in two places only, as in the reference and the
 JAX package: kC keeps just the longest overlap per query, kF every valid
 one (the reads correct each other, so the overlaps must be dual); kF
@@ -28,9 +35,14 @@ import numpy as np
 from ..device import resolve
 from ..errors import RaconError
 from ..io.parsers import create_sequence_parser, create_overlap_parser
+from ..obs import torch_profile, trace
+from ..obs.hist import HistogramSet
+from ..obs.metrics import MetricsRegistry
 from ..ops.dtypes import plan_split
+from ..pipeline import REPORT_KEYS, DispatchPipeline, PipelineStats
 from ..utils.cigar import cigar_from_ops
-from ..utils.logger import Logger, flush_dedup, log_info, reset_dedup
+from ..utils.logger import (DEBUG, Logger, flush_dedup, log_info, log_level,
+                            reset_dedup, set_log_level)
 from .sequence import Sequence, create_sequence
 from .window import Window, WindowType, create_window
 
@@ -52,12 +64,25 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     cuda_aligner_batches: int = 0,
                     cuda_aligner_band_width: int = 0,
                     device: str = "cuda", score_dtype: str = "auto",
-                    pack_bases: bool = True) -> "Polisher":
+                    pack_bases: bool = True, pipeline_depth: int = 2,
+                    trace_path: str | None = None,
+                    metrics_path: str | None = None,
+                    log_level: str | None = None,
+                    profile_dir: str | None = None) -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
     POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
     int16) and `pack_bases` set both device engines' kernel posture
-    (ops/dtypes.py, ops/encode.py)."""
+    (ops/dtypes.py, ops/encode.py). `pipeline_depth` is the dispatch
+    pipeline's depth (0: synchronous). The observability knobs, all off
+    by default: `trace_path` arms the process tracer, saved at the end
+    of polish(); `metrics_path` receives the metrics snapshot as JSON;
+    `log_level` sets the stderr level (quiet, info, debug); `profile_dir`
+    receives a torch.profiler capture of each device phase."""
+    if log_level is not None:
+        set_log_level(log_level)
+    if trace_path:
+        trace.configure(trace_path)
     if not isinstance(type_, PolisherType):
         raise RaconError("createPolisher", "invalid polisher type!")
     if window_length == 0:
@@ -77,7 +102,8 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     quality_threshold, error_threshold, trim, match, mismatch,
                     gap, num_threads, cuda_poa_batches, cuda_banded_alignment,
                     cuda_aligner_batches, cuda_aligner_band_width, dev,
-                    score_dtype, pack_bases)
+                    score_dtype, pack_bases, pipeline_depth, metrics_path,
+                    profile_dir)
 
 
 class Polisher:
@@ -88,7 +114,9 @@ class Polisher:
                  cuda_banded_alignment: bool = True,
                  cuda_aligner_batches: int = 0,
                  cuda_aligner_band_width: int = 0, device="cuda",
-                 score_dtype: str = "auto", pack_bases: bool = True):
+                 score_dtype: str = "auto", pack_bases: bool = True,
+                 pipeline_depth: int = 2, metrics_path: str | None = None,
+                 profile_dir: str | None = None):
         self.sparser = sparser
         self.oparser = oparser
         self.tparser = tparser
@@ -108,6 +136,14 @@ class Polisher:
         self.device = resolve(device)
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
+        self.pipeline_depth = max(0, pipeline_depth)
+        self.metrics_path = metrics_path
+        self.profile_dir = profile_dir
+        # per-chunk pipeline stage seconds and phase seconds as latency
+        # distributions, and the stage counters both phases' pipelines
+        # share
+        self.hists = HistogramSet()
+        self.pipeline_stats = PipelineStats(hists=self.hists)
 
         self.sequences: list[Sequence] = []
         self.windows: list[Window] = []
@@ -126,6 +162,30 @@ class Polisher:
         #: targets loaded, and those dropped as unpolished, by the last run
         self.n_targets = 0
         self.n_dropped = 0
+        self.metrics = MetricsRegistry()
+        self.metrics.register(
+            "pipeline", lambda: {k: v for k, v in self.stage_stats.items()
+                                 if k not in REPORT_KEYS})
+        self.metrics.register("latency", lambda: self.hists.snapshot())
+        self.metrics.register(
+            "aligner", lambda: {
+                "pairs": self.n_aligner_pairs,
+                "device_pairs": self.n_aligner_device,
+                "host_fallbacks": self.n_aligner_host_fallback,
+                "band_width": self.cuda_aligner_band_width})
+
+    def _make_pipeline(self) -> DispatchPipeline:
+        """One DispatchPipeline per phase, all feeding the shared stage
+        counters; depth 0 is the synchronous path."""
+        return DispatchPipeline(depth=self.pipeline_depth,
+                                stats=self.pipeline_stats,
+                                fallback_workers=max(
+                                    1, min(4, self.num_threads)))
+
+    @property
+    def stage_stats(self) -> dict:
+        """Snapshot of the pipeline stage counters (both phases)."""
+        return self.pipeline_stats.snapshot()
 
     # ------------------------------------------------------------------ init
     def initialize(self) -> None:
@@ -219,7 +279,8 @@ class Polisher:
             seq.transmute(has_name[i], has_data[i], has_reverse_data[i])
 
         t_align = time.perf_counter()
-        self.find_overlap_breaking_points(overlaps)
+        with trace.span("polisher.align_overlaps"):
+            self.find_overlap_breaking_points(overlaps)
         self.phase_s["align"] = time.perf_counter() - t_align
 
         log.log()
@@ -278,7 +339,14 @@ class Polisher:
 
         log.log("[racon_tpu_torch::Polisher.initialize] transformed data "
                 "into windows")
-        self.phase_s["initialize"] = time.perf_counter() - t_init
+        t_end = time.perf_counter()
+        self.phase_s["initialize"] = t_end - t_init
+        self.hists.observe("phase.initialize", t_end - t_init)
+        tr = trace.get_tracer()
+        if tr is not None:
+            tr.complete("polisher.initialize", t_init, t_end,
+                        {"windows": len(self.windows),
+                         "targets": targets_size})
         flush_dedup()
 
     def _load_overlaps(self, name_to_id, id_to_id, has_data, has_reverse_data):
@@ -367,6 +435,7 @@ class Polisher:
 
             runs = [None] * len(pairs)
             self.n_aligner_pairs = len(pairs)
+            handled: set[int] = set()
             if self.cuda_aligner_batches > 0:
                 from ..ops.align import BatchAligner
 
@@ -374,9 +443,44 @@ class Polisher:
                     band_width=self.cuda_aligner_band_width,
                     device=self.device, score_dtype=self.score_dtype,
                     pack_bases=self.pack_bases)
-                runs = self.aligner.align(pairs, progress=bar_n)
+                pipeline = self._make_pipeline()
+                fb: list[tuple[list[int], object]] = []
+                # concurrent fallback jobs split the thread budget; at
+                # depth 0 they run inline and keep all of it
+                fb_threads = (self.num_threads if pipeline.depth == 0
+                              else max(1, self.num_threads
+                                       // pipeline.fallback_workers))
 
-            rest = [i for i, r in enumerate(runs) if r is None]
+                def on_reject(idxs):
+                    # rejected pairs (unbucketable or band-clipped) start
+                    # host-aligning the moment they are known, beside the
+                    # device pass (cudapolisher.cpp:203-213)
+                    fb.extend(pipeline.map_fallback(
+                        idxs,
+                        lambda sub: nw_cigar_batch(
+                            [pairs[i] for i in sub], n_threads=fb_threads,
+                            progress=bar_n),
+                        chunk=512))
+
+                try:
+                    with torch_profile(self.profile_dir, "align"):
+                        runs = self.aligner.align(pairs, progress=bar_n,
+                                                  pipeline=pipeline,
+                                                  on_reject=on_reject)
+                        pipeline.drain_fallback()
+                except BaseException:
+                    # no fallback thread outlives the failed phase
+                    pipeline.cancel_fallback()
+                    raise
+                finally:
+                    pipeline.close()
+                for sub, fut in fb:
+                    for i, c in zip(sub, fut.result()):
+                        need[i].cigar = c
+                    handled.update(sub)
+
+            rest = [i for i, r in enumerate(runs)
+                    if r is None and i not in handled]
             if rest:
                 cigars = nw_cigar_batch([pairs[i] for i in rest],
                                         n_threads=self.num_threads,
@@ -387,9 +491,11 @@ class Polisher:
                 if r is not None:
                     o.cigar = cigar_from_ops(r).encode()
             self.n_aligner_host_fallback = (
-                len(rest) if self.cuda_aligner_batches > 0 else 0)
-            self.n_aligner_device = (len(pairs) - len(rest)
-                                     if self.cuda_aligner_batches > 0 else 0)
+                len(rest) + len(handled)
+                if self.cuda_aligner_batches > 0 else 0)
+            self.n_aligner_device = (
+                len(pairs) - self.n_aligner_host_fallback
+                if self.cuda_aligner_batches > 0 else 0)
             if self.cuda_aligner_batches > 0:
                 a = self.aligner
                 log_info(f"[racon_tpu_torch::Polisher.initialize] aligned "
@@ -413,35 +519,89 @@ class Polisher:
         from ..ops.poa import BatchPOA
 
         self.logger.log()
+        pipeline = self._make_pipeline()
+        # the stage counters accumulate across phases; the line below
+        # describes this phase only
+        stats_base = self.pipeline_stats.snapshot()
         self.poa = BatchPOA(self.match, self.mismatch, self.gap,
                             self.window_length, num_threads=self.num_threads,
                             device_batches=self.cuda_poa_batches,
                             banded=self.cuda_banded_alignment,
                             logger=self.logger, device=self.device,
                             score_dtype=self.score_dtype,
-                            pack_bases=self.pack_bases)
+                            pack_bases=self.pack_bases, pipeline=pipeline)
         t0 = time.perf_counter()
-        self.poa.generate_consensus(self.windows, self.trim)
-        if self.device.type == "cuda":
-            import torch
+        with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
+                           else None, "consensus"), pipeline:
+            self.poa.generate_consensus(self.windows, self.trim)
+            if self.device.type == "cuda":
+                import torch
 
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
+                torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        dt = t1 - t0
         self.phase_s["consensus"] = dt
+        self.hists.observe("phase.consensus", dt)
+        tr = trace.get_tracer()
+        if tr is not None:
+            tr.complete("polisher.consensus", t0, t1,
+                        {"windows": len(self.windows),
+                         "engine": "session" if self.cuda_poa_batches > 0
+                         else "host"})
         if dt > 0 and self.windows:
             log_info(f"[racon_tpu_torch::Polisher.polish] consensus "
                      f"throughput: {len(self.windows) / dt:.1f} windows/s")
+        ss = {k: v - stats_base[k] for k, v in self.stage_stats.items()}
+        # overlap evidence: with the pipeline live, pack + device +
+        # unpack exceed the phase wall; additive means dead
+        log_info(f"[racon_tpu_torch::Polisher.polish] pipeline stages "
+                 f"(depth {self.pipeline_depth}): pack {ss['pack_s']:.2f}s "
+                 f"device {ss['device_s']:.2f}s unpack {ss['unpack_s']:.2f}s "
+                 f"fallback {ss['fallback_s']:.2f}s, {ss['chunks']} chunks / "
+                 f"{ss['launches']} launches")
 
         t0 = time.perf_counter()
         dst = self._stitch(drop_unpolished_sequences)
-        self.phase_s["stitch"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.phase_s["stitch"] = t1 - t0
+        self.hists.observe("phase.stitch", t1 - t0)
+        if tr is not None:
+            tr.complete("polisher.stitch", t0, t1, {"sequences": len(dst)})
         self.logger.log("[racon_tpu_torch::Polisher.polish] generated "
                         "consensus")
         self.logger.total("[racon_tpu_torch::Polisher.] total =")
-        flush_dedup()
         self.windows = []
         self.sequences = []
+        self.emit_observability()
         return dst
+
+    def emit_observability(self) -> None:
+        """End-of-run emission, each part a no-op when its knob is off:
+        report suppressed duplicate warnings, dump the metrics snapshot
+        (`metrics_path`), render the stderr metrics table (when metrics
+        are dumped or at debug level), and write the armed trace. An
+        unwritable path loses the artifact, not the polished output."""
+        flush_dedup()
+        if self.metrics_path:
+            try:
+                self.metrics.dump(self.metrics_path)
+                log_info(f"[racon_tpu_torch::obs] metrics written to "
+                         f"{self.metrics_path}")
+            except OSError as exc:
+                log_info(f"[racon_tpu_torch::obs] warning: could not write "
+                         f"metrics to {self.metrics_path} ({exc})")
+        if self.metrics_path or log_level() >= DEBUG:
+            log_info("[racon_tpu_torch::obs] end-of-run metrics:\n"
+                     + self.metrics.table())
+        try:
+            saved = trace.save()
+        except OSError as exc:
+            saved = None
+            log_info(f"[racon_tpu_torch::obs] warning: could not write "
+                     f"trace ({exc})")
+        if saved:
+            log_info(f"[racon_tpu_torch::obs] trace written to {saved} "
+                     "(open in https://ui.perfetto.dev)")
 
     def _stitch(self, drop_unpolished_sequences: bool) -> list[Sequence]:
         """Stitch per-window consensus back into whole sequences with the

@@ -13,11 +13,14 @@ fixed (diagonal < up/I < left/D), so the output is bit-stable.
 kernel ops/align_kernels.wavefront_align, at either score dtype and
 operand form; `BatchAligner` buckets pairs, picks each batch's score
 dtype and operand form, and runs them through the wrapper on its
-device, each batch under the profiler ranges align.operands,
-align.kernel and align.decode.
+device, through the dispatch pipeline's pack / dispatch / wait / unpack
+stages, under the profiler ranges align.operands, align.kernel and
+align.decode.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -251,16 +254,19 @@ class BatchAligner:
                        for i in idxs) / len(idxs)
         return max(128, (int(mean_len * 0.1) + 127) // 128 * 128)
 
-    def chunks(self, pairs) -> list[tuple[int, int, list[int]]]:
-        """(edge, band, pair indices) device batches, in dispatch order;
-        unbucketable pairs are counted and left out."""
+    def _split(self, pairs) -> tuple[list, list[int]]:
+        """(edge, band, pair indices) device batches in dispatch order,
+        and the unbucketable pairs (beyond the largest bucket, or empty),
+        which are counted."""
         groups: dict[int, list[int]] = {}
+        unbucketed: list[int] = []
         for idx, (qs, ts) in enumerate(pairs):
             edge = self._bucket_of(max(len(qs), len(ts)))
             if edge is None or not qs or not ts:
-                self.n_unbucketed += 1
+                unbucketed.append(idx)
                 continue
             groups.setdefault(edge, []).append(idx)
+        self.n_unbucketed += len(unbucketed)
         out = []
         for edge, idxs in sorted(groups.items()):
             band = self._band_for(pairs, idxs)
@@ -268,14 +274,20 @@ class BatchAligner:
             max_lanes = max(1, self.MAX_BP_BYTES // lane_bytes)
             for s in range(0, len(idxs), max_lanes):
                 out.append((edge, band, idxs[s:s + max_lanes]))
-        return out
+        return out, unbucketed
+
+    def chunks(self, pairs) -> list[tuple[int, int, list[int]]]:
+        """(edge, band, pair indices) device batches, in dispatch order;
+        unbucketable pairs are counted and left out."""
+        return self._split(pairs)[0]
 
     def operands(self, pairs, edge: int, band: int, idx: list[int],
                  pack: bool | None = None):
-        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch.
-        q and t are 2-bit packed uint8 (the kernel's packed form) when
-        `pack` is True, int8 codes when False; None packs when
-        `pack_bases` is on and both sides are all ACGT."""
+        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch,
+        copied to a card from pinned buffers, asynchronously on the
+        current stream. q and t are 2-bit packed uint8 (the kernel's
+        packed form) when `pack` is True, int8 codes when False; None
+        packs when `pack_bases` is on and both sides are all ACGT."""
         from .encode import encode_padded, pack_2bit, packable
 
         n_waves = 2 * edge + 1
@@ -288,36 +300,97 @@ class BatchAligner:
                     and packable(t_arr, t_lens))
         if pack:
             q_arr, t_arr = pack_2bit(q_arr), pack_2bit(t_arr)
-        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-                     for x in (q_arr, t_arr, q_lens, t_lens, offs))
+        out = []
+        for x in (q_arr, t_arr, q_lens, t_lens, offs):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+            if self.device.type == "cuda":
+                x = x.pin_memory().to(self.device, non_blocking=True)
+            out.append(x)
+        return tuple(out)
 
-    def align(self, pairs: list[tuple[bytes, bytes]],
-              progress=None) -> list[list[tuple[int, str]] | None]:
+    def align(self, pairs: list[tuple[bytes, bytes]], progress=None,
+              pipeline=None,
+              on_reject=None) -> list[list[tuple[int, str]] | None]:
         """Globally align each (query, target) pair. Returns per-pair op
-        runs, or None for rejected pairs (see class docstring)."""
+        runs, or None for rejected pairs (see class docstring).
+
+        `pipeline` (pipeline.DispatchPipeline) overlaps the host stages
+        with the device: `pack` builds a batch's operands and starts
+        their copies to the card, `dispatch` launches K2 and the copies
+        back (on the caller's thread, where the launch and plan counters
+        are bumped), `wait` blocks on the batch's event, and `unpack`
+        decodes the runs and applies the reject test. On a card each
+        batch in flight runs on its own stream, from a pool of depth + 2
+        (one stream would serialise every stage); its tensors are
+        allocated on that stream. Omitted, the stages run synchronously
+        (depth 0). `on_reject(idx_list)` fires as soon as pairs are known
+        to need the host aligner: unbucketable pairs up front, band-
+        clipped pairs per batch as it is decoded. Results land by
+        original index.
+        """
+        from ..pipeline import DispatchPipeline
         from .align_kernels import wavefront_align
 
+        pl = pipeline if pipeline is not None else DispatchPipeline(depth=0)
         results: list[list[tuple[int, str]] | None] = [None] * len(pairs)
-        for edge, band, idx in self.chunks(pairs):
-            with record_function("align.operands"):
-                q, t, q_lens, t_lens, offs = self.operands(pairs, edge, band,
-                                                           idx)
+        chunks, unbucketed = self._split(pairs)
+        if on_reject is not None and unbucketed:
+            on_reject(unbucketed)
+        streams = ([torch.cuda.Stream(self.device)
+                    for _ in range(pl.depth + 2)]
+                   if self.device.type == "cuda" else None)
+
+        def on_stream(i):
+            if streams is None:
+                return contextlib.nullcontext()
+            return torch.cuda.stream(streams[i % len(streams)])
+
+        def pack(chunk):
+            i, edge, band, idx = chunk
+            with record_function("align.operands"), on_stream(i):
+                args = self.operands(pairs, edge, band, idx)
+            lens = np.maximum([len(pairs[j][0]) for j in idx],
+                              [len(pairs[j][1]) for j in idx])
+            return args, lens
+
+        def dispatch(chunk, packed):
+            i, edge, band, idx = chunk
+            (q, t, q_lens, t_lens, offs), lens = packed
             dtype = self.plan_for(edge)
-            packed = q.dtype == torch.uint8
-            plan = (dtype, packed)
+            plan = (dtype, q.dtype == torch.uint8)
             self.batches_by_plan[plan] = self.batches_by_plan.get(plan, 0) + 1
             self.pairs_by_plan[plan] = self.pairs_by_plan.get(plan,
                                                               0) + len(idx)
-            with record_function("align.kernel"):
-                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs, band,
-                                            dtype, packed)
-            # the copies back wait for the kernel
+            with record_function("align.kernel"), on_stream(i):
+                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs,
+                                            band, *plan)
+                pl.stats.bump("launches")
+                if streams is None:
+                    return ops, meta, None, lens
+                # the copies back, queued behind the kernel on the
+                # batch's stream, into pinned buffers
+                ops_h = torch.empty(ops.shape, dtype=ops.dtype,
+                                    pin_memory=True)
+                meta_h = torch.empty(meta.shape, dtype=meta.dtype,
+                                     pin_memory=True)
+                ops_h.copy_(ops, non_blocking=True)
+                meta_h.copy_(meta, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            return ops_h, meta_h, done, lens
+
+        def wait(handle):
+            ops, meta, done, lens = handle
+            if done is not None:
+                done.synchronize()
+            return ops.numpy(), meta.numpy(), lens
+
+        def unpack(chunk, res):
+            i, edge, band, idx = chunk
+            ops, meta, lens = res
+            accepted = 0
+            rejected: list[int] = []
             with record_function("align.decode"):
-                ops = ops.cpu().numpy()
-                meta = meta.cpu().numpy()
-                lens = np.maximum(q_lens.cpu().numpy(),
-                                  t_lens.cpu().numpy())
-                accepted = 0
                 for lane, i_pair in enumerate(idx):
                     count, dist, touched = (int(v) for v in meta[lane])
                     # an in-band cost far above what a <=30%-error overlap
@@ -325,9 +398,19 @@ class BatchAligner:
                     # clipped
                     if touched or dist > 0.4 * lens[lane]:
                         self.n_band_rejects += 1
+                        rejected.append(i_pair)
                         continue
                     results[i_pair] = runs_of(ops[lane, :count][::-1])
                     accepted += 1
+            if on_reject is not None and rejected:
+                on_reject(rejected)
             if progress is not None:
+                # rejected pairs tick when the host aligns them
                 progress(accepted)
+
+        pl.run([(i, *c) for i, c in enumerate(chunks)], pack, dispatch,
+               wait, unpack, label="aligner",
+               describe=lambda c: {"engine": "aligner",
+                                   "bucket": f"{c[1]}x{c[2]}",
+                                   "jobs": len(c[3])})
         return results

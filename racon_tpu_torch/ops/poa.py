@@ -14,6 +14,11 @@ reference. Two engines:
     dtype `score_dtype` resolves to under its overflow proof, and ships
     all-ACGT batches 2-bit packed unless `pack_bases` is False.
 
+The host engine runs its chunks through the dispatch pipeline
+(pipeline/): a pack worker builds chunk k+1's window lists while the
+native POA call (GIL released) computes chunk k and the unpack worker
+trims chunk k-1. The session engine keeps its own in-flight deque.
+
 Windows with fewer than 3 sequences keep their backbone (reference
 window.cpp:68-71); TGS windows are coverage-trimmed (window.cpp:118-139).
 A device failure raises; nothing re-runs the windows on the host.
@@ -25,6 +30,7 @@ import torch
 
 from ..device import resolve
 from ..native import poa_batch
+from ..pipeline import DispatchPipeline
 from ..utils.logger import Logger
 
 
@@ -37,7 +43,8 @@ class BatchPOA:
                  device_batches: int = 0, banded: bool = False,
                  logger: Logger | None = None,
                  device: str | torch.device = "cuda",
-                 score_dtype: str = "auto", pack_bases: bool = True):
+                 score_dtype: str = "auto", pack_bases: bool = True,
+                 pipeline=None):
         self.match = match
         self.mismatch = mismatch
         self.gap = gap
@@ -52,6 +59,8 @@ class BatchPOA:
         self.device = resolve(device) if device_batches > 0 else None
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
+        #: the host chunk loop's DispatchPipeline (None: synchronous)
+        self.pipeline = pipeline
         #: per-window outcome counts of the last pass
         self.n_device = 0
         self.n_host = 0
@@ -75,16 +84,32 @@ class BatchPOA:
         bar = self.logger.bar if self.logger is not None else None
         if self.logger is not None:
             self.logger.bar_total(len(todo))
-        for s in range(0, len(todo), self.HOST_CHUNK):
-            chunk = todo[s:s + self.HOST_CHUNK]
-            results = poa_batch([_pack(w) for w in chunk], self.match,
-                                self.mismatch, self.gap,
+        pl = (self.pipeline if self.pipeline is not None
+              else DispatchPipeline(depth=0))
+        chunks = [todo[s:s + self.HOST_CHUNK]
+                  for s in range(0, len(todo), self.HOST_CHUNK)]
+
+        def pack(chunk):
+            return [_pack(w) for w in chunk]
+
+        def dispatch(chunk, packed):
+            results = poa_batch(packed, self.match, self.mismatch, self.gap,
                                 n_threads=self.num_threads)
+            pl.stats.bump("launches")
+            return results
+
+        def wait(results):
+            return results
+
+        def unpack(chunk, results):
             for w, (cons, cov) in zip(chunk, results):
                 w.apply_trim(cons, cov, trim)
                 if bar is not None:
                     bar("[racon_tpu_torch::Polisher.polish] generating "
                         "consensus")
+
+        pl.run(chunks, pack, dispatch, wait, unpack, label="host_poa",
+               describe=lambda c: {"engine": "host", "jobs": len(c)})
         self.n_host = len(todo)
 
     def _device_consensus(self, todo, trim) -> None:

@@ -26,7 +26,9 @@ cudapolisher.cpp:169-173). Batches launch asynchronously on the current
 stream; the host commits the oldest batch while younger ones compute.
 The host steps are `torch.profiler` ranges (poa.prepare, poa.dispatch,
 poa.wait, poa.commit, poa.finish), so a profiler trace splits the
-consensus wall between them and the kernels.
+consensus wall between them and the kernels; each batch's launch and
+its wait plus commit are also the port tracer's spans session.dispatch
+and session.commit (obs/trace.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from torch.profiler import record_function
 
 from ..device import free_bytes, resolve
+from ..obs import trace
 from ..utils.logger import Logger, log_info
 from .dtypes import NEG16, plan_split, poa_int16_ok, resolve_dtype
 from .encode import pack_2bit, packable, unpack_2bit
@@ -361,10 +364,11 @@ class DeviceGraphPOA:
             # commit the oldest batch (waits only for ITS result; younger
             # batches keep computing)
             win, layer, band, npart, lb, out, rows = inflight.popleft()
-            with record_function("poa.wait"):
-                ranks = out.cpu().numpy()[rows][:, :lb]
-            with record_function("poa.commit"):
-                session.commit(win, layer, band, ranks)
+            with trace.span("session.commit", engine="session", jobs=npart):
+                with record_function("poa.wait"):
+                    ranks = out.cpu().numpy()[rows][:, :lb]
+                with record_function("poa.commit"):
+                    session.commit(win, layer, band, ranks)
             freed += npart
             if bar is not None:
                 for _ in range(npart):
@@ -408,7 +412,9 @@ class DeviceGraphPOA:
                 sel = np.asarray(part, dtype=np.int64)
                 meta = (jobs["win"][sel].copy(), jobs["layer"][sel].copy(),
                         jobs["band"][sel].copy())
-                out, rows = self._dispatch(jobs, sel, nb, lb, B)
+                with trace.span("session.dispatch", engine="session",
+                                bucket=f"{nb}x{lb}", jobs=len(part)):
+                    out, rows = self._dispatch(jobs, sel, nb, lb, B)
                 batches.append(meta + (len(part), lb, out, rows))
         return batches
 

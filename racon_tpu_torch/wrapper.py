@@ -13,7 +13,9 @@ Differences from the reference, both deliberate:
   - rampler is the in-package racon_tpu_torch.rampler (no external
     binary, gzip-transparent);
   - chunks are polished in-process (create_polisher per chunk) instead
-    of shelling out, so the kernels, built once, serve every chunk.
+    of shelling out, so the kernels, built once, serve every chunk; each
+    chunk runs through the dispatch pipeline at its default depth (2),
+    as the JAX wrapper's chunks do.
 
     python -m racon_tpu_torch.wrapper -f --split 800000 --num-shards 4 \\
         --shard-id 0 -c 1 --cudaaligner-batches 1 reads ava.paf reads

@@ -255,9 +255,9 @@ def test_kernels_match_plain_on_fragment_batches_on_card(small, monkeypatch):
         k1_batches.append(((nb, lb), plan, [a.clone() for a in args]))
         return run_bucket(self, nb, lb, *args)
 
-    def capture_pairs(self, ps, progress=None):
+    def capture_pairs(self, ps, progress=None, **kw):
         pairs.extend(ps)
-        return align(self, ps, progress)
+        return align(self, ps, progress, **kw)
 
     monkeypatch.setattr(DeviceGraphPOA, "run_bucket", capture_bucket)
     monkeypatch.setattr(BatchAligner, "align", capture_pairs)

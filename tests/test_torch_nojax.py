@@ -1,7 +1,8 @@
 """The port never loads JAX or the JAX package: in a fresh interpreter
 where importing jax fails, racon_tpu_torch polishes a tiny dataset on the
-CPU through both device paths (at the default score-dtype posture and at
-int16), packs and unpacks bases and resolves a score dtype with its own
+CPU through both device paths (at the default score-dtype posture, through
+the dispatch pipeline at depth 2 with a span trace and a metrics dump,
+and at int16), packs and unpacks bases and resolves a score dtype with its own
 copies of the JAX package's encode and dtypes modules, corrects a tiny
 read set with -f (both device paths) and through the wrapper (split into
 chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
@@ -36,9 +37,18 @@ def run(main, argv):
 
 _, draft, reads, paf = simulate(random.Random(3), 2500, 6, 1500, 0.12, 0.10)
 paths = write_dataset(tempfile.mkdtemp(), draft, reads, paf)
+import json, os
+obs = tempfile.mkdtemp()
 fasta = run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
-                       "1", *paths])
+                       "1", "--cuda-pipeline-depth", "2", "--cuda-trace",
+                       os.path.join(obs, "t.json"), "--cuda-metrics",
+                       os.path.join(obs, "m.json"), *paths])
 assert fasta.startswith(b">draft LN:i:")
+names = {e["name"] for e in json.load(open(os.path.join(obs, "t.json")))
+         ["traceEvents"]}
+assert {"pipeline.pack", "pipeline.device", "pipeline.unpack",
+        "session.commit"} <= names, names
+assert json.load(open(os.path.join(obs, "m.json")))["pipeline"]["chunks"] >= 1
 assert run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
                       "1", "--cuda-dtype", "int16", *paths]) == fasta
 from racon_tpu_torch.ops import dtypes, encode
