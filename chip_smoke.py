@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Both kernels come in four instantiations: int32 or int16 scores (int16
+K1 and K2 come in four instantiations: int32 or int16 scores (int16
 where the bucket's overflow proof holds, ops/dtypes.py) times int8 or
-2-bit packed operands (ops/encode.py). The main path runs the default
+2-bit packed operands (ops/encode.py); K3 in two (int32 or int16 scores;
+the fused engine has no 2-bit form). The main path runs the default
 posture (`--cuda-dtype auto`, packing on). Phases, in order; any
 mismatch or exception exits non-zero:
 
@@ -84,11 +85,28 @@ mismatch or exception exits non-zero:
      band) this path launched is held identical to its plain version at
      the instantiation it ran and timed, and cross-checked at both widths
      where int16 holds; one BatchAligner.align pass over the shard's
-     pairs is traced.
+     pairs is traced;
+  9. the fused engine (K3, csrc/poa_fused.cu) on phase 5's contig cell
+     at the full envelope (N 2048, L 640, P 8) and pipeline depth 2:
+     `-c 1 --cudaaligner-batches 1 --cuda-engine fused` at `--cuda-fused
+     0` and `1`, once at 5/-4/-8 (K3 at int32) and once at the CLI's
+     default 3/-5/-4 (int16). The two postures' FASTA must be
+     byte-identical and beat the draft (the session engine's distance is
+     printed beside it); K3 must launch once a chunk at 1 and once per
+     chained call at 0; the windows built by K3 and those left to the
+     session engine (K1) or the host are printed. Per instantiation, the
+     deepest chunk's second chained call (layer base > 0) at full width
+     (128 rows) is held against the plain version on all 11 state
+     arrays and timed against its bound, and the deepest chunk's whole
+     fused launch on a slice of its first 8 rows is held likewise; K3 is
+     timed per chunk at both postures (CUDA events) and one fused
+     consensus pass is traced (K3's device time, the device busy share).
 
-Prints per-phase numbers, then the kernel line (launches on the contig
-path of phase 5 at depth 2, the N-base path of phase 5b and the fragment
-path of phase 8, in all, by path and by instantiation), the card's name and power limit, and as the last line
+Prints per-phase numbers, then the kernel line (K1 and K2: launches on
+the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
+fragment path of phase 8 and the fused path of phase 9, in all, by path
+and by instantiation; K3: launches on the four runs of phase 9), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
 nothing of JAX or of the JAX package.
@@ -105,6 +123,7 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
 
 #: peak rates of one H100 SXM: HBM bytes/s (NVIDIA data sheet), and the
 #: 32-bit integer rate the kernels' DP runs at (adds, compares, mins and
@@ -228,14 +247,16 @@ def main() -> int:
     profile_consensus(dev, windows, report)
     profile_align(dev, overlap_pairs(draft, reads, paf), report)
     fragment = fragment_path(dev, truth, reads_t, workdir, report)
-    for k, *paths in zip(kernels, contig, nbases, fragment):
-        by_path = dict(zip(("contig", "nbases", "fragment"), paths))
+    k1f, k2f, k3 = fused_path(dev, big, truth, draft, windows, report)
+    for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f)):
+        by_path = dict(zip(("contig", "nbases", "fragment", "fused"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
+    kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -1093,17 +1114,20 @@ def check_fragment_golden(workdir, report) -> None:
 
 
 
-def polish_once(paths, depth: int, **kw):
+def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
     """One polish of `paths` with both device paths on at the default
     posture and pipeline depth `depth`, the launch counters zeroed just
-    before and read just after. Returns (polisher, polished, numbers)."""
+    before and read just after. Returns (polisher, polished, numbers);
+    with the fused engine the numbers hold its launches and windows, and
+    the launches its chunks and chain plans call for."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
-    from racon_tpu_torch.ops import align_kernels, poa_kernels
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
 
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
-                          MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
+                          *scores, num_threads=os.cpu_count(),
                           cuda_poa_batches=1, cuda_banded_alignment=False,
                           cuda_aligner_batches=1, device="cuda",
                           pipeline_depth=depth, **kw)
@@ -1112,21 +1136,55 @@ def polish_once(paths, depth: int, **kw):
     torch.cuda.reset_peak_memory_stats(dev)
     poa_kernels.reset_launches()
     align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
     t0 = time.perf_counter()
     pol.initialize()
-    n_windows = len(pol.windows)
     t1 = time.perf_counter()
+    n_windows = len(pol.windows)
+    # each window's backbone and layer lengths, for the K3 launches the
+    # fused engine's chunks call for
+    shapes = [(len(w.sequences[0]), [len(q) for q in w.sequences[1:]])
+              for w in pol.windows]
+    t2 = time.perf_counter()
     polished = pol.polish()
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     k1_by_shape = dict(poa_kernels.launches_by_shape)
     k2_by_shape = dict(align_kernels.launches_by_shape)
     stages = pol.stage_stats
-    return pol, polished, {
+    fused = {}
+    if pol.cuda_engine == "fused":
+        eng = pol.poa.engine
+        k3_by_shape = dict(poa_fused_kernels.launches_by_shape)
+        # the windows K3 takes (two or more layers, within the node and
+        # length envelope), deepest first, B a chunk: each chunk's
+        # deepest window
+        depths = sorted((len(lens) for bb, lens in shapes
+                         if len(lens) >= 2 and bb + 1 <= eng.N
+                         and all(0 < x <= eng.L for x in lens)),
+                        reverse=True)
+        fused = {
+            "k3_launches": poa_fused_kernels.launches,
+            "k3_launches_by_shape": {
+                f"{n}x{ln}x{d} {dt} {'fused' if sl else 'split'}": c
+                for (n, ln, d, dt, sl), c in sorted(k3_by_shape.items())},
+            "k3_depths_launched": {
+                post: sorted((d for (_, _, d, _, sl), c in k3_by_shape.items()
+                              if sl == (post == "fused") for _ in range(c)),
+                             reverse=True)
+                for post in ("split", "fused")},
+            "k3_chunk_depths": depths[::eng.B],
+            "k3_min_bucket": min(eng.depth_buckets),
+            "k3_dtype": eng.score_dtype, "batch_rows": eng.B,
+            "fused_stats": dict(eng.last_stats),
+            "windows_k3": pol.poa.n_fused,
+            "windows_k3_left": eng.n_fallback,
+        }
+    return pol, polished, {**fused,
         "pipeline_depth": depth,
         "initialize_s": t1 - t0, "align_s": pol.phase_s["align"],
         "consensus_s": pol.phase_s["consensus"],
-        "stitch_s": pol.phase_s["stitch"], "polish_s": t2 - t1,
+        "stitch_s": pol.phase_s["stitch"], "polish_s": t3 - t2,
         "windows": n_windows,
         "windows_per_s": n_windows / pol.phase_s["consensus"],
         "pairs_per_s": pol.n_aligner_pairs / pol.phase_s["align"],
@@ -1697,6 +1755,332 @@ def fragment_path(dev, truth, reads, workdir, report):
         f"pairs: ms per pair {per_pair}")
     report["profile_fragment_align"] = prof
     return (k1, k1_plans), (k2, k2_plans)
+
+
+
+
+def fused_bound(state, ops, done, scores, dtype) -> tuple[float, str]:
+    """Least time the card needs for one K3 call on the split posture
+    (the chunk's state, the call's operands (seqs, lens, wts, rlo, rhi,
+    band) and its layer base `done`): the state read and written once and
+    the layers read once, over the bytes rate; or the operations this
+    call's data needs, over the integer rate. Those are counted layer by
+    layer from the state each layer meets, which a replay of the call
+    one layer at a time (D = 1 K3 launches on a copy) gives. A window
+    counts from its first layer until it fails: a layer it enters failed
+    needs nothing, one that fails the ring rule (decided on the rank
+    order, before the DP) only its sort. A counted layer needs:
+    - for each node in the layer's bpos range, the row's in-band cells
+      (its centre's band clipped to columns 1..slen; all slen columns
+      when the band is 0) times 6 x the row's in-degree within the range
+      (1 for a row fed by the source) + 4, as window_sweep_bound counts a
+      cell;
+    - the same over all slen columns once more where the banded pass
+      clipped and the full DP ran: where a banded-only replay ends in
+      another state, or where its ingest shows fewer than half of its
+      aligned positions (those that made no new column) landing on an
+      old node (of their base: the matches, and the alt nodes, so an
+      upper bound on the matches) — a retry that neither shows is not
+      counted;
+    - a sort of the live nodes' keys, n log2 n compare-exchanges of 2
+      operations, and the ingest at 30 operations a layer base."""
+    import torch
+
+    from racon_tpu_torch.ops import poa_fused_kernels as fk
+    from racon_tpu_torch.ops.poa_graph import RING
+
+    seqs, lens, wts, rlo, rhi, band = ops
+    B, N, P = state[1].shape
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in state)
+    nbytes += sum(t.numel() * t.element_size() for t in ops)
+    state = tuple(t.clone() for t in state)
+    idx = torch.arange(N, device=lens.device)
+    n_ops = 0.0
+    for d in range(lens.shape[1]):
+        codes, preds, col_of, colkey, bpos = (state[i] for i in (0, 1, 4, 5,
+                                                                 7))
+        slen = lens[:, d].long()
+        live = (slen > 0) & ~state[10]
+        n_old, nseq_old, cols_old = (state[i].clone() for i in (8, 3, 9))
+        n = n_old.double().clamp(min=2)
+        irr = ((codes >= 0) & (bpos >= rlo[:, d, None])
+               & (bpos <= rhi[:, d, None]))
+        pc = preds.long().clamp(min=0).view(B, -1)
+        pin = (preds >= 0) & torch.gather(irr, 1, pc).view(B, N, P)
+        deg = pin.sum(2).clamp(min=1)
+        key = torch.where(
+            codes >= 0,
+            (torch.gather(colkey, 1, col_of.long().clamp(0, N - 1)) << 11)
+            | idx, (1 << 62) | idx)
+        rank = key.argsort(dim=1).argsort(dim=1)
+        back = rank[:, :, None] - torch.gather(rank, 1, pc).view(B, N, P)
+        ring_fail = (pin & (back > RING)).flatten(1).any(1)
+        origin = rlo[:, d].long().clamp(min=0)[:, None]
+        c = bpos.long() - origin + 1
+        half = (band[:, d].long() // 2)[:, None]
+        ln = slen[:, None]
+        cols = (torch.minimum(ln, c + half) - torch.clamp(c - half, min=1)
+                + 1).clamp(min=0)
+        cols = torch.where(band[:, d, None] > 0, cols, ln)
+        cell = (6 * deg + 4) * irr
+        one = [t[:, d:d + 1].contiguous() for t in ops]
+        lb = torch.full((B,), done + d, dtype=torch.int32,
+                        device=lens.device)
+        banded = fk.fused_layers(tuple(t.clone() for t in state), *one[:3],
+                                 tuple(one[3:]), lb, *scores,
+                                 banded_only=True, score_dtype=dtype)
+        state = fk.fused_layers(state, *one[:3], tuple(one[3:]), lb,
+                                *scores, score_dtype=dtype)
+        moved = torch.stack([(x != y).reshape(B, -1).any(1)
+                             for x, y in zip(banded, state)]).any(0)
+        n_al = slen - (banded[9] - cols_old)
+        hits = ((banded[3] - nseq_old) * (idx < n_old[:, None])).sum(1)
+        clipped = ~banded[10] & ((n_al == 0) | (2 * hits < n_al))
+        retried = (band[:, d] > 0) & (moved | clipped)
+        work = ((cell * cols).sum(1) + retried * (cell * ln).sum(1)
+                + 30 * slen)
+        work = torch.where(ring_fail, 0, work) + 2 * n * torch.log2(n)
+        n_ops += float((live * work).sum())
+    return bound(nbytes, n_ops)
+
+
+def fused_path(dev, paths, truth, draft, windows, report):
+    """Phase 9: the fused engine (K3, csrc/poa_fused.cu) on the contig
+    cell, at the full envelope (N 2048, L 640, P 8), pipeline depth 2:
+    `-c 1 --cudaaligner-batches 1 --cuda-engine fused` in-process at
+    `--cuda-fused 0` and `1`, at 5/-4/-8 (int32) and at the CLI's default
+    3/-5/-4 (int16). The two postures' FASTA must be byte-identical and
+    closer to the truth than the draft; K3 must launch once a chunk at 1
+    and at least once at 0, and its launched depths must cover each
+    chunk's deepest window. Then, per instantiation,
+    the deepest chunk's second chained call at full width is held
+    against the plain version on all 11 state arrays (and timed, with
+    its bound), the deepest chunk's whole fused launch on a slice of its
+    first 8 rows likewise, K3 is timed over every chunk at both postures
+    (CUDA events), and one fused consensus pass is traced. Returns (K1, K2 launches of the four
+    runs, by instantiation) and K3's kernel line entry."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.ops import poa_fused_kernels as fk
+    from racon_tpu_torch.ops.poa_fused import STATE, FusedPOA, fused_raw
+    from racon_tpu_torch.pipeline import DispatchPipeline
+
+    k1_all, k2_all, k3_runs = {}, {}, {}
+    k1_n = k2_n = 0
+    d_draft = edit_distance(draft, truth)
+    d_session = report["main_path"]["polished_distance"]
+    out: dict = {"runs": {}}
+    for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
+        fasta = {}
+        for fused in ("0", "1"):
+            _, polished, m = polish_once(paths, 2, scores=scores,
+                                           cuda_engine="fused",
+                                           cuda_fused=fused)
+            fasta[fused] = [(p.name, p.data) for p in polished]
+            d_pol = edit_distance(polished[0].data, truth)
+            name = f"{dtype} fused={fused}"
+            # K3's launched depths against each chunk's deepest window: at
+            # 1 one launch a chunk, at 0 one per chained call, and either
+            # way each chunk's depths cover its deepest window by less
+            # than the smallest depth bucket
+            want = m["k3_chunk_depths"]
+            post = "fused" if fused == "1" else "split"
+            got = m["k3_depths_launched"][post]
+            lo = m["k3_min_bucket"]
+            if fused == "1":
+                ok = len(got) == len(want) and all(
+                    0 <= g - w < lo for g, w in zip(got, want))
+            else:
+                ok = (len(got) >= len(want)
+                      and 0 <= sum(got) - sum(want) < lo * len(want))
+            if (m["k3_dtype"] != dtype or not ok
+                    or m["k3_launches"] != len(got)):
+                raise SystemExit(
+                    f"fused path {name}: K3 launched {m['k3_launches']} "
+                    f"times at {m['k3_dtype']} with {post} depths {got}; "
+                    f"the chunks' deepest windows are {want} at {dtype}")
+            if not d_pol < d_draft:
+                raise SystemExit(f"fused path {name}: distance {d_pol} not "
+                                 f"below the draft's {d_draft}")
+            m.update(polished_distance=d_pol, draft_distance=d_draft)
+            out["runs"][name] = m
+            k3_runs[name] = m["k3_launches"]
+            k1_n += m["k1_launches"]
+            k2_n += m["k2_launches"]
+            for src, dst in ((m["k1_launches_by_plan"], k1_all),
+                             (m["k2_launches_by_plan"], k2_all)):
+                for key, n in src.items():
+                    dst[key] = dst.get(key, 0) + n
+            log(f"[chip_smoke] fused path {name}: consensus "
+                f"{m['consensus_s']:.3f} s ({m['windows_per_s']:.1f} "
+                f"windows/s), K3 {m['k3_launches']} launches over "
+                f"{len(want)} chunks of {m['batch_rows']} rows (deepest "
+                f"windows {want} layers, depths launched {got}); windows "
+                f"built by K3 "
+                f"{m['windows_k3']}, left to the session engine "
+                f"{m['windows_k3_left']} (K1 {m['k1_launches']} launches), "
+                f"on the host {m['windows_host']}; distance {d_draft} -> "
+                f"{d_pol} (session engine {d_session}); card {card_info()}")
+            log_depth(f"fused path {name}", m)
+        if fasta["0"] != fasta["1"]:
+            raise SystemExit(f"fused path {dtype}: the FASTA at "
+                             f"--cuda-fused 0 and 1 differ")
+        log(f"[chip_smoke] fused path {dtype}: FASTA byte-identical at "
+            f"--cuda-fused 0 and 1")
+
+    # ---- K3 against its plain version, and timed, per instantiation
+    rows = []
+    t_phase = time.perf_counter()
+    for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
+        eng = FusedPOA(*scores, device=dev, fused="1")
+        order = eng._fused_order(windows)
+        chunks = [order[s:s + eng.B] for s in range(0, len(order), eng.B)]
+
+        def to_dev(arrays):
+            return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in arrays]
+
+        def launch(state, ops, done, B):
+            seqs, lens, wts, *slicing = ops
+            lb = torch.full((B,), done, dtype=torch.int32, device=dev)
+            return fk.fused_layers(tuple(state), seqs, lens, wts,
+                                   tuple(slicing), lb, *scores,
+                                   score_dtype=dtype)
+
+        # every chunk at both postures, K3 alone between CUDA events, and
+        # each chunk's bound (summed over its chained calls)
+        per_chunk = {"split": [], "fused": [], "bound": []}
+        for chunk in chunks:
+            plan = eng._chain_plan(max(len(windows[i]) - 1 for i in chunk))
+            st, calls = eng._pack_chunk(windows, chunk)
+            stf, opsf = eng._pack_chunk_fused(windows, chunk, sum(plan))
+            state = to_dev(st)
+            chunk_bound = 0.0
+            for d, o, done in calls:
+                o = to_dev(o)
+                chunk_bound += fused_bound(state, o, done, scores, dtype)[0]
+                state = launch(state, o, done, eng.B)
+            per_chunk["bound"].append(chunk_bound)
+            for post, st0, cl in (("split", st, calls),
+                                  ("fused", stf, [(sum(plan), opsf, 0)])):
+                state = to_dev(st0)
+                cl = [(d, to_dev(o), done) for d, o, done in cl]
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for d, o, done in cl:
+                    state = launch(state, o, done, eng.B)
+                b.record()
+                torch.cuda.synchronize()
+                per_chunk[post].append(a.elapsed_time(b))
+        # the deepest chunk's second chained call at full width (a layer
+        # base above 0: the insertion keys' salt path), from the state
+        # K3 leaves after the first
+        st, calls = eng._pack_chunk(windows, chunks[0])
+        if len(calls) < 2:
+            raise SystemExit(f"K3 {dtype}: the deepest chunk has "
+                             f"{len(calls)} chained call, want 2 or more")
+        _, ops0, _ = calls[0]
+        d1, ops1, done1 = calls[1]
+        state0 = launch(to_dev(st), to_dev(ops0), 0, eng.B)
+        ops = to_dev(ops1)
+        k_state = [t.clone() for t in state0]
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        k_state = launch(k_state, ops, done1, eng.B)
+        b.record()
+        torch.cuda.synchronize()
+        k_ms = a.elapsed_time(b)
+        t0 = time.perf_counter()
+        lb = torch.full((eng.B,), done1, dtype=torch.int32, device=dev)
+        p_state = fused_raw(eng.N, eng.L, d1, eng.P, *scores,
+                            score_dtype=dtype)(*state0, *ops, lb)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        for nm, x, y in zip(STATE, k_state, p_state):
+            if not torch.equal(x, y):
+                raise SystemExit(f"K3 {dtype}: {nm} differs from the plain "
+                                 f"version on the deepest chunk's second "
+                                 f"chained call")
+        bms, by = fused_bound(state0, ops, done1, scores, dtype)
+        held = [f"the deepest chunk's second chained call ({d1} layers "
+                f"from layer {done1} x {eng.B} rows)"]
+        # the deepest chunk's whole fused launch on a slice of its first
+        # 8 rows (all its rows would take the plain version many minutes)
+        first = chunks[0][:8]
+        rs = len(first)
+        eng8 = FusedPOA(*scores, device=dev, batch_rows=rs, fused="1")
+        D = sum(eng._chain_plan(max(len(windows[i]) - 1
+                                    for i in chunks[0])))
+        st8, ops8 = eng8._pack_chunk_fused(windows, first, D)
+        s8, o8 = to_dev(st8), to_dev(ops8)
+        k8 = launch([t.clone() for t in s8], o8, 0, rs)
+        t0 = time.perf_counter()
+        p8 = fused_raw(eng.N, eng.L, D, eng.P, *scores, score_dtype=dtype,
+                       device_slice=True)(
+            *s8, *o8, torch.zeros(rs, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        slice_ms = (time.perf_counter() - t0) * 1e3
+        for nm, x, y in zip(STATE, k8, p8):
+            if not torch.equal(x, y):
+                raise SystemExit(f"K3 {dtype}: {nm} differs from the "
+                                 f"plain version on the fused launch of "
+                                 f"the deepest chunk's first {rs} rows")
+        held.append(f"the deepest chunk's fused launch ({D} layers x "
+                    f"{rs} rows)")
+        row = {"plan": dtype, "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "held": held, "plain_slice_ms": slice_ms,
+               "chunk_ms_split": per_chunk["split"],
+               "chunk_ms_fused": per_chunk["fused"],
+               "chunk_bound_ms": per_chunk["bound"],
+               "rows": eng.B, "chunks": len(chunks)}
+        rows.append(row)
+        log(f"[chip_smoke] K3 {dtype} ({eng.B} rows a chunk, "
+            f"{len(chunks)} chunks): identical to the plain version on "
+            f"every state array of {' and '.join(held)}; the chained "
+            f"call {k_ms:.2f} ms (plain {p_ms:.0f} ms, bound {bms:.4f} ms by "
+            f"{by}); per chunk split {[round(x, 2) for x in per_chunk['split']]}"
+            f" ms, fused {[round(x, 2) for x in per_chunk['fused']]} ms "
+            f"(sums {sum(per_chunk['split']):.2f} / "
+            f"{sum(per_chunk['fused']):.2f} ms; bound "
+            f"{sum(per_chunk['bound']):.4f} ms); plain on the fused "
+            f"launch's slice {slice_ms:.0f} ms; card {card_info()}")
+    out["holds_s"] = time.perf_counter() - t_phase
+
+    # ---- one traced fused consensus pass (int32, posture 1, depth 2)
+    eng = FusedPOA(MATCH, MISMATCH, GAP, device=dev, fused="1",
+                   num_threads=os.cpu_count())
+    with DispatchPipeline(depth=2) as pl:
+        out["profile"] = profile_phase(
+            "fused consensus phase",
+            lambda: eng.consensus(windows, fallback=False, pipeline=pl),
+            "fused_kernel", "K3")
+    out["instantiations"] = rows
+    report["fused_path"] = out
+    k3 = sum(k3_runs.values())
+    for row in rows:
+        row["launches"] = sum(n for name, n in k3_runs.items()
+                              if name.startswith(row["plan"]))
+    main_row = rows[0]
+    entry = {"name": "poa_fused", "route": "cuda",
+             "source": "racon_tpu_torch/csrc/poa_fused.cu",
+             "replaces": "racon_tpu/ops/poa_fused.py:133",
+             "launches": k3, "max_abs_err": 0, "ms": main_row["ms"],
+             "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"],
+             "bound_by": main_row["bound_by"], "library_ms": None,
+             "launches_by_path": k3_runs,
+             "instantiations": [{k: r[k] for k in (
+                 "plan", "launches", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms")} for r in rows]}
+    return (k1_n, k1_all), (k2_n, k2_all), entry
 
 
 if __name__ == "__main__":

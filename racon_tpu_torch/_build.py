@@ -118,6 +118,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_poa_window_sweep.argtypes = [vp] * 11 + [i32] * 9 + [vp]
     lib.rt_poa_ring_rows.restype = i32
     lib.rt_poa_ring_rows.argtypes = [i32] * 5
+    lib.rt_poa_fused.restype = i32
+    lib.rt_poa_fused.argtypes = [vp] * 21 + [i32] * 11 + [vp]
+    lib.rt_poa_fused_smem.restype = i32
+    lib.rt_poa_fused_smem.argtypes = [i32] * 3
     lib.rt_align_wavefront.restype = i32
     lib.rt_align_wavefront.argtypes = [vp] * 8 + [i32] * 6 + [vp]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -6,7 +6,8 @@ upstream racon-gpu device flags (-c/--cudapoa-batches,
 -b/--cuda-banded-alignment), --device and --cuda-dtype, and the
 counterparts of the JAX CLI's pipeline and observability flags
 (--cuda-pipeline-depth, --cuda-trace, --cuda-metrics, --cuda-log-level,
---cuda-profile). Polished FASTA goes to stdout; errors print as
+--cuda-profile) and its device consensus engine flags (--cuda-engine,
+--cuda-fused). Polished FASTA goes to stdout; errors print as
 `[racon_tpu_torch::...] error: ...` on stderr with exit status 1.
 """
 
@@ -71,6 +72,19 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             use banding approximation for POA on the GPU: banded results
             are trusted as-is (the clipped-result full-DP retry is
             skipped), trading exact host-engine parity for speed
+        --cuda-engine <session|fused>
+            default: session
+            device consensus engine: per-layer evolving-graph session
+            (byte-identical to the host engine) or single-launch
+            whole-window fused (equal aggregate quality; rare tie-order
+            divergence possible on deep windows)
+        --cuda-fused <auto|0|1>
+            default: auto
+            fused-engine chunk dispatch: 1 = the single-launch fused
+            align->window-slice->POA program (device-side slicing, one
+            launch + one fetch per chunk), 0 = the split chained path,
+            auto = the split path (the port has no autotuner winner
+            table yet). Output is byte-identical in every mode
         --cudaaligner-batches <int>
             default: 0
             number of batches for GPU accelerated overlap alignment
@@ -141,6 +155,8 @@ def parse_args(argv: list[str]) -> dict | None:
         "metrics_path": None,
         "log_level": None,
         "profile_dir": None,
+        "cuda_engine": "session",
+        "cuda_fused": "auto",
         "paths": [],
     }
 
@@ -155,6 +171,20 @@ def parse_args(argv: list[str]) -> dict | None:
         if v not in ("auto", "int32", "int16"):
             print("racon_tpu_torch: --cuda-dtype must be 'auto', 'int32' or "
                   "'int16'", file=sys.stderr)
+            sys.exit(1)
+        return v
+
+    def _engine_choice(v: str) -> str:
+        if v not in ("session", "fused"):
+            print("racon_tpu_torch: --cuda-engine must be 'session' or "
+                  "'fused'", file=sys.stderr)
+            sys.exit(1)
+        return v
+
+    def _fused_choice(v: str) -> str:
+        if v not in ("0", "1", "auto"):
+            print("racon_tpu_torch: --cuda-fused must be '0', '1' or 'auto'",
+                  file=sys.stderr)
             sys.exit(1)
         return v
 
@@ -186,6 +216,8 @@ def parse_args(argv: list[str]) -> dict | None:
                   "cudaaligner-band-width": ("cuda_aligner_band_width", int),
                   "device": ("device", _device_choice),
                   "cuda-dtype": ("score_dtype", _dtype_choice),
+                  "cuda-engine": ("cuda_engine", _engine_choice),
+                  "cuda-fused": ("cuda_fused", _fused_choice),
                   "cuda-pipeline-depth": ("pipeline_depth", int),
                   "cuda-trace": ("trace_path", str),
                   "cuda-metrics": ("metrics_path", str),
@@ -311,7 +343,8 @@ def main(argv: list[str] | None = None) -> int:
             pipeline_depth=opts["pipeline_depth"],
             trace_path=opts["trace_path"],
             metrics_path=opts["metrics_path"],
-            log_level=opts["log_level"], profile_dir=opts["profile_dir"])
+            log_level=opts["log_level"], profile_dir=opts["profile_dir"],
+            cuda_engine=opts["cuda_engine"], cuda_fused=opts["cuda_fused"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:

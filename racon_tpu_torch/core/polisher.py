@@ -68,7 +68,9 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     trace_path: str | None = None,
                     metrics_path: str | None = None,
                     log_level: str | None = None,
-                    profile_dir: str | None = None) -> "Polisher":
+                    profile_dir: str | None = None,
+                    cuda_engine: str = "session", cuda_fused: str = "auto",
+                    fused_fallback: str = "session") -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
     POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
@@ -78,7 +80,11 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     by default: `trace_path` arms the process tracer, saved at the end
     of polish(); `metrics_path` receives the metrics snapshot as JSON;
     `log_level` sets the stderr level (quiet, info, debug); `profile_dir`
-    receives a torch.profiler capture of each device phase."""
+    receives a torch.profiler capture of each device phase. `cuda_engine`
+    picks the device consensus engine (session, or fused: the
+    whole-window engine), `cuda_fused` the fused engine's chunk posture
+    (auto, 0 split, 1 one launch per chunk) and `fused_fallback` who
+    builds the windows the fused engine leaves (session or host)."""
     if log_level is not None:
         set_log_level(log_level)
     if trace_path:
@@ -103,7 +109,7 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     gap, num_threads, cuda_poa_batches, cuda_banded_alignment,
                     cuda_aligner_batches, cuda_aligner_band_width, dev,
                     score_dtype, pack_bases, pipeline_depth, metrics_path,
-                    profile_dir)
+                    profile_dir, cuda_engine, cuda_fused, fused_fallback)
 
 
 class Polisher:
@@ -116,7 +122,9 @@ class Polisher:
                  cuda_aligner_band_width: int = 0, device="cuda",
                  score_dtype: str = "auto", pack_bases: bool = True,
                  pipeline_depth: int = 2, metrics_path: str | None = None,
-                 profile_dir: str | None = None):
+                 profile_dir: str | None = None,
+                 cuda_engine: str = "session", cuda_fused: str = "auto",
+                 fused_fallback: str = "session"):
         self.sparser = sparser
         self.oparser = oparser
         self.tparser = tparser
@@ -139,6 +147,9 @@ class Polisher:
         self.pipeline_depth = max(0, pipeline_depth)
         self.metrics_path = metrics_path
         self.profile_dir = profile_dir
+        self.cuda_engine = cuda_engine
+        self.cuda_fused = cuda_fused
+        self.fused_fallback = fused_fallback
         # per-chunk pipeline stage seconds and phase seconds as latency
         # distributions, and the stage counters both phases' pipelines
         # share
@@ -529,7 +540,9 @@ class Polisher:
                             banded=self.cuda_banded_alignment,
                             logger=self.logger, device=self.device,
                             score_dtype=self.score_dtype,
-                            pack_bases=self.pack_bases, pipeline=pipeline)
+                            pack_bases=self.pack_bases, pipeline=pipeline,
+                            engine=self.cuda_engine, fused=self.cuda_fused,
+                            fused_fallback=self.fused_fallback)
         t0 = time.perf_counter()
         with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
                            else None, "consensus"), pipeline:
@@ -546,8 +559,8 @@ class Polisher:
         if tr is not None:
             tr.complete("polisher.consensus", t0, t1,
                         {"windows": len(self.windows),
-                         "engine": "session" if self.cuda_poa_batches > 0
-                         else "host"})
+                         "engine": self.cuda_engine
+                         if self.cuda_poa_batches > 0 else "host"})
         if dt > 0 and self.windows:
             log_info(f"[racon_tpu_torch::Polisher.polish] consensus "
                      f"throughput: {len(self.windows) / dt:.1f} windows/s")

@@ -126,6 +126,11 @@ def get_lib() -> ctypes.CDLL:
                                               i64p, i32p]
         lib.rh_poa_session_free.restype = None
         lib.rh_poa_session_free.argtypes = [i64]
+        lib.rh_poa_finish_arrays.restype = i64
+        lib.rh_poa_finish_arrays.argtypes = [
+            i8p, i16p, i32p, i32p, i16p, i32p, i64,
+            i32, i32, i32, u8p, u32p, i64, i64p,
+        ]
         _lib = lib
     return _lib
 
@@ -291,6 +296,45 @@ class PoaSession:
             self.close()
         except Exception:
             pass
+
+
+def poa_finish_arrays(codes, preds, predw, nseq, col_of, colkey, n_nodes,
+                      n_threads: int = 1):
+    """Consensus + coverages from the fused engine's fetched graph arrays
+    (ops/poa_fused.py) through the exact host heaviest-bundle
+    (rh_poa_finish_arrays). Returns [(consensus bytes, coverages)] per
+    window. `colkey` is taken for the interface's symmetry: the columns
+    are grouped by col_of alone."""
+    lib = get_lib()
+    B, N = codes.shape
+    P = preds.shape[2]
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    preds = np.ascontiguousarray(preds, dtype=np.int16)
+    predw = np.ascontiguousarray(predw, dtype=np.int32)
+    nseq = np.ascontiguousarray(nseq, dtype=np.int32)
+    col_of = np.ascontiguousarray(col_of, dtype=np.int16)
+    n_nodes = np.ascontiguousarray(n_nodes, dtype=np.int32)
+    cons_cap = int(n_nodes.sum()) + 64 * B + 64
+    cons_off = np.empty(B + 1, dtype=np.int64)
+    i8, i16, i32 = ctypes.c_int8, ctypes.c_int16, ctypes.c_int32
+    u8, u32 = ctypes.c_uint8, ctypes.c_uint32
+    while True:
+        cons_data = np.empty(cons_cap, dtype=np.uint8)
+        cov_data = np.empty(cons_cap, dtype=np.uint32)
+        total = int(lib.rh_poa_finish_arrays(
+            _ptr(codes, i8), _ptr(preds, i16), _ptr(predw, i32),
+            _ptr(nseq, i32), _ptr(col_of, i16), _ptr(n_nodes, i32),
+            B, N, P, n_threads,
+            _ptr(cons_data, u8), _ptr(cov_data, u32), cons_cap,
+            _ptr(cons_off, ctypes.c_int64)))
+        if total >= 0:
+            break
+        cons_cap = -total
+    out = []
+    for w in range(B):
+        a, b = int(cons_off[w]), int(cons_off[w + 1])
+        out.append((cons_data[a:b].tobytes(), cov_data[a:b].copy()))
+    return out
 
 
 class SequenceFile:

@@ -1,18 +1,26 @@
 """Batched POA consensus over windows.
 
 The consensus role spoa (CPU) and GenomeWorks cudapoa (GPU) play in the
-reference. Two engines:
+reference. The engines:
 
   - host: the native C++ POA graph engine (racon_tpu_torch/native),
     threaded over windows — the spoa-equivalent path;
-  - device (`device_batches > 0`): the evolving-graph session engine
-    (ops/poa_graph.DeviceGraphPOA): the graph DP of every layer runs on
-    the device while the graph bookkeeping stays in the C++ session; the
-    consensus is byte-identical to the host engine's. Windows outside the
-    kernel's shape envelope are built by the host engine inside the
-    session and counted. The device engine runs each bucket at the score
-    dtype `score_dtype` resolves to under its overflow proof, and ships
-    all-ACGT batches 2-bit packed unless `pack_bases` is False.
+  - device (`device_batches > 0`), `engine="session"` (the default): the
+    evolving-graph session engine (ops/poa_graph.DeviceGraphPOA): the
+    graph DP of every layer runs on the device while the graph
+    bookkeeping stays in the C++ session; the consensus is
+    byte-identical to the host engine's. Windows outside the kernel's
+    shape envelope are built by the host engine inside the session and
+    counted. The device engine runs each bucket at the score dtype
+    `score_dtype` resolves to under its overflow proof, and ships
+    all-ACGT batches 2-bit packed unless `pack_bases` is False;
+  - device, `engine="fused"`: the whole-window engine
+    (ops/poa_fused.FusedPOA, the JAX package's `--tpu-engine fused`):
+    every layer of a chunk of windows in one device program, at the
+    chunk posture `fused` ('auto', '0' split, '1' one launch per chunk).
+    The windows it leaves (its envelope, or a window that failed on the
+    device) go to the session engine, or with `fused_fallback="host"` to
+    the host engine, and are counted and logged.
 
 The host engine runs its chunks through the dispatch pipeline
 (pipeline/): a pack worker builds chunk k+1's window lists while the
@@ -31,7 +39,7 @@ import torch
 from ..device import resolve
 from ..native import poa_batch
 from ..pipeline import DispatchPipeline
-from ..utils.logger import Logger
+from ..utils.logger import Logger, log_info
 
 
 class BatchPOA:
@@ -44,7 +52,14 @@ class BatchPOA:
                  logger: Logger | None = None,
                  device: str | torch.device = "cuda",
                  score_dtype: str = "auto", pack_bases: bool = True,
-                 pipeline=None):
+                 pipeline=None, engine: str = "session",
+                 fused: str = "auto", fused_fallback: str = "session"):
+        if engine not in ("session", "fused"):
+            raise ValueError(f"device engine {engine!r}: want 'session' or "
+                             f"'fused'")
+        if fused_fallback not in ("session", "host"):
+            raise ValueError(f"fused fallback {fused_fallback!r}: want "
+                             f"'session' or 'host'")
         self.match = match
         self.mismatch = mismatch
         self.gap = gap
@@ -59,12 +74,21 @@ class BatchPOA:
         self.device = resolve(device) if device_batches > 0 else None
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
-        #: the host chunk loop's DispatchPipeline (None: synchronous)
+        #: the host chunk loop's and the fused engine's DispatchPipeline
+        #: (None: synchronous)
         self.pipeline = pipeline
-        #: per-window outcome counts of the last pass
+        self.engine_name = engine
+        self.fused = fused
+        self.fused_fallback = fused_fallback
+        #: per-window outcome counts of the last pass: on the device (the
+        #: fused engine's and the session engine's), on the host, and
+        #: backbone-only; n_fused of n_device came from the fused engine
         self.n_device = 0
         self.n_host = 0
         self.n_backbone = 0
+        self.n_fused = 0
+        #: the device engine of the last pass (the fused engine when it
+        #: ran, else the session engine)
         self.engine = None
 
     def generate_consensus(self, windows, trim: bool) -> None:
@@ -112,21 +136,66 @@ class BatchPOA:
                describe=lambda c: {"engine": "host", "jobs": len(c)})
         self.n_host = len(todo)
 
-    def _device_consensus(self, todo, trim) -> None:
-        from .poa_graph import DeviceGraphPOA, log_session_stats
+    def _session(self):
+        from .poa_graph import DeviceGraphPOA
 
-        self.engine = DeviceGraphPOA(
+        return DeviceGraphPOA(
             self.match, self.mismatch, self.gap, device=self.device,
             num_threads=self.num_threads, logger=self.logger,
             banded_only=self.banded_only, score_dtype=self.score_dtype,
             pack_bases=self.pack_bases)
-        results, statuses = self.engine.consensus([_pack(w) for w in todo])
+
+    def _device_consensus(self, todo, trim) -> None:
+        from .poa_graph import log_session_stats
+
+        packed = [_pack(w) for w in todo]
+        if self.engine_name == "fused":
+            results, statuses = self._fused_consensus(packed)
+        else:
+            self.engine = self._session()
+            results, statuses = self.engine.consensus(packed)
+            log_session_stats(self.engine.last_stats, statuses,
+                              self.engine.batches_by_plan)
         for w, (cons, cov) in zip(todo, results):
             w.apply_trim(cons, cov, trim)
         self.n_device = int((statuses == 0).sum())
         self.n_host = int((statuses == 1).sum())
-        log_session_stats(self.engine.last_stats, statuses,
-                          self.engine.batches_by_plan)
+
+    def _fused_consensus(self, packed):
+        """The fused engine over every window, then the windows it left
+        through the session engine (or, with fused_fallback="host", the
+        host engine inside the fused engine)."""
+        from .poa_fused import FusedPOA
+        from .poa_graph import log_session_stats
+
+        to_host = self.fused_fallback == "host"
+        fused = self.engine = FusedPOA(
+            self.match, self.mismatch, self.gap, device=self.device,
+            num_threads=self.num_threads, logger=self.logger,
+            banded_only=self.banded_only, fused=self.fused,
+            score_dtype=self.score_dtype)
+        results, statuses = fused.consensus(packed, fallback=to_host,
+                                            pipeline=self.pipeline)
+        self.n_fused = int((statuses == 0).sum())
+        fs = fused.last_stats
+        log_info(f"[racon_tpu_torch::BatchPOA] fused engine built "
+                 f"{self.n_fused} windows at {fused.score_dtype} "
+                 f"({fs['chunks']} chunks, {fs['launches']} device "
+                 f"launches, {fs['fused_chunks']} of them one launch per "
+                 f"chunk; pack {fs['pack_s']:.2f}s, device "
+                 f"{fs['device_s']:.2f}s, finalize {fs['unpack_s']:.2f}s); "
+                 f"{fused.n_fallback} to {'host' if to_host else 'session'}"
+                 f" engine")
+        rest = [i for i, r in enumerate(results) if r is None]
+        if rest:
+            session = self._session()
+            sub_res, sub_st = session.consensus([packed[i] for i in rest])
+            log_session_stats(session.last_stats, sub_st,
+                              session.batches_by_plan)
+            for i, r, st in zip(rest, sub_res, sub_st):
+                results[i] = r
+                statuses[i] = st
+        return results, statuses
 
 
 def _pack(w):

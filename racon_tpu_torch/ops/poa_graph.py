@@ -52,6 +52,11 @@ MAX_NODES = 2048
 MAX_LEN = 640
 MAX_PRED = 8
 
+#: the fused engine's fail rule (ops/poa_fused.py): a window whose
+#: predecessor lies more than RING topological ranks back leaves the
+#: device, as the JAX fused program's DP ring of RING rows demands
+RING = 128
+
 #: the (nodes, len) bucket grid every job shape is padded up into
 BUCKETS = ((320, 256), (768, 640), (1280, 640), (MAX_NODES, MAX_LEN))
 

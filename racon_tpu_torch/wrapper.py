@@ -7,7 +7,8 @@ chunks, then polish chunk by chunk so peak memory stays bounded; with
 --num-shards/--shard-id, polish only one contiguous block of the chunks.
 The port's copy of the JAX package's wrapper, byte for byte in its
 output, with the port CLI's device flags (-c/--cudapoa-batches,
---cudaaligner-batches, -b/--cuda-banded-alignment, --device, --cuda-dtype).
+--cudaaligner-batches, -b/--cuda-banded-alignment, --device, --cuda-dtype,
+--cuda-engine, --cuda-fused).
 
 Differences from the reference, both deliberate:
   - rampler is the in-package racon_tpu_torch.rampler (no external
@@ -45,7 +46,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
         gap: int = -8, threads: int = 1, cuda_poa_batches: int = 0,
         cuda_aligner_batches: int = 0, cuda_banded_alignment: bool = False,
         device: str = "cuda", num_shards: int = 1, shard_id: int = 0,
-        out=None, score_dtype: str = "auto") -> list:
+        out=None, score_dtype: str = "auto", cuda_engine: str = "session",
+        cuda_fused: str = "auto") -> list:
     """Polish `target_sequences`, optionally subsampled/split, writing
     FASTA to `out` (default stdout). Returns the chunks' polishers, their
     data freed, for their counters and phase walls.
@@ -101,7 +103,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
                 window_length, quality_threshold, error_threshold, True,
                 match, mismatch, gap, threads, cuda_poa_batches,
                 cuda_banded_alignment, cuda_aligner_batches, device=dev,
-                score_dtype=score_dtype)
+                score_dtype=score_dtype, cuda_engine=cuda_engine,
+                cuda_fused=cuda_fused)
             polisher.initialize()
             for seq in polisher.polish(not include_unpolished):
                 out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")
@@ -153,6 +156,16 @@ def main(argv: list[str] | None = None) -> int:
                              "proof holds (half the DP bytes, bit-identical "
                              "results), int32 forces the wide oracle "
                              "everywhere")
+    parser.add_argument("--cuda-engine", choices=("session", "fused"),
+                        default="session",
+                        help="device consensus engine: per-layer "
+                             "evolving-graph session or single-launch "
+                             "whole-window fused")
+    parser.add_argument("--cuda-fused", choices=("auto", "0", "1"),
+                        default="auto",
+                        help="fused-engine chunk dispatch: 1 = one launch "
+                             "per chunk (device-side slicing), 0 = the "
+                             "split chained path, auto = the split path")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="file-level scatter over the --split chunks: "
                              "total shards of this workload (cat shard "
@@ -175,7 +188,8 @@ def main(argv: list[str] | None = None) -> int:
             cuda_aligner_batches=args.cudaaligner_batches,
             cuda_banded_alignment=args.cuda_banded_alignment,
             device=args.device, num_shards=args.num_shards,
-            shard_id=args.shard_id, score_dtype=args.cuda_dtype)
+            shard_id=args.shard_id, score_dtype=args.cuda_dtype,
+            cuda_engine=args.cuda_engine, cuda_fused=args.cuda_fused)
     except RaconError as exc:
         print(str(exc), file=sys.stderr)
         return 1

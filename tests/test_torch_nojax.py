@@ -2,7 +2,8 @@
 where importing jax fails, racon_tpu_torch polishes a tiny dataset on the
 CPU through both device paths (at the default score-dtype posture, through
 the dispatch pipeline at depth 2 with a span trace and a metrics dump,
-and at int16), packs and unpacks bases and resolves a score dtype with its own
+at int16, and with the fused consensus engine at both chunk postures,
+its kernel wrapper and host finalizer loaded), packs and unpacks bases and resolves a score dtype with its own
 copies of the JAX package's encode and dtypes modules, corrects a tiny
 read set with -f (both device paths) and through the wrapper (split into
 chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
@@ -51,6 +52,11 @@ assert {"pipeline.pack", "pipeline.device", "pipeline.unpack",
 assert json.load(open(os.path.join(obs, "m.json")))["pipeline"]["chunks"] >= 1
 assert run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
                       "1", "--cuda-dtype", "int16", *paths]) == fasta
+fused = [run(cli.main, ["--device", "cpu", "-c", "1", "--cuda-engine",
+                         "fused", "--cuda-fused", f, *paths]) for f in "01"]
+assert fused[0] == fused[1] and fused[0].startswith(b">draft LN:i:")
+assert {"racon_tpu_torch.ops.poa_fused",
+        "racon_tpu_torch.ops.poa_fused_kernels"} <= set(sys.modules)
 from racon_tpu_torch.ops import dtypes, encode
 assert dtypes.resolve_dtype(dtypes.poa_int16_ok(768, 640, 5, -4, -8)) \
     == "int16"
