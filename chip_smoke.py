@@ -99,8 +99,14 @@ mismatch or exception exits non-zero:
      (128 rows) is held against the plain version on all 11 state
      arrays and timed against its bound, and the deepest chunk's whole
      fused launch on a slice of its first 8 rows is held likewise; K3 is
-     timed per chunk at both postures (CUDA events) and one fused
-     consensus pass is traced (K3's device time, the device busy share).
+     timed per chunk at both postures (CUDA events) and by stage (sort,
+     range subgraph, DP, traceback, scans, writes; rows swept a layer, ns
+     a DP row) on the deepest chunk's fused launch and the held chained
+     call, from a diagnostic build of its source (K3_STAGE_CLOCKS); two
+     fused consensus passes of one engine are traced (K3's device time,
+     the device busy share; its first pass, and its second with the
+     streams and K3 scratch it keeps), each with its cudaMalloc calls and
+     the memory reserved after it.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
@@ -211,6 +217,7 @@ def main() -> int:
                                    "rt_poa_window_sweep", 11, 9)
     notb2 = build_without_traceback("align_wavefront.cu",
                                     "rt_align_wavefront", 8, 6)
+    k3stg = build_k3_stages()
     _build.kernels()
     k_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -247,7 +254,8 @@ def main() -> int:
     profile_consensus(dev, windows, report)
     profile_align(dev, overlap_pairs(draft, reads, paf), report)
     fragment = fragment_path(dev, truth, reads_t, workdir, report)
-    k1f, k2f, k3 = fused_path(dev, big, truth, draft, windows, report)
+    k1f, k2f, k3 = fused_path(dev, big, truth, draft, windows, report,
+                              k3stg)
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused"), paths))
         k["launches"] = sum(n for n, _ in paths)
@@ -1318,13 +1326,15 @@ def n_base_path(dev, workdir, report):
 
 
 def profile_phase(label: str, run, kernel: str, short: str,
-                  prefix: str | None = None) -> dict:
+                  prefix: str | None = None,
+                  count: str | None = None) -> dict:
     """One torch.profiler pass over `run()`: the summed device time of the
     kernel whose name holds `kernel`, the streams it ran on (from the
     capture's Chrome trace), the device's busy share of the host-clocked
     wall (the union of its kernel and copy intervals), the five host-side
-    ranges with the longest summed time, and with `prefix` the summed
-    time and calls of every host range whose name starts with it."""
+    ranges with the longest summed time, with `prefix` the summed time
+    and calls of every host range whose name starts with it, and with
+    `count` the calls and summed time of the host event of that name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1360,6 +1370,8 @@ def profile_phase(label: str, run, kernel: str, short: str,
                 and k.device_type == DeviceType.CPU):
             named[k.key] = named.get(k.key, 0.0) + k.cpu_time_total / 1e3
             calls[k.key] = calls.get(k.key, 0) + k.count
+    counted = [k for k in prof.key_averages()
+               if count and k.key == count and k.device_type == DeviceType.CPU]
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -1385,7 +1397,9 @@ def profile_phase(label: str, run, kernel: str, short: str,
             "device_busy_ms": busy_us / 1e3, "device_busy_share": share,
             "host_ranges": [{"name": n, "ms": us / 1e3, "calls": c}
                             for us, n, c in host], "ranges_ms": named,
-            "range_calls": calls}
+            "range_calls": calls,
+            "count_calls": sum(k.count for k in counted),
+            "count_ms": sum(k.cpu_time_total for k in counted) / 1e3}
 
 
 def profile_consensus(dev, windows, report) -> None:
@@ -1759,6 +1773,99 @@ def fragment_path(dev, truth, reads, workdir, report):
 
 
 
+#: K3's stages as its diagnostic build counts them (the first six slots of
+#: each block's [16] i64 record; then rows swept, DP passes, layers run and
+#: the block's total cycles at 6..9)
+K3_STAGES = ("sort", "range", "dp", "traceback", "scans", "writes")
+
+
+def build_k3_stages():
+    """Start nvcc on csrc/poa_fused.cu with K3_STAGE_CLOCKS defined: the
+    diagnostic build, whose entry rt_poa_fused_stages takes a [B, 16] i64
+    tensor first and writes each block's clock64() cycles per stage into
+    it. The production build never defines the macro. Returns what
+    load_without_traceback needs."""
+    from racon_tpu_torch import _build
+
+    d = os.path.join(HERE, "build", "scratch")
+    os.makedirs(d, exist_ok=True)
+    lib = os.path.join(d, f"libpoa_fused_stages-{os.getpid()}.so")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DK3_STAGE_CLOCKS", "-shared",
+         "-o", lib, os.path.join(_build.CSRC, "poa_fused.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib, "rt_poa_fused_stages", 22, 11
+
+
+def k3_stage_split(fn, state, ops, done, scores, dtype) -> dict:
+    """One launch of K3's diagnostic build (`fn`) on a copy of `state`
+    with one call's operands (either posture), timed with CUDA events
+    (not counted as a K3 launch). Returns the deepest block's (the most
+    cycles) cycles and share per stage, its rows swept per layer and ns
+    per DP row (its DP cycles over its rows at its clock: its total
+    cycles over the launch's time), and the shares summed over all
+    blocks."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.ops import poa_fused_kernels as fk
+
+    seqs, lens, wts, *slicing = ops
+    B, N, P = state[1].shape
+    D, L = seqs.shape[1], seqs.shape[2]
+    dev = seqs.device
+    st = [t.clone() for t in state]
+    stg = torch.zeros((B, 16), dtype=torch.int64, device=dev)
+    lb = torch.full((B,), done, dtype=torch.int32, device=dev)
+    scratch = fk.scratch(B, N, L, dev, dtype)
+    sliced = len(slicing) == 4
+    ptrs = [t.data_ptr() for t in (*st, seqs, lens, wts, *slicing)]
+    if not sliced:
+        ptrs.append(None)
+    ptrs += [lb.data_ptr()] + [t.data_ptr() for t in scratch]
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rc = fn(stg.data_ptr(), *ptrs, B, N, L, D, P, *scores, 0,
+            2 if dtype == "int16" else 4, int(sliced),
+            torch.cuda.current_stream(dev).cuda_stream)
+    b.record()
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"K3 stage build {dtype}: launch returned {rc}")
+    ms = a.elapsed_time(b)
+    c = stg.cpu().numpy().astype(np.float64)
+    deep = int(c[:, 9].argmax())
+    row = c[deep]
+    ghz = row[9] / (ms * 1e6)
+    tot = row[:len(K3_STAGES)].sum()
+    tot_all = c[:, :len(K3_STAGES)].sum()
+    return {
+        "ms": ms, "block": deep, "ghz": ghz,
+        "cycles": {s: int(row[i]) for i, s in enumerate(K3_STAGES)},
+        "share": {s: row[i] / tot for i, s in enumerate(K3_STAGES)},
+        "share_all_blocks": {s: c[:, i].sum() / tot_all
+                             for i, s in enumerate(K3_STAGES)},
+        "rows": int(row[6]), "dp_passes": int(row[7]),
+        "layers": int(row[8]),
+        "rows_per_layer": row[6] / max(row[8], 1),
+        "ns_per_row": row[2] / max(row[6], 1) / ghz,
+        "ms_per_layer": ms / max(row[8], 1)}
+
+
+def log_stage_split(label: str, sp: dict) -> None:
+    log(f"[chip_smoke] K3 stage split, {label}: {sp['ms']:.2f} ms; deepest "
+        f"block {sp['block']}: " + ", ".join(
+            f"{s} {100 * sp['share'][s]:.1f}%" for s in K3_STAGES)
+        + f"; {sp['layers']} layers, {sp['dp_passes']} DP passes, "
+        f"{sp['rows_per_layer']:.0f} rows swept a layer, "
+        f"{sp['ns_per_row']:.0f} ns a DP row at {sp['ghz']:.2f} GHz, "
+        f"{sp['ms_per_layer']:.2f} ms a layer; all blocks: " + ", ".join(
+            f"{s} {100 * sp['share_all_blocks'][s]:.1f}%"
+            for s in K3_STAGES))
+
+
 def fused_bound(state, ops, done, scores, dtype) -> tuple[float, str]:
     """Least time the card needs for one K3 call on the split posture
     (the chunk's state, the call's operands (seqs, lens, wts, rlo, rhi,
@@ -1844,7 +1951,7 @@ def fused_bound(state, ops, done, scores, dtype) -> tuple[float, str]:
     return bound(nbytes, n_ops)
 
 
-def fused_path(dev, paths, truth, draft, windows, report):
+def fused_path(dev, paths, truth, draft, windows, report, k3stg):
     """Phase 9: the fused engine (K3, csrc/poa_fused.cu) on the contig
     cell, at the full envelope (N 2048, L 640, P 8), pipeline depth 2:
     `-c 1 --cudaaligner-batches 1 --cuda-engine fused` in-process at
@@ -1857,8 +1964,10 @@ def fused_path(dev, paths, truth, draft, windows, report):
     against the plain version on all 11 state arrays (and timed, with
     its bound), the deepest chunk's whole fused launch on a slice of its
     first 8 rows likewise, K3 is timed over every chunk at both postures
-    (CUDA events), and one fused consensus pass is traced. Returns (K1, K2 launches of the four
-    runs, by instantiation) and K3's kernel line entry."""
+    (CUDA events) and by stage (`k3stg`: the diagnostic build started by
+    build_k3_stages), and two fused consensus passes of one engine are
+    traced. Returns (K1, K2 launches of the four runs, by instantiation)
+    and K3's kernel line entry."""
     import numpy as np
     import torch
 
@@ -1932,6 +2041,7 @@ def fused_path(dev, paths, truth, draft, windows, report):
             f"--cuda-fused 0 and 1")
 
     # ---- K3 against its plain version, and timed, per instantiation
+    stage_fn = load_without_traceback(k3stg)
     rows = []
     t_phase = time.perf_counter()
     for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
@@ -2032,11 +2142,23 @@ def fused_path(dev, paths, truth, draft, windows, report):
                 raise SystemExit(f"K3 {dtype}: {nm} differs from the "
                                  f"plain version on the fused launch of "
                                  f"the deepest chunk's first {rs} rows")
+        # K3's time by stage (its diagnostic build) on the deepest chunk's
+        # whole fused launch at full width and on the held chained call
+        stages = {}
+        stf0, opsf0 = eng._pack_chunk_fused(windows, chunks[0], D)
+        for what, st0, o, done in (
+                ("fused", to_dev(stf0), to_dev(opsf0), 0),
+                ("chained", state0, ops, done1)):
+            stages[what] = k3_stage_split(stage_fn, st0, o, done, scores,
+                                          dtype)
+            log_stage_split(f"{dtype}, the deepest chunk's "
+                            + ("fused launch" if what == "fused" else
+                               "second chained call"), stages[what])
         held.append(f"the deepest chunk's fused launch ({D} layers x "
                     f"{rs} rows)")
         row = {"plan": dtype, "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": bms, "bound_by": by, "library_ms": None,
-               "held": held, "plain_slice_ms": slice_ms,
+               "held": held, "plain_slice_ms": slice_ms, "stages": stages,
                "chunk_ms_split": per_chunk["split"],
                "chunk_ms_fused": per_chunk["fused"],
                "chunk_bound_ms": per_chunk["bound"],
@@ -2054,14 +2176,29 @@ def fused_path(dev, paths, truth, draft, windows, report):
             f"launch's slice {slice_ms:.0f} ms; card {card_info()}")
     out["holds_s"] = time.perf_counter() - t_phase
 
-    # ---- one traced fused consensus pass (int32, posture 1, depth 2)
+    # ---- traced fused consensus passes (int32, posture 1, depth 2): a
+    # fresh engine's first pass, then its second (the engine keeps its
+    # streams and K3's scratch for the run), each with its cudaMalloc
+    # calls and the memory the caching allocator holds after it
     eng = FusedPOA(MATCH, MISMATCH, GAP, device=dev, fused="1",
                    num_threads=os.cpu_count())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with DispatchPipeline(depth=2) as pl:
-        out["profile"] = profile_phase(
-            "fused consensus phase",
-            lambda: eng.consensus(windows, fallback=False, pipeline=pl),
-            "fused_kernel", "K3")
+        for what in ("profile", "profile_warm"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            out[what] = prof = profile_phase(
+                f"fused consensus phase ({what})",
+                lambda: eng.consensus(windows, fallback=False, pipeline=pl),
+                "fused_kernel", "K3", count="cudaMalloc")
+            prof["reserved_bytes"] = torch.cuda.memory_reserved(dev)
+            prof["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(
+                dev)
+            log(f"[chip_smoke] fused consensus phase ({what}): "
+                f"{prof['count_calls']} cudaMalloc calls "
+                f"({prof['count_ms']:.2f} ms), {prof['reserved_bytes']} "
+                f"bytes reserved after it, peak "
+                f"{prof['peak_reserved_bytes']}")
     out["instantiations"] = rows
     report["fused_path"] = out
     k3 = sum(k3_runs.values())

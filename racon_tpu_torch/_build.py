@@ -122,6 +122,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_poa_fused.argtypes = [vp] * 21 + [i32] * 11 + [vp]
     lib.rt_poa_fused_smem.restype = i32
     lib.rt_poa_fused_smem.argtypes = [i32] * 3
+    lib.rt_poa_fused_scratch.restype = ctypes.c_longlong
+    lib.rt_poa_fused_scratch.argtypes = [i32] * 3
     lib.rt_align_wavefront.restype = i32
     lib.rt_align_wavefront.argtypes = [vp] * 8 + [i32] * 6 + [vp]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -555,6 +555,32 @@ class FusedPOA:
             self._code_of[b] = i
         self.last_stats: dict = {}
         self.n_fallback = 0
+        # CUDA streams, kept for the engine's life, and K3 scratch, one per
+        # stream, kept for a consensus pass
+        self._streams: list = []
+        self._scratch: dict = {}
+
+    def _stream_pool(self, n: int):
+        """The engine's first n CUDA streams (created once, kept for the
+        run), or None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        while len(self._streams) < n:
+            self._streams.append(torch.cuda.Stream(self.device))
+        return self._streams[:n]
+
+    def _scratch_of(self, i: int):
+        """K3's scratch for stream i, allocated at its first use in a
+        consensus pass (on that stream) and kept until the pass ends;
+        None on the CPU."""
+        from .poa_fused_kernels import scratch
+
+        if self.device.type != "cuda":
+            return None
+        if i not in self._scratch:
+            self._scratch[i] = scratch(self.B, self.N, self.L, self.device,
+                                       self.score_dtype)
+        return self._scratch[i]
 
     def _fused_plan(self, plan) -> bool:
         """One fused launch for a chunk whose chain plan is `plan`? Only
@@ -719,8 +745,11 @@ class FusedPOA:
         call, or once on the fused posture) and the copies of the state
         back, `wait` blocks on the chunk's event, `unpack` runs the host
         heaviest-bundle. On a card each chunk in flight runs on its own
-        CUDA stream, from a pool of depth + 2. Omitted, the stages run
-        synchronously (depth 0). A device error raises.
+        CUDA stream, from the engine's pool of depth + 2 (kept for the
+        engine's life), each stream with its own K3 scratch (kept for the
+        pass: freed at its end, its blocks stay cached on the stream for
+        the next pass). Omitted, the stages run synchronously (depth 0).
+        A device error raises.
         """
         from ..native import poa_batch
         from ..pipeline import DispatchPipeline
@@ -758,9 +787,7 @@ class FusedPOA:
                                       self.match, self.mismatch, self.gap,
                                       n_threads=fb_threads))
 
-        streams = ([torch.cuda.Stream(self.device)
-                    for _ in range(pl.depth + 2)]
-                   if self.device.type == "cuda" else None)
+        streams = self._stream_pool(pl.depth + 2)
 
         def on_stream(k):
             if streams is None:
@@ -790,13 +817,15 @@ class FusedPOA:
             with record_function("fused.kernel"), on_stream(k), \
                     trace.span("fused.dispatch", engine="fused",
                                jobs=len(chunk), calls=len(calls)):
+                scratch = (self._scratch_of(k % len(streams))
+                           if streams is not None else None)
                 for _, ops, _ in calls:
                     seqs, lens, wts, *slicing, lbase = ops
                     state = fused_layers(
                         tuple(state), seqs, lens, wts, tuple(slicing), lbase,
                         self.match, self.mismatch, self.gap,
                         banded_only=self.banded_only,
-                        score_dtype=self.score_dtype)
+                        score_dtype=self.score_dtype, scratch=scratch)
                 pl.stats.bump("launches", len(calls))
                 stats["fused_chunks"] += fused
                 if streams is None:
@@ -845,6 +874,7 @@ class FusedPOA:
                     results[i] = r
                     statuses[i] = 1
         finally:
+            self._scratch.clear()
             if own_pipeline:
                 pl.close()
 

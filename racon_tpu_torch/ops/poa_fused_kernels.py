@@ -9,7 +9,9 @@ the device (the fused posture), and the per-row layer-index base. On a
 CUDA tensor it launches K3 at score dtype `score_dtype`, which updates
 the state tensors in place, and raises if the build or the launch fails;
 on a CPU tensor it runs the plain PyTorch version (poa_fused.fused_raw).
-Either way it returns the state tuple.
+Either way it returns the state tuple. `scratch` (from `scratch()`) lets
+a caller keep K3's device scratch for a run, one per stream; the CPU
+path ignores it.
 
 `launches` counts kernel launches, and nothing else; `launches_by_shape`
 splits the same count by (N, L, D, score dtype, sliced).
@@ -30,10 +32,15 @@ from .poa_graph import RING
 launches = 0
 launches_by_shape: dict[tuple[int, int, int, str, bool], int] = {}
 
-#: the kernel's limits: the sort key keeps the node id in 11 bits, and a
-#: node holds at most 8 predecessor slots
+#: the kernel's limits: the sort key keeps the node id in 11 bits, a
+#: node holds at most 8 predecessor slots, and a thread at most 5 of a
+#: row's 128 x 5 columns
 MAX_NODES = 2048
 MAX_PRED = 8
+MAX_LEN = 640
+
+#: spill row stride bound of a band-256 row (csrc/poa_fused.cu kBandCols)
+_BAND_COLS = 272
 
 #: shared memory a block may take on Hopper
 _MAX_SMEM = 232_448
@@ -51,11 +58,20 @@ def reset_launches() -> None:
 
 def scratch(B: int, N: int, L: int, dev, score_dtype: str = "int32"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's device-memory scratch: each window's DP ring of RING + 1 rows
-    at the score dtype and its int8 backpointers, one row per node."""
+    """K3's device-memory scratch (csrc/poa_fused.cu spill_cells, lw_of):
+    a band-compact score spill per window at the score dtype, every row
+    of a banded DP at its window's width (at most 257 columns, rows
+    16-byte aligned) or the last RING rows of a full one, and int8
+    backpointers, one row of up to L columns (rounded up to 16) per
+    node."""
     dt = torch.int16 if score_dtype == "int16" else torch.int32
-    return (torch.empty((B, RING + 1, L + 1), dtype=dt, device=dev),
-            torch.empty((B, N, L + 1), dtype=torch.int8, device=dev))
+    lw = (L + 15) // 16 * 16
+    return (torch.empty((B, max(N * _BAND_COLS, RING * lw)), dtype=dt,
+                        device=dev),
+            torch.empty((B, N, lw), dtype=torch.int8, device=dev))
+
+
+_scratch = scratch  # fused_layers' argument of the same name hides it
 
 
 def smem_bytes(N: int, L: int, P: int) -> int:
@@ -66,10 +82,12 @@ def smem_bytes(N: int, L: int, P: int) -> int:
 
 def fused_layers(state, seqs, lens, wts, slicing, lbase, match: int,
                  mismatch: int, gap: int, banded_only: bool = False,
-                 score_dtype: str = "int32"):
+                 score_dtype: str = "int32", scratch=None):
     """All D layers of one chained call (or, with a 4-tuple `slicing`,
-    of one fused launch) against the chunk's graph state. Returns the
-    state tuple."""
+    of one fused launch) against the chunk's graph state. `scratch`: a
+    (spill, bps) pair from `scratch()` at this shape and score dtype on
+    the state's device, reused (the caller keeps one per stream), or None
+    to allocate one. Returns the state tuple."""
     global launches
     B, N, P = state[1].shape
     _, D, L = seqs.shape
@@ -102,10 +120,11 @@ def fused_layers(state, seqs, lens, wts, slicing, lbase, match: int,
     if any(tuple(t.shape) != s for t, s in zip(args, shapes)):
         raise DeviceError("fused_layers", "inconsistent state or layer "
                                           "shapes")
-    if N > MAX_NODES or P > MAX_PRED:
+    if N > MAX_NODES or P > MAX_PRED or L > MAX_LEN:
         raise DeviceError("fused_layers",
-                          f"{N} nodes or in-degree {P} beyond the kernel's "
-                          f"limits ({MAX_NODES}, {MAX_PRED})")
+                          f"{N} nodes, in-degree {P} or length {L} beyond "
+                          f"the kernel's limits ({MAX_NODES}, {MAX_PRED}, "
+                          f"{MAX_LEN})")
     if score_dtype not in ("int32", "int16") or (
             score_dtype == "int16"
             and not poa_int16_ok(N, L, match, mismatch, gap)):
@@ -118,15 +137,25 @@ def fused_layers(state, seqs, lens, wts, slicing, lbase, match: int,
                           f"block may hold")
     if B == 0 or D == 0:
         return state
-    ring, bps = scratch(B, N, L, dev, score_dtype)
+    if scratch is None:
+        scratch = _scratch(B, N, L, dev, score_dtype)
+    spill, bps = scratch
     lib = _build.kernels()
+    want_dt = torch.int16 if score_dtype == "int16" else torch.int32
+    if (spill.dtype != want_dt or bps.dtype != torch.int8
+            or spill.device != dev or bps.device != dev
+            or not spill.is_contiguous() or not bps.is_contiguous()
+            or tuple(spill.shape) != (B, lib.rt_poa_fused_scratch(N, L, 0))
+            or tuple(bps.shape) != (B, N, lib.rt_poa_fused_scratch(N, L, 1))):
+        raise DeviceError("fused_layers", "scratch: want scratch(B, N, L, "
+                                          "device, score_dtype)")
     ptrs = [t.data_ptr() for t in args]
     if not sliced:
         ptrs.insert(-1, None)  # the fourth slicing operand: offs only
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rt_poa_fused(
-            *ptrs, ring.data_ptr(), bps.data_ptr(), B, N, L, D, P, match,
+            *ptrs, spill.data_ptr(), bps.data_ptr(), B, N, L, D, P, match,
             mismatch, gap, int(banded_only),
             2 if score_dtype == "int16" else 4, int(sliced), stream)
     _build.check(lib, rc, "fused_layers")

@@ -9,8 +9,16 @@ device), from the same windows packed by each package's own packer:
 spanning windows with a rotated adversarial layer, non-spanning layers
 (the bpos-range subgraph), a layer that trips the band-clip retry, a
 deep window chained over several calls with their layer-index salts, a
-node envelope that overflows (`failed`), and windows of mixed sizes in
-one batch. tests/test_torch_fused_poa16.py runs the same cases at int16.
+node envelope that overflows (`failed`), windows of mixed sizes in one
+batch, and the edges the kernel's design leans on: a predecessor exactly
+RING (128) ranks back, which passes, and one 129 back, which fails the
+ring rule; a full-DP retry at a layer length equal to the engine's L
+(the widest ring row); a graph that ends two nodes short of N beside
+one that overflows it (the sort of the live nodes only). A predecessor
+later in rank order cannot be built at test size: it needs two columns
+with one key, and insertion keys only repeat across layers 256 apart
+(the salt) between the same neighbours.
+tests/test_torch_fused_poa16.py runs the same cases at int16.
 The port's `poa_finish_arrays` binding gives the JAX binding's consensus
 and coverages on the same arrays. Tolerance: none — integer DP with a
 fixed tie order and integer keys.
@@ -124,6 +132,51 @@ def adversarial_windows():
     return out
 
 
+def ring_distance_windows(insert):
+    """A 200-base backbone whose first layer inserts `insert` bases after
+    its node 99: node 100's predecessor 99 then lies insert + 1 ranks
+    back. At 127 (128 back) the window passes the ring rule; at 128 (129
+    back) its second layer sets ring_fail."""
+    rng = random.Random(31)
+    bb = bytes(rng.choice(b"ACG") for _ in range(200))
+    w = Window(0, 0, WindowType.kTGS, bb, b"!" * len(bb))
+    w.add_layer(bb[:100] + b"T" * insert + bb[100:], None, 0, len(bb) - 1)
+    w.add_layer(bb, None, 0, len(bb) - 1)
+    w.add_layer(bb[:50] + bb[60:], None, 0, len(bb) - 1)
+    return [w]
+
+
+def wide_retry_windows(L=640):
+    """Layers of exactly L bases whose only true match lies outside their
+    band (band_clip_windows' construction at full length): the band-clip
+    retry runs the full DP at slen == L, the widest ring row."""
+    rng = random.Random(47)
+    out = []
+    for _ in range(2):
+        R = bytes(rng.choice(ACGT) for _ in range(100))
+        bb = b"A" * (L - 100) + R
+        w = Window(0, 0, WindowType.kTGS, bb, b"!" * len(bb))
+        for _ in range(2):
+            m = mutate(rng, R, 0.03)
+            w.add_layer(m + b"C" * (L - len(m)), None, 0, len(bb) - 1)
+        out.append(w)
+    return out
+
+
+def near_full_windows():
+    """A window whose graph ends two nodes short of its case's N (144),
+    and the same window with one more layer (an 8-base insertion), which
+    overflows the node envelope: the sort of the live nodes at nn near N
+    (its power-of-two padding above N) and the overflow path."""
+    w = make_windows(random.Random(21), 1, length=100, depth=6, rate=0.1)[0]
+    bb = w.sequences[0]
+    w2 = Window(0, 0, WindowType.kTGS, bb, b"!" * len(bb))
+    for i in range(1, len(w.sequences)):
+        w2.add_layer(w.sequences[i], None, *w.positions[i])
+    w2.add_layer(bb[:50] + b"T" * 8 + bb[50:], None, 0, len(bb) - 1)
+    return [w, w2]
+
+
 def spanning_windows():
     ws = make_windows(random.Random(5), 4, length=220, depth=7, rate=0.12)
     bb = ws[0].sequences[0]
@@ -149,7 +202,17 @@ CASES = {
                        + make_windows(random.Random(19), 2, length=90,
                                       depth=3, rate=0.1)),
               768, 384, (4, 8), (3, -5, -4)),
+    "ring128": (lambda: ring_distance_windows(127), 512, 384, (8,),
+                (3, -5, -4)),
+    "ring129": (lambda: ring_distance_windows(128), 512, 384, (8,),
+                (3, -5, -4)),
+    "wide_retry": (wide_retry_windows, 1280, 640, (2,), (3, -5, -4)),
+    "near_full": (near_full_windows, 144, 128, (8,), (3, -5, -4)),
 }
+
+#: each case's `failed` flags after its run (the rest build every window)
+FAILED = {"overflow": [True] * 3, "ring129": [True],
+          "near_full": [False, True]}
 
 
 def _calls(eng, windows, sliced):
@@ -214,8 +277,61 @@ def check_case(name, dtype, sliced):
 def test_plain_matches_jax_fused_raw_int32(name, sliced):
     state = check_case(name, "int32", sliced)
     failed = state[STATE.index("failed")]
-    # the overflow case's windows all fail on the device; the rest build
-    assert failed.all() if name == "overflow" else not failed.any()
+    assert failed.tolist() == FAILED.get(name, [False] * len(failed))
+
+
+def graph_ranks(codes, col_of, colkey):
+    """Each node's rank in the fused program's topological order (the
+    sort of column key << 11 | id; free nodes last)."""
+    ids = np.arange(len(codes), dtype=np.int64)
+    key = np.where(codes >= 0,
+                   (colkey[np.clip(col_of, 0, None)] << 11) | ids,
+                   (1 << 62) | ids)
+    rank = np.empty_like(ids)
+    rank[np.argsort(key, kind="stable")] = ids
+    return rank
+
+
+@pytest.mark.parametrize("insert,back", [(127, 128), (128, 129)])
+def test_ring_cases_straddle_the_ring(insert, back):
+    """Non-vacuity of the ring cases: after the first layer the farthest
+    predecessor lies exactly 128 / 129 ranks back (RING = 128), and only
+    the second case fails."""
+    w = pack(ring_distance_windows(insert)[0])
+    state = port_run([w[:2]], 512, 384, (8,), (3, -5, -4), "int32", False)
+    codes, preds, col_of, colkey = (state[STATE.index(k)][0] for k in (
+        "codes", "preds", "col_of", "colkey"))
+    rank = graph_ranks(codes, col_of, colkey)
+    live = np.flatnonzero(codes >= 0)
+    dist = [rank[v] - rank[u] for v in live for u in preds[v] if u >= 0]
+    assert max(dist) == back
+    full = check_case(f"ring{back}", "int32", False)
+    assert bool(full[STATE.index("failed")][0]) == (back > 128)
+
+
+def test_wide_retry_case_retries_at_full_length():
+    """Non-vacuity of the wide_retry case: every layer is exactly L long
+    and the host's band_clipped rule fires (the session engine counts a
+    full-DP redo)."""
+    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+
+    _, N, L, _, scores = CASES["wide_retry"]
+    windows = [pack(w) for w in wide_retry_windows()]
+    assert {len(x[0]) for w in windows for x in w[1:]} == {L}
+    sess = DeviceGraphPOA(*scores, device="cpu", max_nodes=N, max_len=L,
+                          buckets=((N, L),), batch_rows=2)
+    sess.consensus(windows)
+    assert sess.last_stats["redos"] >= 1, sess.last_stats
+
+
+def test_near_full_case_ends_two_nodes_short():
+    """Non-vacuity of the near_full case: its first window ends with
+    N - 2 nodes, its second overflows."""
+    make, N, L, buckets, scores = CASES["near_full"]
+    state = port_run([pack(w) for w in make()], N, L, buckets, scores,
+                     "int32", False)
+    assert state[STATE.index("n_nodes")][0] == N - 2
+    assert state[STATE.index("failed")].tolist() == [False, True]
 
 
 def test_band_clip_case_really_retries():
@@ -261,44 +377,83 @@ def test_poa_finish_arrays_matches_jax_binding():
         np.testing.assert_array_equal(gcov, wcov)
 
 
+@pytest.mark.parametrize("dtype", ["int32", "int16"])
+def test_scratch_is_band_compact(dtype):
+    """K3's scratch: a score spill at the score dtype holding every row of
+    a banded DP at the band's width (272-column rows, a band of 256 keeps
+    257 columns) or the last RING rows of a full one, whichever is
+    larger, and one int8 backpointer row of L columns (rounded up to 16)
+    per node. The CPU path of fused_layers ignores a scratch passed in."""
+    want = torch.int16 if dtype == "int16" else torch.int32
+    for N, L, cells in ((2048, 640, 2048 * 272), (100, 640, 128 * 640),
+                        (144, 120, 144 * 272)):
+        spill, bps = poa_fused_kernels.scratch(3, N, L, "cpu", dtype)
+        assert spill.dtype == want and tuple(spill.shape) == (3, cells)
+        lw = (L + 15) // 16 * 16
+        assert bps.dtype == torch.int8 and tuple(bps.shape) == (3, N, lw)
+    make, N, L, buckets, scores = CASES["near_full"]
+    eng = FusedPOA(*scores, device="cpu", max_nodes=N, max_len=L,
+                   batch_rows=2, depth_buckets=buckets, score_dtype=dtype)
+    state, calls = _calls(eng, [pack(w) for w in make()], False)
+    d, ops, done = calls[0]
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in ops]
+    seqs, lens, wts, *slicing = args
+    lbase = torch.full((2,), done, dtype=torch.int32)
+    runs = []
+    for scratch in (None, (torch.zeros(1), torch.zeros(1))):
+        st = tuple(torch.from_numpy(np.array(x)) for x in state)
+        runs.append(poa_fused_kernels.fused_layers(
+            st, seqs, lens, wts, tuple(slicing), lbase, *scores,
+            score_dtype=dtype, scratch=scratch))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["int32", "int16"])
 def test_fused_kernel_matches_plain_on_card(dtype):
     """K3 on the card against its plain version, every state array, on
     adversarial windows (a predecessor beyond the ring, insertion runs,
-    deletions), the band-clip windows and windows of mixed sizes, on both
-    postures (chip_smoke.py runs the same hold on the full-size
-    workload's windows)."""
+    deletions), the band-clip windows and windows of mixed sizes, and on
+    the ring128 / ring129 / wide_retry / near_full cases at their own
+    envelopes, on both postures (chip_smoke.py runs the same hold on the
+    full-size workload's windows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     scores = (3, -5, -4)
-    windows = [pack(w) for w in (adversarial_windows()
-                                 + band_clip_windows()
-                                 + CASES["mixed"][0]())]
-    for sliced in (False, True):
-        eng = FusedPOA(*scores, device=dev, max_nodes=1024, max_len=640,
-                       batch_rows=len(windows), depth_buckets=(4, 8),
-                       score_dtype=dtype)
-        assert eng.score_dtype == dtype
-        state, calls = _calls(eng, windows, sliced)
-        got = tuple(torch.from_numpy(np.array(x)).to(dev) for x in state)
-        want = tuple(x.clone() for x in got)
-        before = poa_fused_kernels.launches
-        for d, ops, done in calls:
-            o = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in ops]
-            lbase = torch.full((eng.B,), done, dtype=torch.int32,
-                               device=dev)
-            seqs, lens, wts, *slicing = o
-            got = poa_fused_kernels.fused_layers(
-                got, seqs, lens, wts, tuple(slicing), lbase, *scores,
-                score_dtype=dtype)
-            want = fused_raw(eng.N, eng.L, d, eng.P, *scores,
-                             score_dtype=dtype, device_slice=sliced)(
-                *want, seqs, lens, wts, *slicing, lbase)
-        torch.cuda.synchronize()
-        assert poa_fused_kernels.launches == before + len(calls)
-        for name, g, w in zip(STATE, got, want):
-            assert torch.equal(g, w), (name, sliced)
-        assert bool(got[STATE.index("failed")][0])  # the ring case fails
+    sets = [([pack(w) for w in (adversarial_windows() + band_clip_windows()
+                                 + CASES["mixed"][0]())], 1024, 640, (4, 8),
+             [True] + [False] * 9)]
+    for name in ("ring128", "ring129", "wide_retry", "near_full"):
+        make, N, L, buckets, _ = CASES[name]
+        ws = [pack(w) for w in make()]
+        sets.append((ws, N, L, buckets,
+                     FAILED.get(name, [False] * len(ws))))
+    for windows, N, L, buckets, failed in sets:
+        for sliced in (False, True):
+            eng = FusedPOA(*scores, device=dev, max_nodes=N, max_len=L,
+                           batch_rows=len(windows), depth_buckets=buckets,
+                           score_dtype=dtype)
+            assert eng.score_dtype == dtype
+            state, calls = _calls(eng, windows, sliced)
+            got = tuple(torch.from_numpy(np.array(x)).to(dev) for x in state)
+            want = tuple(x.clone() for x in got)
+            before = poa_fused_kernels.launches
+            for d, ops, done in calls:
+                o = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in ops]
+                lbase = torch.full((eng.B,), done, dtype=torch.int32,
+                                   device=dev)
+                seqs, lens, wts, *slicing = o
+                got = poa_fused_kernels.fused_layers(
+                    got, seqs, lens, wts, tuple(slicing), lbase, *scores,
+                    score_dtype=dtype)
+                want = fused_raw(eng.N, eng.L, d, eng.P, *scores,
+                                 score_dtype=dtype, device_slice=sliced)(
+                    *want, seqs, lens, wts, *slicing, lbase)
+            torch.cuda.synchronize()
+            assert poa_fused_kernels.launches == before + len(calls)
+            for name, g, w in zip(STATE, got, want):
+                assert torch.equal(g, w), (name, sliced, N)
+            assert got[STATE.index("failed")].tolist() == failed
