@@ -106,12 +106,29 @@ mismatch or exception exits non-zero:
      fused consensus passes of one engine are traced (K3's device time,
      the device busy share; its first pass, and its second with the
      streams and K3 scratch it keeps), each with its cudaMalloc calls and
-     the memory reserved after it.
+     the memory reserved after it;
+  10. the occupancy scheduler (`--cuda-adaptive-buckets`) and the batch
+     runner's lanes (adaptive_path): the contig cell with the scheduler
+     on at pipeline depths 2 and 0 (FASTA equal to phase 5's; the
+     derived ladders, each engine's occupancy on and off, K1's and K2's
+     launches by shape, which must hold a derived shape); the fullest
+     batch of each derived K1 shape and K2 (edge, band) held against the
+     plain version; every batch of the cell replayed with the scheduler
+     off and on, K1, K2 and K3 timed over all of them (replay_contig);
+     the fused engine with the scheduler on at `--cuda-fused 0` and `1`
+     at both score sets (FASTA equal to phase 9's; K3 launched at a
+     derived depth, one chained call at the smallest derived depth held
+     on 8 rows); the fragment shard of phase 8 with the scheduler on
+     (FASTA equal to phase 8's); and the contig main path over 2 lanes on
+     one card, and over every visible card when there are more, for both
+     engines (FASTA equal to the 1-lane FASTA, calls counted per lane,
+     each bucket's per-lane useful cells summing to its useful cells).
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
-fragment path of phase 8 and the fused path of phase 9, in all, by path
-and by instantiation; K3: launches on the four runs of phase 9), the
+fragment path of phase 8, the fused path of phase 9 and the runs of
+phase 10, in all, by path and by instantiation; K3: launches on the
+four runs of phase 9 and the fused runs of phase 10), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
@@ -243,27 +260,52 @@ def main() -> int:
     log(f"[chip_smoke] simulated 200 kb x 30x: {len(reads)} reads in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    walls = report["phase_walls_s"] = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[name] = time.perf_counter() - t
+
     kernels = []
-    k1, windows = check_window_sweep(dev, big, report, notb)
+    k1, windows = phase("2 K1", check_window_sweep, dev, big, report, notb)
     kernels.append(k1)
-    kernels.append(check_wavefront(dev, draft, reads, paf, report, notb2))
-    check_golden(workdir, report)
-    check_fragment_golden(workdir, report)
-    contig = main_path(dev, big, truth, draft, report)
-    nbases = n_base_path(dev, workdir, report)
-    profile_consensus(dev, windows, report)
-    profile_align(dev, overlap_pairs(draft, reads, paf), report)
-    fragment = fragment_path(dev, truth, reads_t, workdir, report)
-    k1f, k2f, k3 = fused_path(dev, big, truth, draft, windows, report,
-                              k3stg)
-    for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f)):
-        by_path = dict(zip(("contig", "nbases", "fragment", "fused"), paths))
+    kernels.append(phase("3 K2", check_wavefront, dev, draft, reads, paf,
+                         report, notb2))
+    phase("4 golden", check_golden, workdir, report)
+    phase("4 fragment golden", check_fragment_golden, workdir, report)
+    contig = phase("5 main path", main_path, dev, big, truth, draft, report)
+    nbases = phase("5 N-base path", n_base_path, dev, workdir, report)
+    phase("6 consensus profile", profile_consensus, dev, windows, report)
+    phase("7 align profile", profile_align, dev,
+          overlap_pairs(draft, reads, paf), report)
+    fragment = phase("8 fragment", fragment_path, dev, truth, reads_t,
+                     workdir, report)
+    k1f, k2f, k3 = phase("9 fused", fused_path, dev, big, truth, draft,
+                         windows, report, k3stg)
+    k1a, k2a, k3a = phase("10 adaptive", adaptive_path, dev, big, windows,
+                          report)
+    log(f"[chip_smoke] phase walls (s): "
+        f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
+    for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
+                         (k1a, k2a)):
+        by_path = dict(zip(("contig", "nbases", "fragment", "fused",
+                            "adaptive"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
+    k3["launches"] += sum(k3a.values())
+    k3["launches_by_path"].update(k3a)
+    for row in k3["instantiations"]:
+        row["launches"] += sum(n for name, n in k3a.items()
+                               if name.startswith(row["plan"])
+                               or (row["plan"] == "int32"
+                                   and name.startswith("fused ")))
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -1172,6 +1214,7 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
                          and all(0 < x <= eng.L for x in lens)),
                         reverse=True)
         fused = {
+            "k3_depth_buckets": list(eng.depth_buckets),
             "k3_launches": poa_fused_kernels.launches,
             "k3_launches_by_shape": {
                 f"{n}x{ln}x{d} {dt} {'fused' if sl else 'split'}": c
@@ -1218,6 +1261,12 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
         "pairs_band_rejects": pol.aligner.n_band_rejects,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+        "adaptive": pol.scheduler.adaptive,
+        "occupancy": pol.occupancy_stats,
+        "session_grid": ([list(b) for b in pol.poa.engine.buckets]
+                         if pol.cuda_engine == "session" else None),
+        "lanes": pol.device_runner.n_devices,
+        "lane_calls": list(pol.device_runner.lane_calls),
     }
 
 
@@ -1230,6 +1279,37 @@ def log_depth(label: str, m: dict) -> None:
         f"over {st['chunks']} chunks / {st['launches']} launches; peak "
         f"device memory {m['peak_device_bytes']} bytes allocated, "
         f"{m.get('peak_reserved_bytes', 'not read')} reserved")
+
+
+#: what phase 10 holds its runs against, kept by the earlier phases:
+#: the polished FASTA of the contig cell at depth 2 (phase 5, "contig"),
+#: of the fused engine at each score width (phase 9, "fused int32" /
+#: "fused int16") and of the fragment shard (phase 8, "fragment"), and
+#: the fragment cell's input paths
+KEPT: dict = {}
+
+
+def fasta_of(polished) -> list:
+    return [(p.name, p.data) for p in polished]
+
+
+def merged_occupancy(pols) -> dict:
+    """One occupancy snapshot over several polishers (the wrapper's
+    chunks)."""
+    from racon_tpu_torch.sched import OccupancyStats
+
+    merged = OccupancyStats()
+    for p in pols:
+        merged.merge_from(p.scheduler.stats)
+    return merged.snapshot()
+
+
+def occupancy_view(occ: dict) -> dict:
+    """Per engine: occupancy %, useful and padded cells."""
+    return {e: {"occupancy_pct": v["occupancy_pct"],
+                "useful_cells": v["useful_cells"],
+                "padded_cells": v["total_cells"] - v["useful_cells"]}
+            for e, v in sorted(occ.items()) if v.get("buckets")}
 
 
 def main_path(dev, paths, truth, draft, report):
@@ -1246,6 +1326,7 @@ def main_path(dev, paths, truth, draft, report):
                                                 for p in sync_out]:
         raise SystemExit("main path: the FASTA at pipeline depth 2 differs "
                          "from depth 0's")
+    KEPT["contig"] = fasta_of(polished)
     d_draft = edit_distance(draft, truth)
     d_pol = edit_distance(polished[0].data, truth)
     main.update(draft_distance=d_draft, polished_distance=d_pol)
@@ -1504,10 +1585,14 @@ class PathCapture:
     the aligner's entry point: keeps the fullest K1 batch of each bucket (a
     device-side copy of its inputs, taken without a sync, with the
     instantiation it ran), the pairs of every align call (references)
-    and the calls' summed wall. Both call through, so every launch is the
-    run's own and is counted where it launches."""
+    and the calls' summed wall; with `keep_all`, every K1 batch as well
+    (for replay_contig). Both call through, so every launch is the run's
+    own and is counted where it launches."""
 
-    def __init__(self):
+    def __init__(self, keep_all: bool = False):
+        self.keep_all = keep_all
+        #: ((nb, lb), plan, inputs) of every K1 batch, with keep_all
+        self.k1_batches: list = []
         self.k1: dict = {}          # (nb, lb) -> (real jobs, plan, inputs)
         self.k1_jobs = 0
         self.align_calls: list = []
@@ -1531,8 +1616,11 @@ class PathCapture:
             return dispatch(eng, jobs, sel, nb, lb, B)
 
         def _run_bucket(eng, nb, lb, *args):
+            plan = (eng.plan_for(nb, lb), args[0].dtype == torch.uint8)
+            if cap.keep_all:
+                cap.k1_batches.append(((nb, lb), plan,
+                                       [a.clone() for a in args]))
             if cap._n > cap.k1.get((nb, lb), (0,))[0]:
-                plan = (eng.plan_for(nb, lb), args[0].dtype == torch.uint8)
                 cap.k1[(nb, lb)] = (cap._n, plan, [a.clone() for a in args])
             return run_bucket(eng, nb, lb, *args)
 
@@ -1674,6 +1762,8 @@ def fragment_path(dev, truth, reads, workdir, report):
         k2_by_shape = dict(align_kernels.launches_by_shape)
     peak = torch.cuda.max_memory_allocated(dev)
     k1_plans, k2_plans = by_plan(k1_by_shape), by_plan(k2_by_shape)
+    KEPT["fragment"] = out.getvalue()
+    KEPT["fragment_paths"] = paths
 
     def total(f):
         return sum(f(p) for p in pols)
@@ -1739,6 +1829,7 @@ def fragment_path(dev, truth, reads, workdir, report):
         "peak_device_bytes": peak,
         "raw_distance_written": raw, "corrected_distance": fixed,
         "raw_distance_all_targets": raw_all,
+        "occupancy": merged_occupancy(pols),
     }
     report["fragment_path"] = frag
     for k, v in frag.items():
@@ -2037,6 +2128,7 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
         if fasta["0"] != fasta["1"]:
             raise SystemExit(f"fused path {dtype}: the FASTA at "
                              f"--cuda-fused 0 and 1 differ")
+        KEPT[f"fused {dtype}"] = fasta["0"]
         log(f"[chip_smoke] fused path {dtype}: FASTA byte-identical at "
             f"--cuda-fused 0 and 1")
 
@@ -2218,6 +2310,444 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
                  "plan", "launches", "max_abs_err", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")} for r in rows]}
     return (k1_n, k1_all), (k2_n, k2_all), entry
+
+def replay_contig(dev, windows, pairs, adaptive_k1) -> dict:
+    """Every batch of the contig cell with the scheduler off and on, each
+    kernel timed over all of them in this call (CUDA events; one launch a
+    batch after a warm-up pass): K1 on the batches a session engine
+    launches over the cell's windows (scheduler on: `adaptive_k1`, the
+    batches, grid and occupancy the phase's depth-2 run captured, which
+    are what such an engine launches), K2 on the batches an aligner makes
+    of its overlap pairs, K3 (int32, split posture) on every chunk's
+    chained calls. Launches here are not counted as a path's."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.ops import poa_fused_kernels as fk
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.poa_fused import FusedPOA
+    from racon_tpu_torch.ops.poa_graph import DeviceGraphPOA
+    from racon_tpu_torch.sched import BatchScheduler
+
+    class Capture(DeviceGraphPOA):
+        def run_bucket(self, nb, lb, *args):
+            plan = (self.plan_for(nb, lb), args[0].dtype == torch.uint8)
+            self.batches.append(((nb, lb), plan, [a.clone() for a in args]))
+            return super().run_bucket(nb, lb, *args)
+
+    def to_dev(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    out: dict = {}
+    for label, adaptive in (("static", False), ("adaptive", True)):
+        if adaptive:
+            k1_batches, grid, occ = adaptive_k1
+        else:
+            eng = Capture(MATCH, MISMATCH, GAP, device=dev,
+                          num_threads=os.cpu_count(),
+                          scheduler=BatchScheduler(adaptive=adaptive))
+            eng.batches = []
+            eng.consensus(windows)
+            torch.cuda.synchronize()
+            k1_batches, grid = eng.batches, [list(b) for b in eng.buckets]
+            occ = eng.sched.stats.snapshot()
+            del eng
+        k1 = {"launches": len(k1_batches),
+              "ms": replay_ms(lambda b: sweep(b[2], b[1]), k1_batches),
+              "grid": grid, "occupancy": occupancy_view(occ)}
+        del k1_batches
+        al = BatchAligner(device=dev,
+                          scheduler=BatchScheduler(adaptive=adaptive))
+        batches = []
+        for edge, band, idx in al.chunks(pairs):
+            args = al.operands(pairs, edge, band, idx)
+            batches.append((band, (al.plan_for(edge),
+                                   args[0].dtype == torch.uint8), args))
+        k2 = {"launches": len(batches),
+              "shapes": sorted({(int(b[2][0].shape[1]
+                                     * (4 if b[1][1] else 1)), b[0])
+                                for b in batches}),
+              "ms": replay_ms(lambda b: align_k2(b[2], b[0], b[1]),
+                              batches)}
+        del batches
+        fe = FusedPOA(MATCH, MISMATCH, GAP, device=dev, fused="0",
+                      scheduler=BatchScheduler(adaptive=adaptive))
+        fe.adapt(windows)
+        order = fe._fused_order(windows)
+        k3_ms, k3_calls = [], 0
+        for s0 in range(0, len(order), fe.B):
+            st, calls = fe._pack_chunk(windows, order[s0:s0 + fe.B])
+            state = tuple(to_dev(st))
+            ops = [(to_dev(o), done) for _, o, done in calls]
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for (seqs, lens, wts, *slicing), done in ops:
+                lbase = torch.full((fe.B,), done, dtype=torch.int32,
+                                   device=dev)
+                state = fk.fused_layers(state, seqs, lens, wts,
+                                        tuple(slicing), lbase, MATCH,
+                                        MISMATCH, GAP)
+            b.record()
+            torch.cuda.synchronize()
+            k3_ms.append(a.elapsed_time(b))
+            k3_calls += len(calls)
+        k3 = {"launches": k3_calls, "ms": sum(k3_ms), "chunk_ms": k3_ms,
+              "depth_buckets": list(fe.depth_buckets)}
+        out[label] = {"k1": k1, "k2": k2, "k3": k3}
+        log(f"[chip_smoke] contig replay, scheduler {label}: K1 "
+            f"{k1['ms']:.2f} ms over {k1['launches']} batches (grid "
+            f"{k1['grid']}, occupancy {k1['occupancy']}); K2 "
+            f"{k2['ms']:.2f} ms over {k2['launches']} batches at "
+            f"{k2['shapes']}; K3 {k3['ms']:.2f} ms over "
+            f"{k3['launches']} chained calls (depths "
+            f"{k3['depth_buckets']}); card {card_info()}")
+    return out
+
+
+def adaptive_path(dev, paths, windows, report):
+    """Phase 10: the occupancy scheduler (`--cuda-adaptive-buckets`) and
+    the batch runner's lanes, every check against the earlier phases'
+    bytes:
+
+      1. the contig cell (session engine) with the scheduler on at
+         pipeline depths 2 (this phase's main path, its launches counted)
+         and 0, each FASTA equal to phase 5's; the derived ladders (the
+         aligner's edges per static bucket, the session grid, the fused
+         depth ladder), each engine's occupancy with the scheduler on and
+         off, and K1's and K2's launches by shape, which must hold a
+         derived shape;
+      2. the fullest batch of each derived K1 shape and of each derived
+         K2 (edge, band) held against the plain version (K2 on its first
+         16 rows above edge 2048: the plain version's loop runs one step
+         a wavefront); the static shapes are held in phases 2 and 3;
+         then every batch of the cell replayed with the scheduler off
+         and on, K1, K2 and K3 timed over all of them (replay_contig);
+      3. the fused engine with the scheduler on at `--cuda-fused 0` and
+         `1`, at 5/-4/-8 and 3/-5/-4, each FASTA equal to phase 9's; K3
+         launched at a derived depth; one chained call at the smallest
+         derived depth outside DEPTH_BUCKETS held against fused_raw on
+         its chunk's first 8 rows;
+      4. the fragment shard of phase 8 through the wrapper with the
+         scheduler on, its FASTA equal to phase 8's;
+      5. the contig main path over 2 lanes on one card (and over every
+         visible card when there are more), for both engines: the FASTA
+         equal to the 1-lane FASTA, the calls counted per lane, and each
+         bucket's per-lane useful cells summing to its useful cells.
+
+    Returns (K1 launches, by instantiation), (K2 ...) over the phase's
+    runs, and K3's launches per run."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch import wrapper
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels as fk
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.poa_fused import (DEPTH_BUCKETS, STATE,
+                                               FusedPOA, fused_raw)
+    from racon_tpu_torch.ops.poa_graph import BUCKETS
+    from racon_tpu_torch.sched import BatchScheduler
+
+    out: dict = {"runs": {}}
+    k1_all, k2_all, k3_runs = {}, {}, {}
+    totals = {"k1": 0, "k2": 0}
+
+    def tally(name, m):
+        out["runs"][name] = m
+        totals["k1"] += m["k1_launches"]
+        totals["k2"] += m["k2_launches"]
+        for src, dst in ((m["k1_launches_by_plan"], k1_all),
+                         (m["k2_launches_by_plan"], k2_all)):
+            for key, n in src.items():
+                dst[key] = dst.get(key, 0) + n
+        if "k3_launches" in m:
+            k3_runs[name] = m["k3_launches"]
+
+    def same(got, key, what):
+        if got != KEPT[key]:
+            raise SystemExit(f"adaptive path: {what}: the FASTA differs "
+                             f"from the {key} FASTA of the earlier phase")
+
+    # ---- 1. the contig cell with the scheduler on, depths 2 and 0
+    with PathCapture(keep_all=True) as cap:
+        _, polished, m2 = polish_once(paths, 2, adaptive_buckets=True)
+    tally("contig depth 2", m2)
+    same(fasta_of(polished), "contig", "contig cell, depth 2")
+    _, polished, m0 = polish_once(paths, 0, adaptive_buckets=True)
+    tally("contig depth 0", m0)
+    same(fasta_of(polished), "contig", "contig cell, depth 0")
+    log_depth("adaptive path (contig)", m2)
+    log_depth("adaptive path (contig)", m0)
+    derived = {}
+    for key in m2["occupancy"]["aligner"]["buckets"]:
+        edge, band = (int(x) for x in key.strip("()").split(","))
+        static = min(e for e in BatchAligner.BUCKETS if e >= edge)
+        derived.setdefault(f"{static}/{band}", []).append(edge)
+    ladders = {"aligner_edges_by_static_bucket":
+               {k: sorted(v) for k, v in sorted(derived.items())},
+               "session_grid": m2["session_grid"]}
+    off = report["main_path"]["occupancy"]
+    log(f"[chip_smoke] adaptive path: contig FASTA byte-identical to phase "
+        f"5's at depths 2 and 0; aligner edges per static bucket "
+        f"{ladders['aligner_edges_by_static_bucket']}, session grid "
+        f"{ladders['session_grid']} (static {[list(b) for b in BUCKETS]})")
+    log(f"[chip_smoke] adaptive path: contig occupancy on "
+        f"{occupancy_view(m2['occupancy'])}; off (phase 5) "
+        f"{occupancy_view(off)}; card {card_info()}")
+    log(f"[chip_smoke] adaptive path: K1 launches by shape "
+        f"{m2['k1_launches_by_bucket']}; K2 {m2['k2_launches_by_edge_band']}")
+    k1_shapes = sorted(cap.k1)
+    if not any(tuple(s) not in BUCKETS for s in k1_shapes):
+        raise SystemExit(f"adaptive path: K1 launched only at static "
+                         f"shapes {k1_shapes}")
+    al = BatchAligner(device=dev, scheduler=BatchScheduler(adaptive=True))
+    fullest: dict = {}
+    for pairs in cap.align_calls:
+        for edge, band, idx in al.chunks(pairs):
+            if len(idx) > fullest.get((edge, band), (0,))[0]:
+                fullest[(edge, band)] = (len(idx), pairs, idx)
+    if not any(e not in BatchAligner.BUCKETS for e, _ in fullest):
+        raise SystemExit(f"adaptive path: K2 launched only at static "
+                         f"edges {sorted(fullest)}")
+
+    # ---- 2. the fullest batch of each derived shape, held (the static
+    # shapes are phases 2 and 3's)
+    rows = []
+    for (nb, lb), (n, plan, args) in sorted(cap.k1.items()):
+        if (nb, lb) in BUCKETS:
+            continue
+        held = hold_k1(args, nb, lb, f"the adaptive path's fullest "
+                       f"{(nb, lb)} batch", widths=(plan[0],))
+        r = held[plan]
+        rows.append({"kernel": "K1", "shape": [nb, lb], "jobs": n,
+                     "rows": args[0].shape[0], "plan": plan_name(*plan),
+                     "max_abs_err": 0,
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
+        if edge in BatchAligner.BUCKETS:
+            continue
+        part = idx[:16] if edge > 2048 else idx
+        a8, ap = k2_forms(al, pairs, edge, band, part)
+        dtype = al.plan_for(edge)
+        held = hold_k2(edge, band, a8, ap, f"the adaptive path's fullest "
+                       f"({edge}, {band}) batch", widths=(dtype,))
+        for p, r in held.items():
+            rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
+                         "held_rows": len(part), "plan": plan_name(*p),
+                         "max_abs_err": r["err"], "touched": r["touched"],
+                         "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"]})
+        del a8, ap
+    for r in rows:
+        log(f"[chip_smoke] adaptive path {r['kernel']} fullest batch at "
+            f"derived {tuple(r['shape'])}, {r['plan']}: "
+            + (f"{r['jobs']} jobs / {r['rows']} rows"
+               if r["kernel"] == "K1" else
+               f"{r['held_rows']} of {r['pairs']} pairs "
+               f"({r['touched']} band-touched)")
+            + f" identical (max |diff| 0); kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    out["held"] = rows
+    out["ladders"] = ladders
+    if len(cap.k1_batches) != m2["k1_launches"]:
+        raise SystemExit(f"adaptive path: {len(cap.k1_batches)} K1 batches "
+                         f"captured of {m2['k1_launches']} launched")
+    out["replay"] = replay_contig(
+        dev, windows, cap.align_calls[0],
+        (cap.k1_batches, m2["session_grid"],
+         {"session": m2["occupancy"]["session"]}))
+    cap.k1_batches = []
+    out["occupancy"] = {"contig_session": {
+        "on": occupancy_view(m2["occupancy"]), "off": occupancy_view(off)}}
+
+    # ---- 3. the fused engine with the scheduler on
+    fused_ladders = {}
+    for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
+        for fused in ("0", "1"):
+            _, polished, m = polish_once(paths, 2, scores=scores,
+                                         cuda_engine="fused",
+                                         cuda_fused=fused,
+                                         adaptive_buckets=True)
+            name = f"{dtype} fused={fused} adaptive"
+            tally(name, m)
+            same(fasta_of(polished), f"fused {dtype}", name)
+            fused_ladders[dtype] = m["k3_depth_buckets"]
+            post = "fused" if fused == "1" else "split"
+            launched = m["k3_depths_launched"][post]
+            if fused == "0" and not any(d not in DEPTH_BUCKETS
+                                        for d in launched):
+                raise SystemExit(f"adaptive path {name}: K3 launched only "
+                                 f"at static depths {launched}")
+            static = report["fused_path"]["runs"][
+                f"{dtype} fused={fused}"]["occupancy"]
+            out["occupancy"][f"contig_fused_{dtype}_{fused}"] = {
+                "on": occupancy_view(m["occupancy"]),
+                "off": occupancy_view(static)}
+            log(f"[chip_smoke] adaptive path {name}: FASTA byte-identical "
+                f"to phase 9's; depth ladder {m['k3_depth_buckets']}, K3 "
+                f"{m['k3_launches']} launches at {post} depths {launched}; "
+                f"consensus {m['consensus_s']:.3f} s; occupancy on "
+                f"{occupancy_view(m['occupancy'])}, off "
+                f"{occupancy_view(static)}")
+    ladders["fused_depths"] = fused_ladders
+
+    # K3 at the smallest derived depth outside DEPTH_BUCKETS, one chained
+    # call on its chunk's first 8 rows
+    scores = (5, -4, -8)
+    eng = FusedPOA(*scores, device=dev, fused="0",
+                   scheduler=BatchScheduler(adaptive=True))
+    eng.adapt(windows)
+    order = eng._fused_order(windows)
+    chunks = [order[s:s + eng.B] for s in range(0, len(order), eng.B)]
+    best = None
+    for ci, chunk in enumerate(chunks):
+        done = 0
+        for d in eng._chain_plan(max(len(windows[i]) - 1 for i in chunk)):
+            if d not in DEPTH_BUCKETS and (best is None or d < best[2]):
+                best = (ci, done, d)
+            done += d
+    if best is None:
+        raise SystemExit(f"adaptive path: no derived depth outside "
+                         f"{DEPTH_BUCKETS} in {eng.depth_buckets}")
+    ci, at, d = best
+    first = chunks[ci][:8]
+    eng8 = FusedPOA(*scores, device=dev, batch_rows=len(first), fused="0")
+    eng8.depth_buckets = eng.depth_buckets
+    st, calls = eng8._pack_chunk(windows, first)
+    plan = eng._chain_plan(max(len(windows[i]) - 1 for i in chunks[ci]))
+    if [dd for dd, _, _ in calls] != plan:
+        raise SystemExit(f"adaptive path: chunk {ci}'s first {len(first)} "
+                         f"rows chain {[dd for dd, _, _ in calls]}, the "
+                         f"chunk {plan}")
+
+    def to_dev(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    state = tuple(to_dev(st))
+    for dd, ops, done in calls:
+        seqs, lens, wts, *slicing = to_dev(ops)
+        lbase = torch.full((len(first),), done, dtype=torch.int32,
+                           device=dev)
+        if done < at:
+            state = fk.fused_layers(state, seqs, lens, wts, tuple(slicing),
+                                    lbase, *scores)
+            continue
+        k_state = tuple(t.clone() for t in state)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        k_state = fk.fused_layers(k_state, seqs, lens, wts, tuple(slicing),
+                                  lbase, *scores)
+        b.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_state = fused_raw(eng.N, eng.L, dd, eng.P, *scores)(
+            *state, seqs, lens, wts, *slicing, lbase)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for nm, x, y in zip(STATE, k_state, p_state):
+            if not torch.equal(x, y):
+                raise SystemExit(f"adaptive path: K3 {nm} differs from the "
+                                 f"plain version at derived depth {dd}")
+        out["k3_held"] = {"depth": dd, "layer_base": done,
+                          "rows": len(first), "chunk": ci,
+                          "ladder": list(eng.depth_buckets),
+                          "max_abs_err": 0, "ms": a.elapsed_time(b),
+                          "plain_ms": plain_ms}
+        log(f"[chip_smoke] adaptive path: K3 at derived depth {dd} (ladder "
+            f"{list(eng.depth_buckets)}, chunk {ci}, layer base {done}) on "
+            f"{len(first)} rows identical to the plain version on every "
+            f"state array (max |diff| 0); kernel {a.elapsed_time(b):.2f} "
+            f"ms, plain {plain_ms:.0f} ms")
+        break
+    else:
+        raise SystemExit(f"adaptive path: no chained call of chunk {ci} at "
+                         f"layer base {at}")
+
+    # ---- 4. the fragment shard with the scheduler on
+    buf = io.BytesIO()
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    t0 = time.perf_counter()
+    pols = wrapper.run(*KEPT["fragment_paths"], split=800_000,
+                       fragment_correction=True, threads=os.cpu_count(),
+                       cuda_poa_batches=1, cuda_aligner_batches=1,
+                       device="cuda", num_shards=4, shard_id=0, out=buf,
+                       adaptive_buckets=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fm = {"k1_launches": poa_kernels.launches,
+          "k2_launches": align_kernels.launches,
+          "k1_launches_by_plan": by_plan(poa_kernels.launches_by_shape),
+          "k2_launches_by_plan": by_plan(align_kernels.launches_by_shape),
+          "wall_s": wall,
+          "align_s": sum(p.phase_s["align"] for p in pols),
+          "consensus_s": sum(p.phase_s["consensus"] for p in pols),
+          "occupancy": merged_occupancy(pols)}
+    tally("fragment", fm)
+    if buf.getvalue() != KEPT["fragment"]:
+        raise SystemExit("adaptive path: the fragment shard's FASTA "
+                         "differs from phase 8's")
+    frag_off = report["fragment_path"]["occupancy"]
+    out["occupancy"]["fragment"] = {"on": occupancy_view(fm["occupancy"]),
+                                    "off": occupancy_view(frag_off)}
+    log(f"[chip_smoke] adaptive path: fragment shard FASTA byte-identical "
+        f"to phase 8's; align {fm['align_s']:.3f} s, consensus "
+        f"{fm['consensus_s']:.3f} s; occupancy on "
+        f"{occupancy_view(fm['occupancy'])}, off {occupancy_view(frag_off)}")
+
+    # ---- 5. lanes: 2 on one card, and every visible card
+    lane_sets = [("2 lanes on cuda:0", [dev, dev])]
+    if torch.cuda.device_count() > 1:
+        lane_sets.append((f"{torch.cuda.device_count()} cards", None))
+    out["lanes"] = {}
+    for label, devices in lane_sets:
+        for engine, scores, key, kw in (
+                ("session", (MATCH, MISMATCH, GAP), "contig", {}),
+                ("fused", (5, -4, -8), "fused int32",
+                 {"cuda_engine": "fused", "cuda_fused": "1"})):
+            _, polished, m = polish_once(paths, 2, scores=scores,
+                                         devices=devices, **kw)
+            name = f"{engine} {label}"
+            tally(name, m)
+            same(fasta_of(polished), key, name)
+            if m["lanes"] < 2 or min(m["lane_calls"]) <= 0:
+                raise SystemExit(f"adaptive path {name}: calls per lane "
+                                 f"{m['lane_calls']}")
+            for e, v in m["occupancy"].items():
+                for bk, bv in v["buckets"].items():
+                    if sum(bv["shard_useful"]) != bv["useful_cells"]:
+                        raise SystemExit(
+                            f"adaptive path {name}: {e} bucket {bk}: lanes' "
+                            f"useful cells {bv['shard_useful']} do not sum "
+                            f"to {bv['useful_cells']}")
+            out["lanes"][name] = {
+                "lane_calls": m["lane_calls"],
+                "shard_useful": {e: v.get("shard_useful")
+                                 for e, v in m["occupancy"].items()},
+                "align_s": m["align_s"], "consensus_s": m["consensus_s"]}
+            log(f"[chip_smoke] adaptive path {name}: FASTA byte-identical "
+                f"to the 1-lane FASTA; calls per lane {m['lane_calls']}; "
+                f"K1 {m['k1_launches']}, K2 {m['k2_launches']}"
+                + (f", K3 {m['k3_launches']}" if "k3_launches" in m else "")
+                + f" launches; useful cells per lane "
+                f"{ {e: v.get('shard_useful') for e, v in m['occupancy'].items()} }"
+                f"; align {m['align_s']:.3f} s, consensus "
+                f"{m['consensus_s']:.3f} s")
+    report["adaptive_path"] = out
+    return ((totals["k1"], k1_all), (totals["k2"], k2_all), k3_runs)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ upstream racon-gpu device flags (-c/--cudapoa-batches,
 -b/--cuda-banded-alignment), --device and --cuda-dtype, and the
 counterparts of the JAX CLI's pipeline and observability flags
 (--cuda-pipeline-depth, --cuda-trace, --cuda-metrics, --cuda-log-level,
---cuda-profile) and its device consensus engine flags (--cuda-engine,
---cuda-fused). Polished FASTA goes to stdout; errors print as
+--cuda-profile), its device consensus engine flags (--cuda-engine,
+--cuda-fused) and its scheduler flag (--cuda-adaptive-buckets). Polished FASTA goes to stdout; errors print as
 `[racon_tpu_torch::...] error: ...` on stderr with exit status 1.
 """
 
@@ -85,6 +85,12 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             launch + one fetch per chunk), 0 = the split chained path,
             auto = the split path (the port has no autotuner winner
             table yet). Output is byte-identical in every mode
+        --cuda-adaptive-buckets
+            derive each device engine's shape ladder from the run's own
+            job-shape histogram (occupancy-aware batch scheduler) and
+            pack shape-sorted batches, instead of the static worst-case
+            ladders; output is byte-identical either way (the
+            counterpart of --tpu-adaptive-buckets)
         --cudaaligner-batches <int>
             default: 0
             number of batches for GPU accelerated overlap alignment
@@ -116,8 +122,9 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             trace-event JSON loadable in Perfetto / chrome://tracing
         --cuda-metrics <file>
             default: none
-            dump the end-of-run metrics snapshot (pipeline / latency /
-            aligner namespaces) as JSON, and print it as a stderr table
+            dump the end-of-run metrics snapshot (pipeline / sched /
+            latency / aligner namespaces) as JSON, and print it as a
+            stderr table
         --cuda-log-level <quiet|info|debug>
             default: info
             stderr verbosity: quiet silences progress and timing lines,
@@ -157,6 +164,7 @@ def parse_args(argv: list[str]) -> dict | None:
         "profile_dir": None,
         "cuda_engine": "session",
         "cuda_fused": "auto",
+        "adaptive_buckets": False,
         "paths": [],
     }
 
@@ -233,6 +241,8 @@ def parse_args(argv: list[str]) -> dict | None:
             opts["trim"] = False
         elif name in ("b", "cuda-banded-alignment"):
             opts["cuda_banded_alignment"] = True
+        elif name == "cuda-adaptive-buckets":
+            opts["adaptive_buckets"] = True
         else:
             return False
         return True
@@ -344,7 +354,8 @@ def main(argv: list[str] | None = None) -> int:
             trace_path=opts["trace_path"],
             metrics_path=opts["metrics_path"],
             log_level=opts["log_level"], profile_dir=opts["profile_dir"],
-            cuda_engine=opts["cuda_engine"], cuda_fused=opts["cuda_fused"])
+            cuda_engine=opts["cuda_engine"], cuda_fused=opts["cuda_fused"],
+            adaptive_buckets=opts["adaptive_buckets"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:

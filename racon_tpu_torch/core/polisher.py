@@ -16,8 +16,11 @@ Both phases run through the dispatch pipeline (pipeline/), at depth 2
 by default as in the JAX CLI: the aligner's pack / launch / decode
 stages overlap, and pairs the device rejects are host-aligned in the
 pipeline's fallback pool while the device pass runs. One PipelineStats,
-a HistogramSet and a MetricsRegistry (namespaces `pipeline`, `latency`,
-`aligner`) cover the run; the phases are trace spans (obs/trace.py).
+a HistogramSet, a BatchScheduler (sched/: occupancy counters, and with
+`adaptive_buckets` data-derived shape ladders) and a MetricsRegistry
+(namespaces `pipeline`, `sched`, `latency`, `aligner`) cover the run;
+the phases are trace spans (obs/trace.py). Both device phases split
+their batches over the lanes of one BatchRunner (parallel/mesh.py).
 
 The two types differ in two places only, as in the reference and the
 JAX package: kC keeps just the longest overlap per query, kF every valid
@@ -70,7 +73,9 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     log_level: str | None = None,
                     profile_dir: str | None = None,
                     cuda_engine: str = "session", cuda_fused: str = "auto",
-                    fused_fallback: str = "session") -> "Polisher":
+                    fused_fallback: str = "session",
+                    adaptive_buckets: bool = False,
+                    devices=None) -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
     POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
@@ -84,7 +89,14 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     picks the device consensus engine (session, or fused: the
     whole-window engine), `cuda_fused` the fused engine's chunk posture
     (auto, 0 split, 1 one launch per chunk) and `fused_fallback` who
-    builds the windows the fused engine leaves (session or host)."""
+    builds the windows the fused engine leaves (session or host).
+    `adaptive_buckets` arms the occupancy-aware scheduler (sched/:
+    data-derived shape ladders and shape-sorted packing; the same bytes
+    either way). `devices` lists the lanes the device engines split
+    their batches over (parallel/mesh.BatchRunner; a device may repeat);
+    None takes every visible CUDA device for a bare 'cuda'
+    (CUDA_VISIBLE_DEVICES narrows it), the named card alone for
+    'cuda:N', and one lane on the CPU."""
     if log_level is not None:
         set_log_level(log_level)
     if trace_path:
@@ -107,9 +119,10 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     return Polisher(sparser, oparser, tparser, type_, window_length,
                     quality_threshold, error_threshold, trim, match, mismatch,
                     gap, num_threads, cuda_poa_batches, cuda_banded_alignment,
-                    cuda_aligner_batches, cuda_aligner_band_width, dev,
+                    cuda_aligner_batches, cuda_aligner_band_width, device,
                     score_dtype, pack_bases, pipeline_depth, metrics_path,
-                    profile_dir, cuda_engine, cuda_fused, fused_fallback)
+                    profile_dir, cuda_engine, cuda_fused, fused_fallback,
+                    adaptive_buckets, devices)
 
 
 class Polisher:
@@ -124,7 +137,13 @@ class Polisher:
                  pipeline_depth: int = 2, metrics_path: str | None = None,
                  profile_dir: str | None = None,
                  cuda_engine: str = "session", cuda_fused: str = "auto",
-                 fused_fallback: str = "session"):
+                 fused_fallback: str = "session",
+                 adaptive_buckets: bool = False, devices=None):
+        import torch
+
+        from ..parallel.mesh import BatchRunner
+        from ..sched import BatchScheduler
+
         self.sparser = sparser
         self.oparser = oparser
         self.tparser = tparser
@@ -155,6 +174,20 @@ class Polisher:
         # share
         self.hists = HistogramSet()
         self.pipeline_stats = PipelineStats(hists=self.hists)
+        # the occupancy-aware batch scheduler (sched/), shared by the
+        # aligner and whichever consensus engine runs: adaptive ladders
+        # and sorted packing when armed, per-bucket occupancy telemetry
+        # always, its first-dispatch walls in the run's histograms
+        self.scheduler = BatchScheduler(adaptive=adaptive_buckets)
+        self.scheduler.stats.hists = self.hists
+        #: the lanes the device engines split their batches over
+        if devices is None and (self.device.type == "cpu"
+                                or torch.device(device).index is not None):
+            devices = [self.device]
+        self.device_runner = BatchRunner(devices)
+        #: completed initialize() + polish() cycles: a reused polisher
+        #: resets its per-run counters at the next initialize()
+        self._runs_completed = 0
 
         self.sequences: list[Sequence] = []
         self.windows: list[Window] = []
@@ -177,6 +210,10 @@ class Polisher:
         self.metrics.register(
             "pipeline", lambda: {k: v for k, v in self.stage_stats.items()
                                  if k not in REPORT_KEYS})
+        # late-bound lambdas: a reused polisher swaps in fresh counters
+        # per run and the registry must follow them
+        self.metrics.register("sched",
+                              lambda: self.scheduler.stats.snapshot())
         self.metrics.register("latency", lambda: self.hists.snapshot())
         self.metrics.register(
             "aligner", lambda: {
@@ -198,6 +235,27 @@ class Polisher:
         """Snapshot of the pipeline stage counters (both phases)."""
         return self.pipeline_stats.snapshot()
 
+    @property
+    def occupancy_stats(self) -> dict:
+        """Snapshot of the scheduler's per-bucket occupancy counters
+        (jobs / batches / lanes / useful vs padded cells / occupancy %
+        per engine, plus first-dispatch count and seconds)."""
+        return self.scheduler.stats.snapshot()
+
+    def _reset_run_state(self) -> None:
+        """Fresh per-run counters for a reused polisher: a second
+        initialize() + polish() cycle reports its own stage seconds,
+        occupancy and aligner counts, not a running total."""
+        from ..sched import OccupancyStats
+
+        self.hists = HistogramSet()
+        self.pipeline_stats = PipelineStats(hists=self.hists)
+        self.scheduler.stats = OccupancyStats()
+        self.scheduler.stats.hists = self.hists
+        self.n_aligner_pairs = 0
+        self.n_aligner_device = 0
+        self.n_aligner_host_fallback = 0
+
     # ------------------------------------------------------------------ init
     def initialize(self) -> None:
         if self.windows:
@@ -205,6 +263,8 @@ class Polisher:
                      "object already initialized!")
             return
         reset_dedup()
+        if self._runs_completed:
+            self._reset_run_state()
         t_init = time.perf_counter()
         log = self.logger
         log.log()
@@ -453,7 +513,8 @@ class Polisher:
                 self.aligner = BatchAligner(
                     band_width=self.cuda_aligner_band_width,
                     device=self.device, score_dtype=self.score_dtype,
-                    pack_bases=self.pack_bases)
+                    pack_bases=self.pack_bases, scheduler=self.scheduler,
+                    runner=self.device_runner)
                 pipeline = self._make_pipeline()
                 fb: list[tuple[list[int], object]] = []
                 # concurrent fallback jobs split the thread budget; at
@@ -542,7 +603,9 @@ class Polisher:
                             score_dtype=self.score_dtype,
                             pack_bases=self.pack_bases, pipeline=pipeline,
                             engine=self.cuda_engine, fused=self.cuda_fused,
-                            fused_fallback=self.fused_fallback)
+                            fused_fallback=self.fused_fallback,
+                            scheduler=self.scheduler,
+                            runner=self.device_runner)
         t0 = time.perf_counter()
         with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
                            else None, "consensus"), pipeline:
@@ -572,6 +635,13 @@ class Polisher:
                  f"device {ss['device_s']:.2f}s unpack {ss['unpack_s']:.2f}s "
                  f"fallback {ss['fallback_s']:.2f}s, {ss['chunks']} chunks / "
                  f"{ss['launches']} launches")
+        # occupancy report: how much of the dispatched device shapes was
+        # real work (silent on host-only runs)
+        occ = self.scheduler.stats.summary()
+        if occ:
+            log_info(f"[racon_tpu_torch::Polisher.polish] batch occupancy "
+                     f"(adaptive={'on' if self.scheduler.adaptive else 'off'})"
+                     f": {occ}")
 
         t0 = time.perf_counter()
         dst = self._stitch(drop_unpolished_sequences)
@@ -585,6 +655,7 @@ class Polisher:
         self.logger.total("[racon_tpu_torch::Polisher.] total =")
         self.windows = []
         self.sequences = []
+        self._runs_completed += 1
         self.emit_observability()
         return dst
 

@@ -206,17 +206,23 @@ class BatchAligner:
     a multiple of 128.
 
     Rejects mirror cudaaligner's statuses (cudaaligner.cpp:63-71): pairs
-    beyond the largest bucket or empty, pairs whose traceback rode the
-    band boundary, and pairs whose in-band cost is beyond what a
-    <=30%-error overlap can produce come back as None, and the caller
-    aligns them on the host — no overlap is ever dropped. Each reject is
-    counted.
+    beyond the largest bucket (the cudaaligner max-length envelope,
+    cudaaligner.cpp:63-68), or empty, pairs whose traceback rode the
+    band boundary, and pairs whose in-band cost is
+    beyond what a <=30%-error overlap can produce come back as None, and
+    the caller aligns them on the host — no overlap is ever dropped. Each
+    reject is counted.
 
     Each (edge, band) runs at the score dtype `score_dtype` resolves to
     under the bucket's overflow proof (dtypes.resolve_dtype), and a
     batch whose bases are all ACGT on both sides ships 2-bit packed
     unless `pack_bases` is False. Batches and pairs are counted per
     (dtype, packed).
+
+    `scheduler` (sched.BatchScheduler; a non-adaptive one when omitted)
+    derives the length edges from the run's pairs when adaptive and
+    records every batch's occupancy; `runner` (parallel/mesh.BatchRunner;
+    one lane on `device` when omitted) splits each batch over its lanes.
     """
 
     #: length bucket edges (sequences are padded to the bucket edge)
@@ -226,12 +232,20 @@ class BatchAligner:
 
     def __init__(self, band_width: int = 0,
                  device: str | torch.device = "cuda",
-                 score_dtype: str = "auto", pack_bases: bool = True):
+                 score_dtype: str = "auto", pack_bases: bool = True,
+                 scheduler=None, runner=None):
+        from ..parallel.mesh import BatchRunner
+        from ..sched import BatchScheduler
+
         self.band_width = band_width
         self.device = resolve(device)
         resolve_dtype(True, score_dtype)  # reject an unknown posture now
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
+        self.sched = (scheduler if scheduler is not None
+                      else BatchScheduler())
+        self.runner = (runner if runner is not None
+                       else BatchRunner([self.device]))
         #: pairs sent back for host alignment, by reason
         self.n_unbucketed = 0
         self.n_band_rejects = 0
@@ -245,7 +259,8 @@ class BatchAligner:
         return resolve_dtype(aligner_int16_ok(edge), self.score_dtype)
 
     def _bucket_of(self, length: int) -> int | None:
-        return next((edge for edge in self.BUCKETS if length <= edge), None)
+        return next((edge for edge in self.BUCKETS if length <= edge),
+                    None)
 
     def _band_for(self, pairs, idxs) -> int:
         if self.band_width > 0:
@@ -256,43 +271,110 @@ class BatchAligner:
 
     def _split(self, pairs) -> tuple[list, list[int]]:
         """(edge, band, pair indices) device batches in dispatch order,
-        and the unbucketable pairs (beyond the largest bucket, or empty),
-        which are counted."""
-        groups: dict[int, list[int]] = {}
+        and the unbucketable pairs (beyond the largest bucket, or
+        empty). The JAX aligner's chunk loop
+        (racon_tpu/ops/align.py:365-465)."""
+        def shape_of(idx: int) -> int:
+            return max(len(pairs[idx][0]), len(pairs[idx][1]))
+
+        # device eligibility and the AUTO band are ALWAYS decided by the
+        # static ladder, adaptive mode included. The band is algorithmic,
+        # not padding — it changes which equal-cost path the banded DP
+        # can see — so it must not move when the scheduler regroups jobs;
+        # pinning both to the static rule makes scheduler-on vs -off
+        # byte-identity structural, not a fixture property.
+        static_groups: dict[int, list[int]] = {}
         unbucketed: list[int] = []
         for idx, (qs, ts) in enumerate(pairs):
             edge = self._bucket_of(max(len(qs), len(ts)))
             if edge is None or not qs or not ts:
                 unbucketed.append(idx)
                 continue
-            groups.setdefault(edge, []).append(idx)
-        self.n_unbucketed += len(unbucketed)
-        out = []
-        for edge, idxs in sorted(groups.items()):
+            static_groups.setdefault(edge, []).append(idx)
+        band_of: dict[int, int] = {}
+        for edge, idxs in static_groups.items():
             band = self._band_for(pairs, idxs)
+            for i in idxs:
+                band_of[i] = band
+
+        # regroup by (edge, band). Static mode: one band per bucket.
+        # Adaptive mode: a sub-ladder INSIDE each occupied static bucket
+        # (the launch-shape budget K = len(BUCKETS) split across buckets
+        # by job count), so jobs move to a tighter edge but keep their
+        # static band — the per-lane DP (band + offsets) is identical,
+        # only the wavefront count shrinks. Static edges are multiples
+        # of the ladder quantum, so a derived edge never exceeds its
+        # static bucket's.
+        groups: dict[tuple[int, int], list[int]] = {}
+        if self.sched.adaptive and static_groups:
+            k_of = {edge: 1 for edge in static_groups}
+            spare = len(self.BUCKETS) - len(static_groups)
+            by_load = sorted(static_groups,
+                             key=lambda e: -len(static_groups[e]))
+            i = 0
+            while spare > 0:
+                k_of[by_load[i % len(by_load)]] += 1
+                spare -= 1
+                i += 1
+            for edge, idxs in static_groups.items():
+                sub = self.sched.aligner_ladder(
+                    [shape_of(i) for i in idxs], k=k_of[edge],
+                    max_length=self.BUCKETS[-1]) or (edge,)
+                for i in idxs:
+                    e = next((x for x in sub if x >= shape_of(i)), edge)
+                    groups.setdefault((e, band_of[i]), []).append(i)
+        else:
+            for edge, idxs in static_groups.items():
+                for i in idxs:
+                    groups.setdefault((edge, band_of[i]), []).append(i)
+
+        from ..sched import shard_interleave
+
+        out = []
+        n_dev = self.runner.n_devices
+        for (edge, band), idxs in sorted(groups.items()):
+            # sorted packing: shape-homogeneous batches (results land by
+            # original index); identity when the scheduler is off
+            idxs = self.sched.order(idxs, key=shape_of)
             lane_bytes = (2 * edge + 1) * band
-            max_lanes = max(1, self.MAX_BP_BYTES // lane_bytes)
-            for s in range(0, len(idxs), max_lanes):
-                out.append((edge, band, idxs[s:s + max_lanes]))
+            max_lanes = max(n_dev, self.MAX_BP_BYTES // lane_bytes)
+            if n_dev > 1:
+                # lane-aware chunking: BODY batches are multiples of the
+                # lane count (rows interleaved so each lane carries an
+                # even share of the sorted lengths) and the remainder
+                # runs as its own batch on a sub-runner (for_batch)
+                # instead of padding whole lanes up to the full count
+                stride = max(n_dev, (max_lanes // n_dev) * n_dev)
+                body = (len(idxs) // n_dev) * n_dev
+                for s in range(0, body, stride):
+                    part = idxs[s:s + min(stride, body - s)]
+                    out.append((edge, band, shard_interleave(part, n_dev)))
+                if body < len(idxs):
+                    out.append((edge, band, idxs[body:]))
+            else:
+                for s in range(0, len(idxs), max_lanes):
+                    out.append((edge, band, idxs[s:s + max_lanes]))
         return out, unbucketed
 
     def chunks(self, pairs) -> list[tuple[int, int, list[int]]]:
-        """(edge, band, pair indices) device batches, in dispatch order;
-        unbucketable pairs are counted and left out."""
+        """(edge, band, pair indices) device batches, in dispatch order
+        (what align() dispatches); unbucketable pairs are left out."""
         return self._split(pairs)[0]
 
-    def operands(self, pairs, edge: int, band: int, idx: list[int],
-                 pack: bool | None = None):
-        """Device tensors (q, t, q_lens, t_lens, offsets) for one batch,
-        copied to a card from pinned buffers, asynchronously on the
-        current stream. q and t are 2-bit packed uint8 (the kernel's
-        packed form) when `pack` is True, int8 codes when False; None
-        packs when `pack_bases` is on and both sides are all ACGT."""
+    def host_operands(self, pairs, edge: int, band: int, idx: list[int],
+                      pack: bool | None = None, lanes: int | None = None):
+        """Host tensors (q, t, q_lens, t_lens, offsets) for one batch,
+        pinned when the aligner's device is a card, padded with one-base
+        pairs up to `lanes` rows. q and t are 2-bit packed uint8 (the
+        kernel's packed form) when `pack` is True, int8 codes when False;
+        None packs when `pack_bases` is on and both sides are all
+        ACGT."""
         from .encode import encode_padded, pack_2bit, packable
 
         n_waves = 2 * edge + 1
-        q_arr, q_lens = encode_padded([pairs[i][0] for i in idx], edge)
-        t_arr, t_lens = encode_padded([pairs[i][1] for i in idx], edge)
+        pad = [b"A"] * ((lanes or len(idx)) - len(idx))
+        q_arr, q_lens = encode_padded([pairs[i][0] for i in idx] + pad, edge)
+        t_arr, t_lens = encode_padded([pairs[i][1] for i in idx] + pad, edge)
         offs = np.stack([band_offsets(int(a), int(b), band, n_waves)
                          for a, b in zip(q_lens, t_lens)])
         if pack is None:
@@ -304,9 +386,19 @@ class BatchAligner:
         for x in (q_arr, t_arr, q_lens, t_lens, offs):
             x = torch.from_numpy(np.ascontiguousarray(x))
             if self.device.type == "cuda":
-                x = x.pin_memory().to(self.device, non_blocking=True)
+                x = x.pin_memory()
             out.append(x)
         return tuple(out)
+
+    def operands(self, pairs, edge: int, band: int, idx: list[int],
+                 pack: bool | None = None):
+        """host_operands' tensors copied to the aligner's device,
+        asynchronously on the current stream."""
+        from ..parallel.mesh import BatchRunner
+
+        return tuple(BatchRunner.place(x, self.device)
+                     for x in self.host_operands(pairs, edge, band, idx,
+                                                 pack))
 
     def align(self, pairs: list[tuple[bytes, bytes]], progress=None,
               pipeline=None,
@@ -315,11 +407,14 @@ class BatchAligner:
         runs, or None for rejected pairs (see class docstring).
 
         `pipeline` (pipeline.DispatchPipeline) overlaps the host stages
-        with the device: `pack` builds a batch's operands and starts
-        their copies to the card, `dispatch` launches K2 and the copies
-        back (on the caller's thread, where the launch and plan counters
-        are bumped), `wait` blocks on the batch's event, and `unpack`
-        decodes the runs and applies the reject test. On a card each
+        with the device: `pack` builds a batch's operands and (one lane)
+        starts their copies to the card, `dispatch` launches K2 through
+        the runner (several lanes: each lane's shard copied and launched
+        on its own stream, the outputs concatenated in lane order) and
+        the copies back (on the caller's thread, where the launch, plan
+        and occupancy counters are bumped), `wait` blocks on the batch's
+        event, and `unpack` decodes the runs and applies the reject
+        test. On a card each
         batch in flight runs on its own stream, from a pool of depth + 2
         (one stream would serialise every stage); its tensors are
         allocated on that stream. Omitted, the stages run synchronously
@@ -328,17 +423,25 @@ class BatchAligner:
         clipped pairs per batch as it is decoded. Results land by
         original index.
         """
+        import functools
+        import time
+
+        from ..parallel.mesh import concat
         from ..pipeline import DispatchPipeline
         from .align_kernels import wavefront_align
+        from .device_program import shard_useful_split
 
         pl = pipeline if pipeline is not None else DispatchPipeline(depth=0)
         results: list[list[tuple[int, str]] | None] = [None] * len(pairs)
         chunks, unbucketed = self._split(pairs)
+        self.n_unbucketed += len(unbucketed)
         if on_reject is not None and unbucketed:
             on_reject(unbucketed)
         streams = ([torch.cuda.Stream(self.device)
                     for _ in range(pl.depth + 2)]
                    if self.device.type == "cuda" else None)
+        runner = self.runner
+        kernel = "cuda" if self.device.type == "cuda" else "plain"
 
         def on_stream(i):
             if streams is None:
@@ -347,8 +450,15 @@ class BatchAligner:
 
         def pack(chunk):
             i, edge, band, idx = chunk
+            # a tail smaller than the lane count runs on a sub-runner
+            # (for_batch) with no padding lanes; one lane: the operands'
+            # copies start here, on the batch's stream
+            r = runner.for_batch(len(idx))
             with record_function("align.operands"), on_stream(i):
-                args = self.operands(pairs, edge, band, idx)
+                args = self.host_operands(pairs, edge, band, idx,
+                                          lanes=r.round_batch(len(idx)))
+                if r.n_devices == 1:
+                    args = tuple(r.place(x, r.devices[0]) for x in args)
             lens = np.maximum([len(pairs[j][0]) for j in idx],
                               [len(pairs[j][1]) for j in idx])
             return args, lens
@@ -361,9 +471,34 @@ class BatchAligner:
             self.batches_by_plan[plan] = self.batches_by_plan.get(plan, 0) + 1
             self.pairs_by_plan[plan] = self.pairs_by_plan.get(plan,
                                                               0) + len(idx)
+            r = runner.for_batch(len(idx))
+            lanes, n_waves = offs.shape
             with record_function("align.kernel"), on_stream(i):
-                ops, meta = wavefront_align(q, t, q_lens, t_lens, offs,
-                                            band, *plan)
+                # first-dispatch telemetry: the JAX package's key, the
+                # lane count included
+                t0 = time.perf_counter()
+                ops, meta = concat(r.run_split(
+                    functools.partial(wavefront_align, band=band,
+                                      score_dtype=dtype, packed=plan[1]),
+                    q, t, q_lens, t_lens, offs), self.device)
+                self.sched.stats.record_compile_once(
+                    "aligner", (band, n_waves, lanes, kernel, *plan),
+                    time.perf_counter() - t0)
+                # occupancy: useful DP cells = per-pair wave count x band
+                # against the batch's n_waves x band x lanes, with the
+                # lane view (per-lane useful split; what the full
+                # runner's round_batch would have dispatched)
+                row_cells = [(len(pairs[j][0]) + len(pairs[j][1]) + 1)
+                             * band for j in idx]
+                self.sched.stats.record(
+                    "aligner", (edge, band), jobs=len(idx), lanes=lanes,
+                    useful_cells=sum(row_cells),
+                    total_cells=lanes * n_waves * band, kernel=kernel,
+                    dtype=dtype, n_devices=r.n_devices,
+                    shard_useful=shard_useful_split(row_cells, lanes,
+                                                    r.n_devices),
+                    full_mesh_cells=(runner.round_batch(len(idx))
+                                     * n_waves * band))
                 pl.stats.bump("launches")
                 if streams is None:
                     return ops, meta, None, lens

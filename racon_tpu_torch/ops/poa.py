@@ -22,6 +22,11 @@ reference. The engines:
     device) go to the session engine, or with `fused_fallback="host"` to
     the host engine, and are counted and logged.
 
+Both device engines take the run's occupancy scheduler (sched/) and
+batch runner (parallel/mesh); the windows the fused engine leaves go
+through a session engine whose scheduler is not adaptive but shares the
+run's counters.
+
 The host engine runs its chunks through the dispatch pipeline
 (pipeline/): a pack worker builds chunk k+1's window lists while the
 native POA call (GIL released) computes chunk k and the unpack worker
@@ -53,7 +58,8 @@ class BatchPOA:
                  device: str | torch.device = "cuda",
                  score_dtype: str = "auto", pack_bases: bool = True,
                  pipeline=None, engine: str = "session",
-                 fused: str = "auto", fused_fallback: str = "session"):
+                 fused: str = "auto", fused_fallback: str = "session",
+                 scheduler=None, runner=None):
         if engine not in ("session", "fused"):
             raise ValueError(f"device engine {engine!r}: want 'session' or "
                              f"'fused'")
@@ -80,6 +86,12 @@ class BatchPOA:
         self.engine_name = engine
         self.fused = fused
         self.fused_fallback = fused_fallback
+        #: the occupancy-aware batch scheduler (sched/) threaded into
+        #: whichever device engine runs, and the lanes (parallel/mesh)
+        #: their batches are split over; None lets each engine make its
+        #: own (a non-adaptive scheduler, one lane on `device`)
+        self.scheduler = scheduler
+        self.runner = runner
         #: per-window outcome counts of the last pass: on the device (the
         #: fused engine's and the session engine's), on the host, and
         #: backbone-only; n_fused of n_device came from the fused engine
@@ -136,14 +148,15 @@ class BatchPOA:
                describe=lambda c: {"engine": "host", "jobs": len(c)})
         self.n_host = len(todo)
 
-    def _session(self):
+    def _session(self, scheduler=None):
         from .poa_graph import DeviceGraphPOA
 
         return DeviceGraphPOA(
             self.match, self.mismatch, self.gap, device=self.device,
             num_threads=self.num_threads, logger=self.logger,
             banded_only=self.banded_only, score_dtype=self.score_dtype,
-            pack_bases=self.pack_bases)
+            pack_bases=self.pack_bases,
+            scheduler=scheduler or self.scheduler, runner=self.runner)
 
     def _device_consensus(self, todo, trim) -> None:
         from .poa_graph import log_session_stats
@@ -173,7 +186,8 @@ class BatchPOA:
             self.match, self.mismatch, self.gap, device=self.device,
             num_threads=self.num_threads, logger=self.logger,
             banded_only=self.banded_only, fused=self.fused,
-            score_dtype=self.score_dtype)
+            score_dtype=self.score_dtype, scheduler=self.scheduler,
+            runner=self.runner)
         results, statuses = fused.consensus(packed, fallback=to_host,
                                             pipeline=self.pipeline)
         self.n_fused = int((statuses == 0).sum())
@@ -188,7 +202,16 @@ class BatchPOA:
                  f" engine")
         rest = [i for i, r in enumerate(results) if r is None]
         if rest:
-            session = self._session()
+            # the leftover windows are a handful of envelope-tail cases: no
+            # grid is derived from them (the session engine keeps the
+            # static grid), while its occupancy still flows into the run's
+            # shared counters
+            from ..sched import BatchScheduler
+
+            session = self._session(BatchScheduler(
+                adaptive=False, stats=(self.scheduler.stats
+                                       if self.scheduler is not None
+                                       else None)))
             sub_res, sub_st = session.consensus([packed[i] for i in rest])
             log_session_stats(session.last_stats, sub_st,
                               session.batches_by_plan)

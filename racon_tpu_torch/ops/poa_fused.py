@@ -46,6 +46,7 @@ to the caller, or with `fallback=True` to the host engine.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -530,7 +531,11 @@ class FusedPOA:
                  max_len: int = MAX_LEN, max_pred: int = MAX_PRED,
                  batch_rows: int | None = None,
                  depth_buckets=DEPTH_BUCKETS, banded_only: bool = False,
-                 fused: str = "auto", score_dtype: str = "auto"):
+                 fused: str = "auto", score_dtype: str = "auto",
+                 scheduler=None, runner=None):
+        from ..parallel.mesh import BatchRunner
+        from ..sched import BatchScheduler
+
         if fused not in ("auto", "0", "1"):
             raise ValueError(f"fused posture {fused!r}: want 'auto', '0' "
                              f"or '1'")
@@ -543,9 +548,25 @@ class FusedPOA:
         self.N = max_nodes
         self.L = max_len
         self.P = max_pred
-        self.B = batch_rows or _pinned_rows(self.device, self.N, self.L,
-                                            self.P)
+        #: occupancy-aware scheduler (sched/): adaptive depth ladder when
+        #: armed, per-depth-bucket occupancy telemetry always
+        self.sched = (scheduler if scheduler is not None
+                      else BatchScheduler())
+        #: the lanes each chunk is split over (one lane on `device` when
+        #: omitted). B is sized PER LANE from the device budget, times
+        #: the lane count, as the JAX engine sizes it per device; a
+        #: forced width is rounded up to a multiple of the lanes
+        self.runner = (runner if runner is not None
+                       else BatchRunner([self.device]))
+        if batch_rows:
+            self.B = self.runner.round_batch(batch_rows)
+        else:
+            self.B = (_pinned_rows(self.runner.devices[0], self.N, self.L,
+                                   self.P) * self.runner.n_devices)
         self.depth_buckets = tuple(depth_buckets)
+        #: the adaptive depth ladder's launch-shape budget, pinned to the
+        #: construction-time ladder size so adapt() is idempotent
+        self._depth_k = len(self.depth_buckets)
         self.banded_only = banded_only
         self.fused_posture = fused
         self.score_dtype = resolve_dtype(
@@ -556,7 +577,8 @@ class FusedPOA:
         self.last_stats: dict = {}
         self.n_fallback = 0
         # CUDA streams, kept for the engine's life, and K3 scratch, one per
-        # stream, kept for a consensus pass
+        # stream that launches K3 (a pipeline stream, or a lane's), kept
+        # for a consensus pass
         self._streams: list = []
         self._scratch: dict = {}
 
@@ -569,18 +591,21 @@ class FusedPOA:
             self._streams.append(torch.cuda.Stream(self.device))
         return self._streams[:n]
 
-    def _scratch_of(self, i: int):
-        """K3's scratch for stream i, allocated at its first use in a
-        consensus pass (on that stream) and kept until the pass ends;
-        None on the CPU."""
+    def _scratch_of(self, dev: torch.device, rows: int):
+        """K3's scratch for the current stream of `dev` (the stream that
+        launches), `rows` rows, allocated at its first use in a consensus
+        pass (on that stream) and kept until the pass ends; None on the
+        CPU."""
         from .poa_fused_kernels import scratch
 
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return None
-        if i not in self._scratch:
-            self._scratch[i] = scratch(self.B, self.N, self.L, self.device,
-                                       self.score_dtype)
-        return self._scratch[i]
+        st = torch.cuda.current_stream(dev)
+        key = (dev.index, st.cuda_stream, rows)
+        if key not in self._scratch:
+            self._scratch[key] = scratch(rows, self.N, self.L, dev,
+                                         self.score_dtype)
+        return self._scratch[key]
 
     def _fused_plan(self, plan) -> bool:
         """One fused launch for a chunk whose chain plan is `plan`? Only
@@ -603,6 +628,26 @@ class FusedPOA:
                if len(w) >= 3 and self._eligible(w)]
         idx.sort(key=lambda i: -len(windows[i]))
         return idx
+
+    def _adapt_depths(self, windows, fused_idx) -> None:
+        """Adaptive depth ladder from the ACTUAL chunk-max depths — known
+        exactly once windows are depth-sorted, since chunks are carved
+        from that list in B-strides; every padded layer costs B * L
+        device work, so tight edges are the whole occupancy story.
+        No-op when the scheduler is off."""
+        if not self.sched.adaptive or not fused_idx:
+            return
+        maxima = [len(windows[fused_idx[s]]) - 1
+                  for s in range(0, len(fused_idx), self.B)]
+        ladder = self.sched.depth_ladder(maxima, k=self._depth_k)
+        if ladder:
+            self.depth_buckets = ladder
+
+    def adapt(self, windows) -> None:
+        """Derive the adaptive depth ladder ahead of consensus() (the
+        ladder is a pure function of the window set; consensus() derives
+        the same one)."""
+        self._adapt_depths(windows, self._fused_order(windows))
 
     def _chain_plan(self, depth: int) -> list[int]:
         """The greedy chained-call depth sequence for one chunk depth."""
@@ -722,12 +767,19 @@ class FusedPOA:
                 ends[k, dd] = e
         return state, (seqs, lens, wts, begins, ends, bblen, offs)
 
-    def _to_device(self, arrays):
+    def _to_device(self, arrays, lanes: int = 1):
+        """Host arrays as tensors on the engine's device (one lane:
+        copied asynchronously from pinned memory on the current stream),
+        or left pinned on the host for the runner to place per lane."""
+        from ..parallel.mesh import BatchRunner
+
         out = []
         for a in arrays:
             t = torch.from_numpy(np.ascontiguousarray(a))
             if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+                t = t.pin_memory()
+                if lanes == 1:
+                    t = BatchRunner.place(t, self.device)
             out.append(t)
         return out
 
@@ -740,16 +792,23 @@ class FusedPOA:
         while the device pass runs.
 
         `pipeline` (pipeline.DispatchPipeline) drives the chunk loop:
-        `pack` builds a chunk's operands on the host and starts their
-        copies to the card, `dispatch` launches K3 (once per chained
-        call, or once on the fused posture) and the copies of the state
-        back, `wait` blocks on the chunk's event, `unpack` runs the host
-        heaviest-bundle. On a card each chunk in flight runs on its own
-        CUDA stream, from the engine's pool of depth + 2 (kept for the
-        engine's life), each stream with its own K3 scratch (kept for the
+        `pack` builds a chunk's operands on the host and (one lane)
+        starts their copies to the card, `dispatch` launches K3 (once per
+        chained call, or once on the fused posture) on each of the
+        runner's lanes and the copies of the state back, `wait` blocks on
+        the chunk's event, `unpack` runs the host heaviest-bundle. On a
+        card each chunk in flight runs on its own CUDA stream, from the
+        engine's pool of depth + 2 (kept for the engine's life); with
+        several lanes each lane's shard runs on its lane's stream. Each
+        stream that launches K3 has its own K3 scratch (kept for the
         pass: freed at its end, its blocks stay cached on the stream for
         the next pass). Omitted, the stages run synchronously (depth 0).
         A device error raises.
+
+        The adaptive scheduler derives the depth ladder from the chunks'
+        deepest windows first; every chained call (or fused chunk) is
+        recorded in layer units, a window counting as a job on its
+        chunk's first call only.
         """
         from ..native import poa_batch
         from ..pipeline import DispatchPipeline
@@ -764,6 +823,7 @@ class FusedPOA:
                 results[i] = (w[0][0], np.zeros(len(w[0][0]), np.uint32))
         fused_idx = self._fused_order(windows)
         fused_set = set(fused_idx)
+        self._adapt_depths(windows, fused_idx)
 
         bar = self.logger.bar if self.logger is not None else None
         if self.logger is not None and fused_idx:
@@ -788,6 +848,8 @@ class FusedPOA:
                                       n_threads=fb_threads))
 
         streams = self._stream_pool(pl.depth + 2)
+        n_dev = self.runner.n_devices
+        kernel = "cuda" if self.device.type == "cuda" else "plain"
 
         def on_stream(k):
             if streams is None:
@@ -805,27 +867,72 @@ class FusedPOA:
                     calls = [(sum(plan), ops, 0)]
                 else:
                     state, calls = self._pack_chunk(windows, chunk)
-                state = self._to_device(state)
+                state = self._to_device(state, n_dev)
                 calls = [(d, self._to_device(ops + (np.full(
-                    self.B, done, np.int32),)), done)
+                    self.B, done, np.int32),), n_dev), done)
                     for d, ops, done in calls]
             return fused, state, calls
 
+        def lane(calls, *tensors):
+            """One lane's shard of a chunk: every chained call (or the
+            one fused launch) against the shard's state, with the
+            stream's own K3 scratch; each call's first dispatch timed
+            for the first-dispatch telemetry."""
+            import time
+
+            state = tuple(tensors[:len(STATE)])
+            rest = tensors[len(STATE):]
+            rows = state[0].shape[0]
+            scratch = self._scratch_of(state[0].device, rows)
+            for d, n_ops, _, key in calls:
+                seqs, lens, wts, *slicing, lbase = rest[:n_ops]
+                rest = rest[n_ops:]
+                t0 = time.perf_counter()
+                state = fused_layers(
+                    state, seqs, lens, wts, tuple(slicing), lbase,
+                    self.match, self.mismatch, self.gap,
+                    banded_only=self.banded_only,
+                    score_dtype=self.score_dtype, scratch=scratch)
+                self.sched.stats.record_compile_once(
+                    "fused", key, time.perf_counter() - t0)
+            return state
+
         def dispatch(item, packed):
+            from ..parallel.mesh import concat
+            from .device_program import shard_useful_split
+
             k, chunk = item
             fused, state, calls = packed
+            depths = [len(windows[i]) - 1 for i in chunk]
+            # per chained call: its depth, operand count, layer base and
+            # launch identity (the JAX engine's first-compile key)
+            spec = [(d, len(ops), done,
+                     (self.N, self.L, d, self.P, self.match, self.mismatch,
+                      self.gap, self.banded_only, self.B, n_dev > 1,
+                      self.score_dtype, kernel) + (("loop",) if fused
+                                                   else ()))
+                    for d, ops, done in calls]
             with record_function("fused.kernel"), on_stream(k), \
                     trace.span("fused.dispatch", engine="fused",
                                jobs=len(chunk), calls=len(calls)):
-                scratch = (self._scratch_of(k % len(streams))
-                           if streams is not None else None)
-                for _, ops, _ in calls:
-                    seqs, lens, wts, *slicing, lbase = ops
-                    state = fused_layers(
-                        tuple(state), seqs, lens, wts, tuple(slicing), lbase,
-                        self.match, self.mismatch, self.gap,
-                        banded_only=self.banded_only,
-                        score_dtype=self.score_dtype, scratch=scratch)
+                outs = self.runner.run_split(
+                    functools.partial(lane, spec), *state,
+                    *(t for _, ops, _ in calls for t in ops))
+                state = concat(outs, self.device)
+                # occupancy in LAYER units, after the launches: every row
+                # pays all d layer steps of each call, real or padded; a
+                # window counts as a job on its chunk's first call only
+                for d, _, done, _ in spec:
+                    row_layers = [min(max(0, dep - done), d)
+                                  for dep in depths]
+                    self.sched.stats.record(
+                        "fused", d, jobs=len(chunk) if done == 0 else 0,
+                        lanes=self.B, useful_cells=sum(row_layers),
+                        total_cells=self.B * d, kernel=kernel,
+                        dtype=self.score_dtype, n_devices=n_dev,
+                        shard_useful=shard_useful_split(row_layers, self.B,
+                                                        n_dev),
+                        full_mesh_cells=self.B * d)
                 pl.stats.bump("launches", len(calls))
                 stats["fused_chunks"] += fused
                 if streams is None:
@@ -856,8 +963,16 @@ class FusedPOA:
                     bar("[racon_tpu_torch::Polisher.polish] building "
                         "whole-window POA graphs on device")
 
-        chunks = [fused_idx[s:s + self.B]
-                  for s in range(0, len(fused_idx), self.B)]
+        # lane balance: within each FULL chunk, windows round-robin over
+        # the lanes' row shards, so the depth-sorted deep windows spread
+        # over the lanes instead of loading the first; a pure
+        # permutation (per-window results are row-independent). The tail
+        # chunk keeps sorted order: its rows run contiguous from row 0.
+        from ..sched import shard_interleave
+
+        chunks = [shard_interleave(c, n_dev) if len(c) == self.B else c
+                  for c in (fused_idx[s:s + self.B]
+                            for s in range(0, len(fused_idx), self.B))]
         try:
             base = pl.stats.snapshot()
             pl.run(list(enumerate(chunks)), pack, dispatch, wait, unpack,

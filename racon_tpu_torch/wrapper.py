@@ -8,7 +8,9 @@ chunks, then polish chunk by chunk so peak memory stays bounded; with
 The port's copy of the JAX package's wrapper, byte for byte in its
 output, with the port CLI's device flags (-c/--cudapoa-batches,
 --cudaaligner-batches, -b/--cuda-banded-alignment, --device, --cuda-dtype,
---cuda-engine, --cuda-fused).
+--cuda-engine, --cuda-fused, --cuda-adaptive-buckets). The JAX wrapper
+arms its scheduler through the environment; the port has no environment
+mirror, so its wrapper takes the flag.
 
 Differences from the reference, both deliberate:
   - rampler is the in-package racon_tpu_torch.rampler (no external
@@ -47,7 +49,7 @@ def run(sequences: str, overlaps: str, target_sequences: str,
         cuda_aligner_batches: int = 0, cuda_banded_alignment: bool = False,
         device: str = "cuda", num_shards: int = 1, shard_id: int = 0,
         out=None, score_dtype: str = "auto", cuda_engine: str = "session",
-        cuda_fused: str = "auto") -> list:
+        cuda_fused: str = "auto", adaptive_buckets: bool = False) -> list:
     """Polish `target_sequences`, optionally subsampled/split, writing
     FASTA to `out` (default stdout). Returns the chunks' polishers, their
     data freed, for their counters and phase walls.
@@ -56,13 +58,17 @@ def run(sequences: str, overlaps: str, target_sequences: str,
     polishes a contiguous block of the target chunks (chunks are
     byte-bounded, so blocks are balanced), and concatenating the shard
     outputs in shard order reproduces the unsharded output byte for
-    byte. Needs --split so there is more than one chunk to scatter."""
+    byte. Needs --split so there is more than one chunk to scatter.
+    `adaptive_buckets` arms every chunk's occupancy-aware scheduler;
+    each chunk's polisher splits its batches over the lanes
+    create_polisher gives `device` (every visible card for a bare
+    'cuda')."""
     from .core.polisher import PolisherType, create_polisher
 
     if not (0 <= shard_id < num_shards):
         raise RaconError(
             "wrapper", f"shard_id {shard_id} outside [0, {num_shards})")
-    dev = resolve(device)
+    resolve(device)  # no card: raise before any work
     out = out if out is not None else sys.stdout.buffer
     work = tempfile.mkdtemp(prefix="racon_tpu_torch_work_")
     polishers = []
@@ -102,9 +108,9 @@ def run(sequences: str, overlaps: str, target_sequences: str,
                 PolisherType.kF if fragment_correction else PolisherType.kC,
                 window_length, quality_threshold, error_threshold, True,
                 match, mismatch, gap, threads, cuda_poa_batches,
-                cuda_banded_alignment, cuda_aligner_batches, device=dev,
+                cuda_banded_alignment, cuda_aligner_batches, device=device,
                 score_dtype=score_dtype, cuda_engine=cuda_engine,
-                cuda_fused=cuda_fused)
+                cuda_fused=cuda_fused, adaptive_buckets=adaptive_buckets)
             polisher.initialize()
             for seq in polisher.polish(not include_unpolished):
                 out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")
@@ -166,6 +172,11 @@ def main(argv: list[str] | None = None) -> int:
                         help="fused-engine chunk dispatch: 1 = one launch "
                              "per chunk (device-side slicing), 0 = the "
                              "split chained path, auto = the split path")
+    parser.add_argument("--cuda-adaptive-buckets", action="store_true",
+                        help="derive each device engine's shape ladder "
+                             "from the run's own job shapes and pack "
+                             "shape-sorted batches (occupancy-aware "
+                             "scheduler); byte-identical output")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="file-level scatter over the --split chunks: "
                              "total shards of this workload (cat shard "
@@ -189,7 +200,8 @@ def main(argv: list[str] | None = None) -> int:
             cuda_banded_alignment=args.cuda_banded_alignment,
             device=args.device, num_shards=args.num_shards,
             shard_id=args.shard_id, score_dtype=args.cuda_dtype,
-            cuda_engine=args.cuda_engine, cuda_fused=args.cuda_fused)
+            cuda_engine=args.cuda_engine, cuda_fused=args.cuda_fused,
+            adaptive_buckets=args.cuda_adaptive_buckets)
     except RaconError as exc:
         print(str(exc), file=sys.stderr)
         return 1

@@ -3,7 +3,9 @@ where importing jax fails, racon_tpu_torch polishes a tiny dataset on the
 CPU through both device paths (at the default score-dtype posture, through
 the dispatch pipeline at depth 2 with a span trace and a metrics dump,
 at int16, and with the fused consensus engine at both chunk postures,
-its kernel wrapper and host finalizer loaded), packs and unpacks bases and resolves a score dtype with its own
+its kernel wrapper and host finalizer loaded; with
+--cuda-adaptive-buckets, and through a 2-lane batch runner with the
+scheduler on for both engines, the same FASTA), packs and unpacks bases and resolves a score dtype with its own
 copies of the JAX package's encode and dtypes modules, corrects a tiny
 read set with -f (both device paths) and through the wrapper (split into
 chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
@@ -57,6 +59,27 @@ fused = [run(cli.main, ["--device", "cpu", "-c", "1", "--cuda-engine",
 assert fused[0] == fused[1] and fused[0].startswith(b">draft LN:i:")
 assert {"racon_tpu_torch.ops.poa_fused",
         "racon_tpu_torch.ops.poa_fused_kernels"} <= set(sys.modules)
+adaptive = run(cli.main, ["--device", "cpu", "-c", "1",
+                          "--cudaaligner-batches", "1",
+                          "--cuda-adaptive-buckets", *paths])
+assert adaptive == fasta
+from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+# the fused runs above align on the host
+for engine, want, aligner in (("session", adaptive, 1), ("fused", fused[1], 0)):
+    pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
+                          3, -5, -4, cuda_poa_batches=1,
+                          cuda_aligner_batches=aligner, device="cpu",
+                          cuda_engine=engine, cuda_fused="1",
+                          adaptive_buckets=True,
+                          devices=[torch.device("cpu")] * 2)
+    pol.initialize()
+    lanes = b"".join(b">" + s.name.encode() + b"\n" + s.data + b"\n"
+                     for s in pol.polish())
+    assert lanes == want, engine
+    assert pol.device_runner.lane_calls[1] > 0
+    assert engine in pol.occupancy_stats
+assert {"racon_tpu_torch.sched", "racon_tpu_torch.parallel.mesh",
+        "racon_tpu_torch.ops.device_program"} <= set(sys.modules)
 from racon_tpu_torch.ops import dtypes, encode
 assert dtypes.resolve_dtype(dtypes.poa_int16_ok(768, 640, 5, -4, -8)) \
     == "int16"

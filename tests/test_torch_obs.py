@@ -342,6 +342,12 @@ def test_cli_trace_spans_match_jax(traced):
                  "polisher.initialize", "polisher.align_overlaps",
                  "polisher.consensus", "polisher.stitch"):
         assert mine[name] == theirs[name], name
+    # the port's first dispatch of a launch shape is its span
+    # sched.first_dispatch, the JAX package's first compile xla.compile
+    # (each only when the shape is new to the process), with the same
+    # arguments
+    first = mine.pop("sched.first_dispatch", None)
+    assert first in (None, {"engine", "shape"})
     assert set(mine) <= set(theirs)
     loops = {e["args"]["loop"] for e in traced["trace"]["traceEvents"]
              if e["name"] == "pipeline.device"}
@@ -351,14 +357,27 @@ def test_cli_trace_spans_match_jax(traced):
 
 def test_cli_metrics_match_jax(traced):
     mine, theirs = traced["metrics"], traced["jax_metrics"]
-    assert set(mine) == {"pipeline", "latency", "aligner"}
+    assert set(mine) == {"pipeline", "sched", "latency", "aligner"}
     assert set(mine["pipeline"]) == set(theirs["pipeline"])
+    # occupancy: the same engines, and per bucket the same jobs and
+    # useful cells (lanes and padding follow each package's batch
+    # widths)
+    assert set(mine["sched"]) == set(theirs["sched"]) == {"aligner",
+                                                          "session"}
+    for engine in ("aligner", "session"):
+        assert ({b: (v["jobs"], v["useful_cells"])
+                 for b, v in mine["sched"][engine]["buckets"].items()}
+                == {b: (v["jobs"], v["useful_cells"])
+                    for b, v in theirs["sched"][engine]["buckets"].items()})
     assert set(mine["aligner"]) == set(theirs["aligner"])
     assert mine["aligner"] == theirs["aligner"]
     assert mine["aligner"]["host_fallbacks"] > 0
     assert mine["pipeline"]["chunks"] == mine["pipeline"]["launches"] >= 1
     assert mine["pipeline"]["fallback_s"] > 0.0
-    assert set(mine["latency"]) <= set(theirs["latency"])
+    # compile.<engine>: first dispatches / first compiles, each only for
+    # a shape new to its process
+    assert ({k for k in mine["latency"] if not k.startswith("compile.")}
+            <= set(theirs["latency"]))
     assert {"pipeline.pack", "pipeline.device", "pipeline.unpack",
             "pipeline.fallback", "phase.initialize", "phase.consensus",
             "phase.stitch"} <= set(mine["latency"])
