@@ -97,8 +97,9 @@ mismatch or exception exits non-zero:
      session engine (K1) or the host are printed. Per instantiation, the
      deepest chunk's second chained call (layer base > 0) at full width
      (128 rows) is held against the plain version on all 11 state
-     arrays and timed against its bound, and the deepest chunk's whole
-     fused launch on a slice of its first 8 rows is held likewise; K3 is
+     arrays and timed against its bound, and the whole fused launch of
+     the shallowest chunk that chains two calls or more, on a slice of
+     its first 8 rows, is held likewise; K3 is
      timed per chunk at both postures (CUDA events) and by stage (sort,
      range subgraph, DP, traceback, scans, writes; rows swept a layer, ns
      a DP row) on the deepest chunk's fused launch and the held chained
@@ -123,12 +124,22 @@ mismatch or exception exits non-zero:
      one card, and over every visible card when there are more, for both
      engines (FASTA equal to the 1-lane FASTA, calls counted per lane,
      each bucket's per-lane useful cells summing to its useful cells).
+  11. the autotuner, the oracle and the auditor (autotune_path): every
+     key the engines consult profiled on the card (K1 and K2 at both
+     widths, K3 split against one launch), each entry identical to its
+     oracle candidate, and a warm table profiling nothing; the contig
+     cell with the table for both engines (FASTA equal to phases 5 and
+     9's, decisions from the table); every window of the session and
+     the fused runs audited against the oracle on the card (0
+     mismatches); a planted mismatch caught, repaired and demoted, and
+     the next fused run launching split only with the same FASTA.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
-fragment path of phase 8, the fused path of phase 9 and the runs of
-phase 10, in all, by path and by instantiation; K3: launches on the
-four runs of phase 9 and the fused runs of phase 10), the
+fragment path of phase 8, the fused path of phase 9, the runs of phase
+10 and all of phase 11 (path `autotune`), in all, by path and by
+instantiation; K3: launches on the four runs of phase 9, the fused runs
+of phase 10 and phase 11), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
@@ -146,6 +157,10 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: the winner table of every phase before phase 11: a path that never
+#: exists, so those phases dispatch cold whatever table the user's cache
+#: holds
+COLD_TABLE = os.path.join(HERE, "build", "autotune_cold.json")
 
 
 #: peak rates of one H100 SXM: HBM bytes/s (NVIDIA data sheet), and the
@@ -225,6 +240,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_info()
     report: dict = {"card": card}
+    if os.path.exists(COLD_TABLE):
+        os.remove(COLD_TABLE)
     log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
         f"on {torch.cuda.get_device_name(0)}")
 
@@ -287,25 +304,28 @@ def main() -> int:
                          windows, report, k3stg)
     k1a, k2a, k3a = phase("10 adaptive", adaptive_path, dev, big, windows,
                           report)
+    k1t, k2t, k3t = phase("11 autotune", autotune_path, dev, big, workdir,
+                          report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
-                         (k1a, k2a)):
+                         (k1a, k2a), (k1t, k2t)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
-                            "adaptive"), paths))
+                            "adaptive", "autotune"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    k3["launches"] += sum(k3a.values())
-    k3["launches_by_path"].update(k3a)
-    for row in k3["instantiations"]:
-        row["launches"] += sum(n for name, n in k3a.items()
-                               if name.startswith(row["plan"])
-                               or (row["plan"] == "int32"
-                                   and name.startswith("fused ")))
+    for runs in (k3a, k3t):
+        k3["launches"] += sum(runs.values())
+        k3["launches_by_path"].update(runs)
+        for row in k3["instantiations"]:
+            row["launches"] += sum(n for name, n in runs.items()
+                                   if name.startswith(row["plan"])
+                                   or (row["plan"] == "int32"
+                                       and name.startswith("fused ")))
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -571,7 +591,7 @@ def check_window_sweep(dev, paths, report, notb) -> tuple[dict, list]:
     t0 = time.perf_counter()
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
-                          device="cuda")
+                          device="cuda", autotune_table=COLD_TABLE)
     pol.initialize()
     windows = [_pack(w) for w in pol.windows if len(w.sequences) >= 3]
 
@@ -926,7 +946,7 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
     chunks = []
     for edge, band, idx in al.chunks(pairs):
         args = al.operands(pairs, edge, band, idx)
-        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
+        plan = (al.plan_for(edge, band), args[0].dtype == torch.uint8)
         chunks.append((edge, band, idx, args, plan))
     no_tb = load_without_traceback(notb)
     main_rows = []
@@ -1060,7 +1080,8 @@ def run_golden(flags, paths, golden: str) -> float:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "racon_tpu_torch", *flags, "-m", "5", "-x",
-         "-4", "-g", "-8", "-t", str(os.cpu_count()), *paths],
+         "-4", "-g", "-8", "-t", str(os.cpu_count()),
+         "--cuda-autotune-table", COLD_TABLE, *paths],
         cwd=HERE, capture_output=True, timeout=600)
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
@@ -1109,7 +1130,8 @@ def check_trace_metrics(d, paths, report) -> None:
         [sys.executable, "-m", "racon_tpu_torch", "-c", "1",
          "--cudaaligner-batches", "1", "-m", "5", "-x", "-4", "-g", "-8",
          "-t", str(os.cpu_count()), "--cuda-trace", trace_path,
-         "--cuda-metrics", metrics_path, *paths],
+         "--cuda-metrics", metrics_path, "--cuda-autotune-table",
+         COLD_TABLE, *paths],
         cwd=HERE, capture_output=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0 or not proc.stdout.startswith(b">"):
@@ -1164,12 +1186,16 @@ def check_fragment_golden(workdir, report) -> None:
 
 
 
-def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
+def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP),
+                keep_windows: bool = False, **kw):
     """One polish of `paths` with both device paths on at the default
     posture and pipeline depth `depth`, the launch counters zeroed just
     before and read just after. Returns (polisher, polished, numbers);
     with the fused engine the numbers hold its launches and windows, and
-    the launches its chunks and chain plans call for."""
+    the launches its chunks and chain plans call for. `keep_windows`
+    keeps the run's windows, consensus filled, as the polisher's
+    `kept_windows` (polish() drops its own list). The winner table is
+    COLD_TABLE unless `autotune_table` names another."""
     import torch
 
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
@@ -1180,7 +1206,8 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
                           *scores, num_threads=os.cpu_count(),
                           cuda_poa_batches=1, cuda_banded_alignment=False,
                           cuda_aligner_batches=1, device="cuda",
-                          pipeline_depth=depth, **kw)
+                          pipeline_depth=depth,
+                          **{"autotune_table": COLD_TABLE, **kw})
     dev = pol.device
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1191,6 +1218,7 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP), **kw):
     pol.initialize()
     t1 = time.perf_counter()
     n_windows = len(pol.windows)
+    pol.kept_windows = list(pol.windows) if keep_windows else None
     # each window's backbone and layer lengths, for the K3 launches the
     # fused engine's chunks call for
     shapes = [(len(w.sequences[0]), [len(q) for q in w.sequences[1:]])
@@ -1686,7 +1714,7 @@ def hold_captured(dev, cap, label: str):
     al = BatchAligner(device=dev)
     for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
         args = al.operands(pairs, edge, band, idx)
-        plan = (al.plan_for(edge), args[0].dtype == torch.uint8)
+        plan = (al.plan_for(edge, band), args[0].dtype == torch.uint8)
         a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
                                                   pack=False)
         held = hold_k2(edge, band, a8, args if plan[1] else None,
@@ -1753,7 +1781,8 @@ def fragment_path(dev, truth, reads, workdir, report):
         pols = wrapper.run(*paths, split=800_000, fragment_correction=True,
                            threads=os.cpu_count(), cuda_poa_batches=1,
                            cuda_aligner_batches=1, device="cuda",
-                           num_shards=4, shard_id=0, out=out)
+                           num_shards=4, shard_id=0, out=out,
+                           autotune_table=COLD_TABLE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1 = poa_kernels.launches
@@ -2053,8 +2082,9 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
     chunk's deepest window. Then, per instantiation,
     the deepest chunk's second chained call at full width is held
     against the plain version on all 11 state arrays (and timed, with
-    its bound), the deepest chunk's whole fused launch on a slice of its
-    first 8 rows likewise, K3 is timed over every chunk at both postures
+    its bound), the whole fused launch of the shallowest chunk that
+    chains two calls or more on a slice of its first 8 rows likewise, K3
+    is timed over every chunk at both postures
     (CUDA events) and by stage (`k3stg`: the diagnostic build started by
     build_k3_stages), and two fused consensus passes of one engine are
     traced. Returns (K1, K2 launches of the four runs, by instantiation)
@@ -2213,18 +2243,23 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
         bms, by = fused_bound(state0, ops, done1, scores, dtype)
         held = [f"the deepest chunk's second chained call ({d1} layers "
                 f"from layer {done1} x {eng.B} rows)"]
-        # the deepest chunk's whole fused launch on a slice of its first
-        # 8 rows (all its rows would take the plain version many minutes)
-        first = chunks[0][:8]
+        # the whole fused launch of the shallowest chunk whose chain
+        # takes two calls or more, on a slice of its first 8 rows (all
+        # its rows would take the plain version many minutes; the deepest
+        # chunk's 48 layers took it a minute a width)
+        plans = [eng._chain_plan(max(len(windows[i]) - 1 for i in c))
+                 for c in chunks]
+        ci = min((k for k, pl in enumerate(plans) if len(pl) >= 2),
+                 key=lambda k: sum(plans[k]))
+        first = chunks[ci][:8]
         rs = len(first)
         eng8 = FusedPOA(*scores, device=dev, batch_rows=rs, fused="1")
-        D = sum(eng._chain_plan(max(len(windows[i]) - 1
-                                    for i in chunks[0])))
-        st8, ops8 = eng8._pack_chunk_fused(windows, first, D)
+        Ds = sum(plans[ci])
+        st8, ops8 = eng8._pack_chunk_fused(windows, first, Ds)
         s8, o8 = to_dev(st8), to_dev(ops8)
         k8 = launch([t.clone() for t in s8], o8, 0, rs)
         t0 = time.perf_counter()
-        p8 = fused_raw(eng.N, eng.L, D, eng.P, *scores, score_dtype=dtype,
+        p8 = fused_raw(eng.N, eng.L, Ds, eng.P, *scores, score_dtype=dtype,
                        device_slice=True)(
             *s8, *o8, torch.zeros(rs, dtype=torch.int32, device=dev))
         torch.cuda.synchronize()
@@ -2233,11 +2268,12 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
             if not torch.equal(x, y):
                 raise SystemExit(f"K3 {dtype}: {nm} differs from the "
                                  f"plain version on the fused launch of "
-                                 f"the deepest chunk's first {rs} rows")
+                                 f"chunk {ci}'s first {rs} rows")
         # K3's time by stage (its diagnostic build) on the deepest chunk's
         # whole fused launch at full width and on the held chained call
         stages = {}
-        stf0, opsf0 = eng._pack_chunk_fused(windows, chunks[0], D)
+        stf0, opsf0 = eng._pack_chunk_fused(windows, chunks[0],
+                                            sum(plans[0]))
         for what, st0, o, done in (
                 ("fused", to_dev(stf0), to_dev(opsf0), 0),
                 ("chained", state0, ops, done1)):
@@ -2246,8 +2282,8 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
             log_stage_split(f"{dtype}, the deepest chunk's "
                             + ("fused launch" if what == "fused" else
                                "second chained call"), stages[what])
-        held.append(f"the deepest chunk's fused launch ({D} layers x "
-                    f"{rs} rows)")
+        held.append(f"chunk {ci}'s fused launch ({Ds} layers x {rs} "
+                    f"rows)")
         row = {"plan": dtype, "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": bms, "bound_by": by, "library_ms": None,
                "held": held, "plain_slice_ms": slice_ms, "stages": stages,
@@ -2363,7 +2399,7 @@ def replay_contig(dev, windows, pairs, adaptive_k1) -> dict:
         batches = []
         for edge, band, idx in al.chunks(pairs):
             args = al.operands(pairs, edge, band, idx)
-            batches.append((band, (al.plan_for(edge),
+            batches.append((band, (al.plan_for(edge, band),
                                    args[0].dtype == torch.uint8), args))
         k2 = {"launches": len(batches),
               "shapes": sorted({(int(b[2][0].shape[1]
@@ -2536,7 +2572,7 @@ def adaptive_path(dev, paths, windows, report):
             continue
         part = idx[:16] if edge > 2048 else idx
         a8, ap = k2_forms(al, pairs, edge, band, part)
-        dtype = al.plan_for(edge)
+        dtype = al.plan_for(edge, band)
         held = hold_k2(edge, band, a8, ap, f"the adaptive path's fullest "
                        f"({edge}, {band}) batch", widths=(dtype,))
         for p, r in held.items():
@@ -2685,7 +2721,7 @@ def adaptive_path(dev, paths, windows, report):
                        fragment_correction=True, threads=os.cpu_count(),
                        cuda_poa_batches=1, cuda_aligner_batches=1,
                        device="cuda", num_shards=4, shard_id=0, out=buf,
-                       adaptive_buckets=True)
+                       adaptive_buckets=True, autotune_table=COLD_TABLE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fm = {"k1_launches": poa_kernels.launches,
@@ -2749,6 +2785,259 @@ def adaptive_path(dev, paths, windows, report):
     report["adaptive_path"] = out
     return ((totals["k1"], k1_all), (totals["k2"], k2_all), k3_runs)
 
+
+def autotune_path(dev, paths, workdir, report):
+    """Phase 11: the autotuner, the oracle and the auditor on the card
+    (sched/autotune.py, ops/oracle.py, obs/audit.py) with phase 5's
+    contig cell, every FASTA held to the earlier phases':
+
+      1. `autotune.profile_all` at the contig cell's 5/-4/-8 and the CLI's
+         default 3/-5/-4: K1 at both widths on each static session bucket,
+         K2 at both widths on every (edge, band) the auto band rule can
+         dispatch for edges 512 to 8192 (no pair of the chip cells lies
+         beyond 8192), K3 split against one launch on each depth bucket
+         at (2048, 640), each at the width the engine launches it; each
+         entry printed (winner, identical, both candidates' mean and
+         fastest / slowest ms, whether the gap was noise), and every
+         entry must be identical; the table saved under build/;
+      2. a second Autotuner on the same file profiles nothing;
+      3. the contig cell with the table: the fused engine at `--cuda-fused
+         auto` at both score sets (FASTA equal to phase 9's) and the
+         session engine at `--cuda-dtype auto` (FASTA equal to phase 5's);
+         the fused and split chunks per leading depth bucket, K3's
+         launches and each run's table decisions printed; at least one
+         decision must come from the table;
+      4. WindowAuditor(rate=1.0) on the card over every window of the
+         session run and of both fused runs: 0 mismatches; the
+         shadow seconds against the run's consensus wall, and the windows
+         sampled at rate 0.1;
+      5. one base of one window's consensus flipped and the fused run's
+         windows audited again: exactly 1 mismatch, the window repaired to
+         the oracle bytes, a flight artifact with both streams, the table
+         on disk demoted for the fused engine's implicated engines (read
+         back by a fresh Autotuner); then one more fused run at `auto`
+         launches K3 split only and writes the same FASTA.
+
+    No plain version runs: the instantiations launched here are held
+    against theirs in phases 2, 3, 9 and 10. Returns K1's and K2's
+    launches over the phase (in all, by instantiation) and K3's by score
+    dtype."""
+    import shutil
+
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.obs.audit import (WindowAuditor,
+                                           window_sample_fraction)
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels as fk
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.sched import autotune
+
+    card = card_info()
+    out: dict = {"runs": {}, "audits": {}}
+    tot: dict = {"k1": 0, "k2": 0, "k1p": {}, "k2p": {}, "k3": {}}
+
+    def take():
+        """Fold the launch counters into the phase's totals, then zero
+        them (polish_once zeroes them at its start)."""
+        tot["k1"] += poa_kernels.launches
+        tot["k2"] += align_kernels.launches
+        for src, dst in ((poa_kernels.launches_by_shape, tot["k1p"]),
+                         (align_kernels.launches_by_shape, tot["k2p"])):
+            for name, n in by_plan(src).items():
+                dst[name] = dst.get(name, 0) + n
+        for (_, _, _, dt, _), n in fk.launches_by_shape.items():
+            tot["k3"][f"{dt} autotune"] = tot["k3"].get(
+                f"{dt} autotune", 0) + n
+        for mod in (poa_kernels, align_kernels, fk):
+            mod.reset_launches()
+
+    def decisions(pol) -> dict:
+        return {f"{e} {k}{':' + d if d else ''}": n
+                for (e, k, d), n in pol.autotune_decisions.items()}
+
+    for mod in (poa_kernels, align_kernels, fk):
+        mod.reset_launches()
+    table = os.path.join(HERE, "build", "autotune_phase11.json")
+    if os.path.exists(table):
+        os.remove(table)
+    autotune.reset_autotuner_cache()
+
+    # ---- 1. profile every key the engines consult
+    scores = ((MATCH, MISMATCH, GAP), (3, -5, -4))
+    at = autotune.Autotuner(table)
+
+    def show(engine, key, ent, fresh):
+        log(f"[chip_smoke] autotune {engine} {key}: winner "
+            f"{ent['kernel']}:{ent['dtype']} identical={ent['identical']} "
+            f"noise={ent.get('noise', False)} fresh={fresh} "
+            f"ms={ent['ms']} spread={ent['spread']}")
+
+    t0 = time.perf_counter()
+    done = autotune.profile_all(at, scores=scores, device=dev,
+                                report=show)
+    torch.cuda.synchronize()
+    out["profile_s"] = time.perf_counter() - t0
+    at.save()
+    take()
+    out["entries"] = {f"{e} {'x'.join(str(v) for v in k)}": ent
+                      for e, k, ent, _ in done}
+    bad = [k for k, ent in out["entries"].items() if not ent["identical"]]
+    if bad or not all(f for *_, f in done):
+        raise SystemExit(f"autotune path: entries not identical {bad}, or "
+                         f"not profiled fresh")
+    log(f"[chip_smoke] autotune: {len(done)} entries profiled in "
+        f"{out['profile_s']:.2f} s (K1 {tot['k1']}, K2 {tot['k2']}, K3 "
+        f"{sum(tot['k3'].values())} launches), every candidate identical to "
+        f"the oracle; aligner edges above 8192 not profiled (no pair of "
+        f"the chip cells lies beyond 8192); card {card}")
+
+    # ---- 2. the warm table profiles nothing
+    again = autotune.profile_all(autotune.Autotuner(table), scores=scores,
+                                 device=dev)
+    launched = (poa_kernels.launches, align_kernels.launches, fk.launches)
+    if any(f for *_, f in again) or any(launched):
+        raise SystemExit(f"autotune path: the warm table profiled again "
+                         f"(launches {launched})")
+    log(f"[chip_smoke] autotune: a second Autotuner on {table} profiled "
+        f"nothing ({len(again)} entries, fresh=False, no launch)")
+
+    # ---- 3. the contig cell with the table
+    runs = {}
+    from_table = 0
+    for label, sc, kw, key in (
+            ("fused int32", (5, -4, -8), {"cuda_engine": "fused"},
+             "fused int32"),
+            ("fused int16", (3, -5, -4), {"cuda_engine": "fused"},
+             "fused int16"),
+            ("session", (MATCH, MISMATCH, GAP), {}, "contig")):
+        pol, polished, m = polish_once(paths, 2, scores=sc,
+                                       keep_windows=True,
+                                       autotune_table=table, **kw)
+        take()
+        if fasta_of(polished) != KEPT[key]:
+            raise SystemExit(f"autotune path {label}: the FASTA with the "
+                             f"table differs from the {key} FASTA")
+        dec = decisions(pol)
+        from_table += sum(n for d, n in dec.items()
+                          if d.split()[1] != "none")
+        row = {"decisions": dec, "consensus_s": m["consensus_s"],
+               "k1_launches_by_plan": m["k1_launches_by_plan"],
+               "k2_launches_by_plan": m["k2_launches_by_plan"]}
+        if "k3_chunk_depths" in m:
+            eng = pol.poa.engine
+            per: dict = {}
+            for d in m["k3_chunk_depths"]:
+                plan = eng._chain_plan(d)
+                post = "fused" if eng._fused_plan(plan) else "split"
+                per.setdefault(plan[0], {"fused": 0, "split": 0})[post] += 1
+            launched = m["k3_depths_launched"]
+            if len(launched["fused"]) != sum(v["fused"]
+                                             for v in per.values()):
+                raise SystemExit(f"autotune path {label}: K3 launched "
+                                 f"fused {launched['fused']}, the table "
+                                 f"fuses {per}")
+            row.update(chunks_by_leading_bucket=per,
+                       k3_launches=m["k3_launches"],
+                       k3_depths_launched=launched, k3_dtype=m["k3_dtype"])
+            log(f"[chip_smoke] autotune path {label}: FASTA equal to the "
+                f"{key} FASTA; chunks per leading depth bucket {per}; K3 "
+                f"{m['k3_launches']} launches at {m['k3_dtype']} (fused "
+                f"depths {launched['fused']}, split {launched['split']}); "
+                f"consensus {m['consensus_s']:.3f} s; table decisions "
+                f"{dec}")
+        else:
+            log(f"[chip_smoke] autotune path {label}: FASTA equal to the "
+                f"{key} FASTA; K1 by instantiation "
+                f"{m['k1_launches_by_plan']}, K2 {m['k2_launches_by_plan']};"
+                f" consensus {m['consensus_s']:.3f} s; table decisions "
+                f"{dec}")
+        runs[label] = (pol, m)
+        out["runs"][label] = row
+    if not from_table:
+        raise SystemExit("autotune path: no decision came from the table")
+
+    # ---- 4. the audit of the session and both fused runs
+    flight = os.path.join(HERE, "build", "audit_flight")
+    shutil.rmtree(flight, ignore_errors=True)
+    auditor = WindowAuditor(1.0, device=dev, flight_dir=flight)
+    for label in ("session", "fused int32", "fused int16"):
+        pol, m = runs[label]
+        wins = pol.kept_windows
+        t0 = time.perf_counter()
+        n = auditor.audit_windows([(w, pol) for w in wins])
+        torch.cuda.synchronize()
+        shadow = time.perf_counter() - t0
+        take()
+        at10 = sum(window_sample_fraction(w) < 0.1 for w in wins)
+        out["audits"][label] = {"windows": len(wins), "mismatches": n,
+                                "shadow_s": shadow,
+                                "consensus_s": m["consensus_s"],
+                                "sampled_at_0.1": at10}
+        if n:
+            raise SystemExit(f"autotune path: the audit of the {label} run "
+                             f"found {n} mismatches")
+        log(f"[chip_smoke] audit {label}: 0 mismatches over {len(wins)} "
+            f"windows at rate 1.0; shadow {shadow:.3f} s against the "
+            f"production consensus wall {m['consensus_s']:.3f} s; "
+            f"{at10} windows sampled at rate 0.1; card {card}")
+
+    # ---- 5. a planted mismatch
+    pol, _ = runs["fused int16"]
+    wins = pol.kept_windows
+    target = next(w for w in wins if w.polished and len(w.consensus) > 16)
+    truth = target.consensus
+    planted = bytearray(truth)
+    planted[8] = ord("A") if planted[8] != ord("A") else ord("C")
+    target.consensus = bytes(planted)
+    n = auditor.audit_windows([(w, pol) for w in wins])
+    take()
+    snap = auditor.snapshot()
+    demoted = snap["recent"][-1]["demoted"] if snap["recent"] else []
+    dumps = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+    doc = (json.load(open(os.path.join(flight, dumps[0])))["flight"]
+           if len(dumps) == 1 else {})
+    if (n != 1 or target.consensus != truth or snap["mismatches"] != 1
+            or doc.get("oracle", "").encode("latin-1") != truth
+            or doc.get("produced", "").encode("latin-1") != planted
+            or not demoted):
+        raise SystemExit(f"autotune path: the planted window: {n} "
+                         f"mismatches, repaired "
+                         f"{target.consensus == truth}, flight {dumps}, "
+                         f"demoted {demoted}")
+    fresh = autotune.Autotuner(table).table
+    left = [k for k, ent in fresh.items()
+            if k.split("|")[1] in ("fused_loop", "fused", "session")
+            and (ent["dtype"] != "int32"
+                 or ent["kernel"] not in ("split",
+                                          autotune.plane(dev.type)))]
+    if left or not all(fresh[k].get("demoted") for k in demoted):
+        raise SystemExit(f"autotune path: entries not demoted on disk "
+                         f"{left}")
+    log(f"[chip_smoke] audit planted: 1 mismatch (window "
+        f"{target.id}:{target.rank}), repaired to the oracle bytes; flight "
+        f"artifact {dumps[0]} with both streams; {len(demoted)} entries "
+        f"demoted on disk ({sorted(demoted)[:3]}...), read back by a fresh "
+        f"Autotuner; audit counters {({k: snap[k] for k in ('windows', 'sampled', 'audited', 'clean', 'mismatches', 'repaired', 'demotions')})}"
+        f", shadow {snap['shadow']}")
+    auditor.close()
+    pol, polished, m = polish_once(paths, 2, scores=(3, -5, -4),
+                                   cuda_engine="fused", autotune_table=table)
+    take()
+    if (m["k3_depths_launched"]["fused"]
+            or fasta_of(polished) != KEPT["fused int16"]):
+        raise SystemExit(f"autotune path: after the demotion K3 launched "
+                         f"fused {m['k3_depths_launched']['fused']}, or the "
+                         f"FASTA moved")
+    log(f"[chip_smoke] autotune path after the demotion: fused engine at "
+        f"auto launched K3 split only ({m['k3_launches']} launches), FASTA "
+        f"unchanged; table decisions {decisions(pol)}")
+    out["after_demotion"] = {"k3_launches": m["k3_launches"],
+                             "demoted": demoted}
+    out["launches"] = {"k1": tot["k1"], "k2": tot["k2"], "k3": tot["k3"],
+                       "k1_by_plan": tot["k1p"], "k2_by_plan": tot["k2p"]}
+    report["autotune_path"] = out
+    return (tot["k1"], tot["k1p"]), (tot["k2"], tot["k2p"]), tot["k3"]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,7 +7,9 @@ upstream racon-gpu device flags (-c/--cudapoa-batches,
 counterparts of the JAX CLI's pipeline and observability flags
 (--cuda-pipeline-depth, --cuda-trace, --cuda-metrics, --cuda-log-level,
 --cuda-profile), its device consensus engine flags (--cuda-engine,
---cuda-fused) and its scheduler flag (--cuda-adaptive-buckets). Polished FASTA goes to stdout; errors print as
+--cuda-fused), its scheduler flag (--cuda-adaptive-buckets) and
+--cuda-autotune-table, the flag counterpart of its
+RACON_TPU_AUTOTUNE_CACHE. Polished FASTA goes to stdout; errors print as
 `[racon_tpu_torch::...] error: ...` on stderr with exit status 1.
 """
 
@@ -83,8 +85,9 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             fused-engine chunk dispatch: 1 = the single-launch fused
             align->window-slice->POA program (device-side slicing, one
             launch + one fetch per chunk), 0 = the split chained path,
-            auto = the split path (the port has no autotuner winner
-            table yet). Output is byte-identical in every mode
+            auto = the autotuner table's measured winner per depth
+            bucket (--cuda-autotune-table), the split path where the
+            table has none. Output is byte-identical in every mode
         --cuda-adaptive-buckets
             derive each device engine's shape ladder from the run's own
             job-shape histogram (occupancy-aware batch scheduler) and
@@ -106,8 +109,18 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             default: auto
             DP score dtype policy: auto shrinks each bucket to int16
             when its overflow envelope proof holds (half the DP bytes,
-            bit-identical results), int32 forces the wide oracle
-            everywhere
+            bit-identical results) unless the autotuner table measured
+            int32 faster there, int32 forces the wide oracle
+            everywhere, int16 shrinks wherever the proof holds
+        --cuda-autotune-table <file>
+            default: ~/.cache/racon_tpu_torch/racon_tpu_torch_autotune.json
+            the autotuner's per-bucket winner table (written by
+            racon_tpu_torch.sched.autotune's profilers), consulted
+            under --cuda-dtype auto and --cuda-fused auto; a missing
+            table changes nothing. A profiled entry departs from the
+            cold decision only where its kernel's timed calls resolved
+            the gap; no end-to-end speed-up from a table is measured
+            yet. Output is byte-identical either way
         --cuda-pipeline-depth <int>
             default: 2
             async dispatch pipeline depth: chunks packed / in flight
@@ -165,6 +178,7 @@ def parse_args(argv: list[str]) -> dict | None:
         "cuda_engine": "session",
         "cuda_fused": "auto",
         "adaptive_buckets": False,
+        "autotune_table": None,
         "paths": [],
     }
 
@@ -230,7 +244,8 @@ def parse_args(argv: list[str]) -> dict | None:
                   "cuda-trace": ("trace_path", str),
                   "cuda-metrics": ("metrics_path", str),
                   "cuda-log-level": ("log_level", _level_choice),
-                  "cuda-profile": ("profile_dir", str)}
+                  "cuda-profile": ("profile_dir", str),
+                  "cuda-autotune-table": ("autotune_table", str)}
 
     def flag(name: str) -> bool:
         if name in ("u", "include-unpolished"):
@@ -355,7 +370,8 @@ def main(argv: list[str] | None = None) -> int:
             metrics_path=opts["metrics_path"],
             log_level=opts["log_level"], profile_dir=opts["profile_dir"],
             cuda_engine=opts["cuda_engine"], cuda_fused=opts["cuda_fused"],
-            adaptive_buckets=opts["adaptive_buckets"])
+            adaptive_buckets=opts["adaptive_buckets"],
+            autotune_table=opts["autotune_table"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:

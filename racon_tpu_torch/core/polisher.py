@@ -20,7 +20,9 @@ a HistogramSet, a BatchScheduler (sched/: occupancy counters, and with
 `adaptive_buckets` data-derived shape ladders) and a MetricsRegistry
 (namespaces `pipeline`, `sched`, `latency`, `aligner`) cover the run;
 the phases are trace spans (obs/trace.py). Both device phases split
-their batches over the lanes of one BatchRunner (parallel/mesh.py).
+their batches over the lanes of one BatchRunner (parallel/mesh.py) and
+consult one autotuner winner table (sched/autotune.py) under the `auto`
+postures.
 
 The two types differ in two places only, as in the reference and the
 JAX package: kC keeps just the longest overlap per query, kF every valid
@@ -75,7 +77,8 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     cuda_engine: str = "session", cuda_fused: str = "auto",
                     fused_fallback: str = "session",
                     adaptive_buckets: bool = False,
-                    devices=None) -> "Polisher":
+                    devices=None,
+                    autotune_table: str | None = None) -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
     POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
@@ -96,7 +99,10 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     their batches over (parallel/mesh.BatchRunner; a device may repeat);
     None takes every visible CUDA device for a bare 'cuda'
     (CUDA_VISIBLE_DEVICES narrows it), the named card alone for
-    'cuda:N', and one lane on the CPU."""
+    'cuda:N', and one lane on the CPU. `autotune_table` is the path of
+    the autotuner's winner table (sched/autotune.py; None: its default
+    path), which the engines consult under `score_dtype="auto"` and
+    `cuda_fused="auto"`; a cold table changes nothing."""
     if log_level is not None:
         set_log_level(log_level)
     if trace_path:
@@ -122,7 +128,7 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     cuda_aligner_batches, cuda_aligner_band_width, device,
                     score_dtype, pack_bases, pipeline_depth, metrics_path,
                     profile_dir, cuda_engine, cuda_fused, fused_fallback,
-                    adaptive_buckets, devices)
+                    adaptive_buckets, devices, autotune_table)
 
 
 class Polisher:
@@ -138,11 +144,13 @@ class Polisher:
                  profile_dir: str | None = None,
                  cuda_engine: str = "session", cuda_fused: str = "auto",
                  fused_fallback: str = "session",
-                 adaptive_buckets: bool = False, devices=None):
+                 adaptive_buckets: bool = False, devices=None,
+                 autotune_table: str | None = None):
         import torch
 
         from ..parallel.mesh import BatchRunner
         from ..sched import BatchScheduler
+        from ..sched.autotune import get_autotuner
 
         self.sparser = sparser
         self.oparser = oparser
@@ -185,6 +193,11 @@ class Polisher:
                                 or torch.device(device).index is not None):
             devices = [self.device]
         self.device_runner = BatchRunner(devices)
+        #: the winner table the aligner and the consensus engine consult
+        #: (the process's handle for the path, shared with later polishers
+        #: and demotions), and its consult counts when this run began
+        self.autotuner = get_autotuner(autotune_table)
+        self._consults_base = self.autotuner.consults_snapshot()
         #: completed initialize() + polish() cycles: a reused polisher
         #: resets its per-run counters at the next initialize()
         self._runs_completed = 0
@@ -242,6 +255,15 @@ class Polisher:
         per engine, plus first-dispatch count and seconds)."""
         return self.scheduler.stats.snapshot()
 
+    @property
+    def autotune_decisions(self) -> dict:
+        """The winner-table decisions of the current run: (engine,
+        kernel, dtype) -> count, kernel "none" for a cold bucket."""
+        now = self.autotuner.consults_snapshot()
+        return {k: n - self._consults_base.get(k, 0)
+                for k, n in sorted(now.items())
+                if n > self._consults_base.get(k, 0)}
+
     def _reset_run_state(self) -> None:
         """Fresh per-run counters for a reused polisher: a second
         initialize() + polish() cycle reports its own stage seconds,
@@ -266,6 +288,7 @@ class Polisher:
         if self._runs_completed:
             self._reset_run_state()
         t_init = time.perf_counter()
+        self._consults_base = self.autotuner.consults_snapshot()
         log = self.logger
         log.log()
 
@@ -514,7 +537,7 @@ class Polisher:
                     band_width=self.cuda_aligner_band_width,
                     device=self.device, score_dtype=self.score_dtype,
                     pack_bases=self.pack_bases, scheduler=self.scheduler,
-                    runner=self.device_runner)
+                    runner=self.device_runner, autotuner=self.autotuner)
                 pipeline = self._make_pipeline()
                 fb: list[tuple[list[int], object]] = []
                 # concurrent fallback jobs split the thread budget; at
@@ -605,7 +628,8 @@ class Polisher:
                             engine=self.cuda_engine, fused=self.cuda_fused,
                             fused_fallback=self.fused_fallback,
                             scheduler=self.scheduler,
-                            runner=self.device_runner)
+                            runner=self.device_runner,
+                            autotuner=self.autotuner)
         t0 = time.perf_counter()
         with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
                            else None, "consensus"), pipeline:
@@ -642,6 +666,16 @@ class Polisher:
             log_info(f"[racon_tpu_torch::Polisher.polish] batch occupancy "
                      f"(adaptive={'on' if self.scheduler.adaptive else 'off'})"
                      f": {occ}")
+        # the winner table's share of the run's bucket decisions (silent
+        # when no posture consulted it)
+        dec = self.autotune_decisions
+        if dec:
+            cold = sum(n for (_, k, _), n in dec.items() if k == "none")
+            log_info(f"[racon_tpu_torch::Polisher.polish] autotuner "
+                     f"{self.autotuner.path}: {sum(dec.values()) - cold} "
+                     f"bucket decisions from the table, {cold} cold ("
+                     + ", ".join(f"{e} {k}{':' + d if d else ''} {n}"
+                                 for (e, k, d), n in dec.items()) + ")")
 
         t0 = time.perf_counter()
         dst = self._stitch(drop_unpolished_sequences)

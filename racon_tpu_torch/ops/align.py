@@ -27,7 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve
-from .dtypes import INF16, aligner_int16_ok, resolve_dtype
+from .dtypes import INF16, aligner_int16_ok, kernel_plan, resolve_dtype
 from .encode import unpack_2bit
 
 INF = 1 << 28
@@ -223,6 +223,9 @@ class BatchAligner:
     derives the length edges from the run's pairs when adaptive and
     records every batch's occupancy; `runner` (parallel/mesh.BatchRunner;
     one lane on `device` when omitted) splits each batch over its lanes.
+    `autotuner` (sched/autotune.Autotuner, or None) is the winner table
+    consulted under the `auto` posture, once per (edge, band): engine
+    "aligner", params ().
     """
 
     #: length bucket edges (sequences are padded to the bucket edge)
@@ -233,7 +236,7 @@ class BatchAligner:
     def __init__(self, band_width: int = 0,
                  device: str | torch.device = "cuda",
                  score_dtype: str = "auto", pack_bases: bool = True,
-                 scheduler=None, runner=None):
+                 scheduler=None, runner=None, autotuner=None):
         from ..parallel.mesh import BatchRunner
         from ..sched import BatchScheduler
 
@@ -242,6 +245,9 @@ class BatchAligner:
         resolve_dtype(True, score_dtype)  # reject an unknown posture now
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
+        self.autotuner = autotuner
+        #: the score dtype per (edge, band), resolved once
+        self._plans: dict[tuple[int, int], str] = {}
         self.sched = (scheduler if scheduler is not None
                       else BatchScheduler())
         self.runner = (runner if runner is not None
@@ -253,21 +259,48 @@ class BatchAligner:
         self.batches_by_plan: dict[tuple[str, bool], int] = {}
         self.pairs_by_plan: dict[tuple[str, bool], int] = {}
 
-    def plan_for(self, edge: int) -> str:
-        """The score dtype of bucket `edge` under this aligner's
-        posture."""
-        return resolve_dtype(aligner_int16_ok(edge), self.score_dtype)
+    def plan_for(self, edge: int, band: int) -> str:
+        """The score dtype of bucket (edge, band) under this aligner's
+        posture and winner table (dtypes.kernel_plan), resolved once a
+        bucket."""
+        plan = self._plans.get((edge, band))
+        if plan is None:
+            plan = self._plans[(edge, band)] = kernel_plan(
+                self.score_dtype, self.autotuner, "aligner", (edge, band),
+                (), aligner_int16_ok(edge), self.device.type)
+        return plan
+
+    @classmethod
+    def batch_cap(cls, edge: int, band: int) -> int:
+        """The most pairs one batch of (edge, band) holds: its int8
+        backpointer plane within MAX_BP_BYTES."""
+        return cls.MAX_BP_BYTES // ((2 * edge + 1) * band)
 
     def _bucket_of(self, length: int) -> int | None:
         return next((edge for edge in self.BUCKETS if length <= edge),
                     None)
+
+    @staticmethod
+    def _auto_band(mean_len: float) -> int:
+        """The auto band rule: 10% of the mean pair length, rounded up to
+        a multiple of 128."""
+        return max(128, (int(mean_len * 0.1) + 127) // 128 * 128)
+
+    @classmethod
+    def auto_bands(cls, edge: int) -> list[int]:
+        """Every band the auto rule can give a batch of static bucket
+        `edge`: its pairs' mean length lies above the previous edge and
+        at most `edge`. The keys the autotuner profiles for the aligner."""
+        prev = max((e for e in cls.BUCKETS if e < edge), default=0)
+        return list(range(cls._auto_band(prev),
+                          cls._auto_band(edge) + 128, 128))
 
     def _band_for(self, pairs, idxs) -> int:
         if self.band_width > 0:
             return (self.band_width + 3) // 4 * 4
         mean_len = sum(max(len(pairs[i][0]), len(pairs[i][1]))
                        for i in idxs) / len(idxs)
-        return max(128, (int(mean_len * 0.1) + 127) // 128 * 128)
+        return self._auto_band(mean_len)
 
     def _split(self, pairs) -> tuple[list, list[int]]:
         """(edge, band, pair indices) device batches in dispatch order,
@@ -336,8 +369,7 @@ class BatchAligner:
             # sorted packing: shape-homogeneous batches (results land by
             # original index); identity when the scheduler is off
             idxs = self.sched.order(idxs, key=shape_of)
-            lane_bytes = (2 * edge + 1) * band
-            max_lanes = max(n_dev, self.MAX_BP_BYTES // lane_bytes)
+            max_lanes = max(n_dev, self.batch_cap(edge, band))
             if n_dev > 1:
                 # lane-aware chunking: BODY batches are multiples of the
                 # lane count (rows interleaved so each lane carries an
@@ -466,7 +498,7 @@ class BatchAligner:
         def dispatch(chunk, packed):
             i, edge, band, idx = chunk
             (q, t, q_lens, t_lens, offs), lens = packed
-            dtype = self.plan_for(edge)
+            dtype = self.plan_for(edge, band)
             plan = (dtype, q.dtype == torch.uint8)
             self.batches_by_plan[plan] = self.batches_by_plan.get(plan, 0) + 1
             self.pairs_by_plan[plan] = self.pairs_by_plan.get(plan,

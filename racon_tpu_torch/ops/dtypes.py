@@ -24,10 +24,16 @@ The proofs the predicates encode:
   value and intermediate fits int16 iff
   (N + L + 2) * mp <= (1 << 15) - 1 - (1 << 14) = 16383.
 
-The posture is `auto` (int16 wherever the proof holds; the port has no
-autotuner table to overrule it), `int32` (wide everywhere) or `int16`
-(narrow wherever provable). A bucket whose proof fails always runs
-int32, whatever the posture.
+The posture (`--cuda-dtype`, the engines' `score_dtype`) is `auto`
+(int16 wherever the proof holds, unless the autotuner's winner table
+measured int32 faster for the bucket), `int32` (wide everywhere) or
+`int16` (narrow wherever provable, whatever the table says). A bucket
+whose proof fails always runs int32, whatever the posture.
+
+`kernel_plan` is the one dtype decision all three engines make per
+bucket, the dtype half of the JAX package's `kernel_plan`: the JAX
+package consults its table under `--tpu-pallas auto`, and the port,
+which has no Pallas-or-XLA choice, under `--cuda-dtype auto`.
 """
 
 from __future__ import annotations
@@ -55,16 +61,34 @@ def poa_int16_ok(n_nodes: int, seq_len: int, match: int, mismatch: int,
     return (n_nodes + seq_len + 2) * mp <= _I16_MAX - INF16
 
 
-def resolve_dtype(envelope_ok: bool, mode: str = "auto") -> str:
+def resolve_dtype(envelope_ok: bool, mode: str = "auto",
+                  winner: dict | None = None) -> str:
     """The per-bucket score dtype, 'int16' or 'int32', under posture
     `mode`. `envelope_ok` is the bucket's overflow proof: False always
-    means int32."""
+    means int32. `winner` is an optional autotuner entry whose measured
+    `dtype` applies under the `auto` posture only."""
     if mode not in POSTURES:
         raise ValueError(f"score dtype posture {mode!r}: want one of "
                          f"{POSTURES}")
     if not envelope_ok or mode == "int32":
         return "int32"
+    if mode == "auto" and winner and winner.get("dtype") in ("int16",
+                                                            "int32"):
+        return winner["dtype"]
     return "int16"
+
+
+def kernel_plan(mode: str, autotuner, engine: str, bucket, params,
+                envelope_ok: bool, backend: str) -> str:
+    """The score dtype of one bucket of `engine` ('session', 'aligner'
+    or 'fused'): under posture `auto` the winner table of `autotuner`
+    (sched/autotune.Autotuner, or None for none) is consulted at the
+    bucket's key on `backend` (the torch device type), then the dtype is
+    resolved against the bucket's overflow proof."""
+    ent = None
+    if mode == "auto" and autotuner is not None:
+        ent = autotuner.winner(engine, bucket, params, backend=backend)
+    return resolve_dtype(envelope_ok, mode, ent)
 
 
 def plan_split(by_plan: dict) -> str:

@@ -22,10 +22,11 @@ reference. The engines:
     device) go to the session engine, or with `fused_fallback="host"` to
     the host engine, and are counted and logged.
 
-Both device engines take the run's occupancy scheduler (sched/) and
-batch runner (parallel/mesh); the windows the fused engine leaves go
-through a session engine whose scheduler is not adaptive but shares the
-run's counters.
+Both device engines take the run's occupancy scheduler (sched/), batch
+runner (parallel/mesh) and autotuner winner table (sched/autotune.py,
+consulted under the `auto` postures); the windows the fused engine
+leaves go through a session engine whose scheduler is not adaptive but
+shares the run's counters.
 
 The host engine runs its chunks through the dispatch pipeline
 (pipeline/): a pack worker builds chunk k+1's window lists while the
@@ -59,7 +60,7 @@ class BatchPOA:
                  score_dtype: str = "auto", pack_bases: bool = True,
                  pipeline=None, engine: str = "session",
                  fused: str = "auto", fused_fallback: str = "session",
-                 scheduler=None, runner=None):
+                 scheduler=None, runner=None, autotuner=None):
         if engine not in ("session", "fused"):
             raise ValueError(f"device engine {engine!r}: want 'session' or "
                              f"'fused'")
@@ -92,6 +93,8 @@ class BatchPOA:
         #: own (a non-adaptive scheduler, one lane on `device`)
         self.scheduler = scheduler
         self.runner = runner
+        #: the winner table both device engines consult (None: none)
+        self.autotuner = autotuner
         #: per-window outcome counts of the last pass: on the device (the
         #: fused engine's and the session engine's), on the host, and
         #: backbone-only; n_fused of n_device came from the fused engine
@@ -156,7 +159,8 @@ class BatchPOA:
             num_threads=self.num_threads, logger=self.logger,
             banded_only=self.banded_only, score_dtype=self.score_dtype,
             pack_bases=self.pack_bases,
-            scheduler=scheduler or self.scheduler, runner=self.runner)
+            scheduler=scheduler or self.scheduler, runner=self.runner,
+            autotuner=self.autotuner)
 
     def _device_consensus(self, todo, trim) -> None:
         from .poa_graph import log_session_stats
@@ -187,7 +191,7 @@ class BatchPOA:
             num_threads=self.num_threads, logger=self.logger,
             banded_only=self.banded_only, fused=self.fused,
             score_dtype=self.score_dtype, scheduler=self.scheduler,
-            runner=self.runner)
+            runner=self.runner, autotuner=self.autotuner)
         results, statuses = fused.consensus(packed, fallback=to_host,
                                             pipeline=self.pipeline)
         self.n_fused = int((statuses == 0).sum())

@@ -35,7 +35,9 @@ the fused posture (`fused="1"`) one launch runs a chunk's whole chain,
 the window slicing (spanning / bpos range / band rule) derived on the
 device from the raw layer coordinates; with `fused="0"` the host slices
 and each chained call is one launch. Both give the same bytes. `auto`
-resolves as the JAX package's does with a cold autotuner table: split.
+dispatches the autotuner's measured winner per leading depth bucket
+(sched/autotune.py, engine "fused_loop"), and split where the table has
+no entry.
 
 `FusedPOA` drives the chunks through the dispatch pipeline; a device
 failure raises (the JAX package's fused -> split -> host ladder is not
@@ -55,7 +57,7 @@ from torch.profiler import record_function
 from ..device import resolve
 from ..obs import trace
 from ..utils.logger import Logger
-from .dtypes import NEG16, poa_int16_ok, resolve_dtype
+from .dtypes import NEG16, kernel_plan, poa_int16_ok
 from .poa_graph import (MAX_LEN, MAX_NODES, MAX_PRED, RING, device_budget,
                         pin_pow2_rows)
 
@@ -519,10 +521,13 @@ class FusedPOA:
 
     `fused` is the chunk posture: '1' one launch per chunk (slicing on
     the device) whenever the chunk's chain fits FUSED_LOOP_MAX_DEPTH, '0'
-    one launch per chained call (slicing on the host), 'auto' the JAX
-    package's choice with a cold autotuner table, which is '0'.
-    `score_dtype` is the posture of ops/dtypes (int16 where the proof
-    holds at this engine's (N, L) and scores).
+    one launch per chained call (slicing on the host), 'auto' the winner
+    of `autotuner`'s table for the chunk's leading depth bucket (engine
+    "fused_loop", key (N, L, plan[0]), params (match, mismatch, gap, P)),
+    split where the table has none. `score_dtype` is the posture of
+    ops/dtypes (int16 where the proof holds at this engine's (N, L) and
+    scores; under `auto` the table's "fused" entry at (N, L) may keep
+    int32).
     """
 
     def __init__(self, match: int, mismatch: int, gap: int,
@@ -532,7 +537,7 @@ class FusedPOA:
                  batch_rows: int | None = None,
                  depth_buckets=DEPTH_BUCKETS, banded_only: bool = False,
                  fused: str = "auto", score_dtype: str = "auto",
-                 scheduler=None, runner=None):
+                 scheduler=None, runner=None, autotuner=None):
         from ..parallel.mesh import BatchRunner
         from ..sched import BatchScheduler
 
@@ -569,8 +574,15 @@ class FusedPOA:
         self._depth_k = len(self.depth_buckets)
         self.banded_only = banded_only
         self.fused_posture = fused
-        self.score_dtype = resolve_dtype(
-            poa_int16_ok(self.N, self.L, match, mismatch, gap), score_dtype)
+        self.autotuner = autotuner
+        #: one launch a chunk or not, per leading depth bucket (posture
+        #: auto), resolved once
+        self._fused_plans: dict[int, bool] = {}
+        self.score_dtype = kernel_plan(
+            score_dtype, autotuner, "fused", (self.N, self.L),
+            (match, mismatch, gap, self.P),
+            poa_int16_ok(self.N, self.L, match, mismatch, gap),
+            self.device.type)
         self._code_of = np.full(256, 4, dtype=np.int8)
         for i, b in enumerate(b"ACGT"):
             self._code_of[b] = i
@@ -608,10 +620,25 @@ class FusedPOA:
         return self._scratch[key]
 
     def _fused_plan(self, plan) -> bool:
-        """One fused launch for a chunk whose chain plan is `plan`? Only
-        under posture '1' and within FUSED_LOOP_MAX_DEPTH."""
-        return (bool(plan) and sum(plan) <= FUSED_LOOP_MAX_DEPTH
-                and self.fused_posture == "1")
+        """One fused launch for a chunk whose chain plan is `plan`? Never
+        beyond FUSED_LOOP_MAX_DEPTH nor under posture '0', always under
+        '1'; under 'auto' where the winner table's "fused_loop" entry for
+        the chunk's leading (largest) chain bucket says `fused`."""
+        if not plan or sum(plan) > FUSED_LOOP_MAX_DEPTH:
+            return False
+        if self.fused_posture != "auto":
+            return self.fused_posture == "1"
+        key = plan[0]
+        cached = self._fused_plans.get(key)
+        if cached is None:
+            ent = (self.autotuner.winner(
+                "fused_loop", (self.N, self.L, key),
+                (self.match, self.mismatch, self.gap, self.P),
+                backend=self.device.type)
+                if self.autotuner is not None else None)
+            cached = self._fused_plans[key] = (
+                (ent or {}).get("kernel") == "fused")
+        return cached
 
     def _eligible(self, win) -> bool:
         bb_len = len(win[0][0])
@@ -767,6 +794,57 @@ class FusedPOA:
                 ends[k, dd] = e
         return state, (seqs, lens, wts, begins, ends, bblen, offs)
 
+    def _pack_calls(self, windows, chunk, plan, fused: bool,
+                    lanes: int = 1):
+        """A chunk's initial state and its calls as tensors (`_to_device`):
+        one call over the whole chain `plan` when `fused`, else the split
+        posture's chained calls; each call (depth, operands, layer base),
+        its operands ending in the per-row layer base."""
+        if fused:
+            state, ops = self._pack_chunk_fused(windows, chunk, sum(plan))
+            calls = [(sum(plan), ops, 0)]
+        else:
+            state, calls = self._pack_chunk(windows, chunk)
+        return self._to_device(state, lanes), [
+            (d, self._to_device(ops + (np.full(self.B, done, np.int32),),
+                                lanes), done)
+            for d, ops, done in calls]
+
+    def pack_run(self, windows, chunk, fused: bool):
+        """One chunk (at most B eligible windows) packed for a run
+        outside the dispatch pipeline, as consensus() packs it: (initial
+        state, calls), one call over the whole chain when `fused`, else
+        the split posture's chained calls. The autotuner's K3 profile
+        packs each posture once and times `run_packed` alone."""
+        plan = self._chain_plan(max(len(windows[i]) - 1 for i in chunk))
+        state, calls = self._pack_calls(windows, chunk, plan, fused)
+        return tuple(state), calls
+
+    def run_packed(self, state, calls):
+        """A packed chunk's calls through K3 (its plain version on the
+        CPU) on the current stream. Returns the final state; on a card
+        the kernel updates `state` in place, so run a copy to run the
+        chunk again."""
+        from .poa_fused_kernels import fused_layers
+
+        scratch = self._scratch_of(self.device, self.B)
+        for _, (seqs, lens, wts, *slicing, lbase), _ in calls:
+            state = fused_layers(
+                state, seqs, lens, wts, tuple(slicing), lbase, self.match,
+                self.mismatch, self.gap, banded_only=self.banded_only,
+                score_dtype=self.score_dtype, scratch=scratch)
+        return state
+
+    def finalize_run(self, windows, chunk, state):
+        """(results, statuses) over `windows` from a run's final state,
+        as consensus() finalizes a chunk: (None, 1) for a window outside
+        the chunk or failed on the device."""
+        results: list = [None] * len(windows)
+        statuses = np.ones(len(windows), dtype=np.int32)
+        self._finalize_chunk(chunk, tuple(t.cpu().numpy() for t in state),
+                             results, statuses)
+        return results, statuses
+
     def _to_device(self, arrays, lanes: int = 1):
         """Host arrays as tensors on the engine's device (one lane:
         copied asynchronously from pinned memory on the current stream),
@@ -861,16 +939,8 @@ class FusedPOA:
             plan = self._chain_plan(max(len(windows[i]) - 1 for i in chunk))
             fused = self._fused_plan(plan)
             with record_function("fused.pack"), on_stream(k):
-                if fused:
-                    state, ops = self._pack_chunk_fused(windows, chunk,
-                                                        sum(plan))
-                    calls = [(sum(plan), ops, 0)]
-                else:
-                    state, calls = self._pack_chunk(windows, chunk)
-                state = self._to_device(state, n_dev)
-                calls = [(d, self._to_device(ops + (np.full(
-                    self.B, done, np.int32),), n_dev), done)
-                    for d, ops, done in calls]
+                state, calls = self._pack_calls(windows, chunk, plan, fused,
+                                                n_dev)
             return fused, state, calls
 
         def lane(calls, *tensors):

@@ -44,7 +44,8 @@ from torch.profiler import record_function
 from ..device import free_bytes, resolve
 from ..obs import trace
 from ..utils.logger import Logger, log_info
-from .dtypes import NEG16, plan_split, poa_int16_ok, resolve_dtype
+from .dtypes import (NEG16, kernel_plan, plan_split, poa_int16_ok,
+                     resolve_dtype)
 from .encode import pack_2bit, packable, unpack_2bit
 
 #: kernel shape envelope: max graph nodes, max layer len, max node
@@ -254,6 +255,14 @@ def device_budget(dev: torch.device) -> int:
     return int(free * 0.9) if dev.type == "cuda" else free
 
 
+def pinned_rows(dev: torch.device, n_nodes: int, seq_len: int) -> int:
+    """One lane's batch width for bucket (n_nodes, seq_len): the largest
+    power of two whose footprint fits a quarter of the device budget
+    (several batches are in flight while the pipeline is full)."""
+    return pin_pow2_rows(device_budget(dev) // 4,
+                         _bytes_per_row(n_nodes, seq_len, MAX_PRED))
+
+
 class DeviceGraphPOA:
     """Orchestrates the session <-> device scheduling loop.
 
@@ -279,6 +288,12 @@ class DeviceGraphPOA:
     (parallel/mesh.BatchRunner; one lane on `device` when omitted)
     splits each batch over its lanes, job j on lane j % n, the batch
     width rounded to the lane count.
+
+    `autotuner` (sched/autotune.Autotuner, or None) is the winner table
+    consulted under the `auto` posture, once per bucket: engine
+    "session", key (nb, lb), params (match, mismatch, gap, MAX_PRED). A
+    bucket the table lacks, derived buckets included, resolves as
+    without a table.
     """
 
     def __init__(self, match: int, mismatch: int, gap: int,
@@ -287,13 +302,16 @@ class DeviceGraphPOA:
                  max_len: int = MAX_LEN, buckets=None,
                  batch_rows: int | None = None, banded_only: bool = False,
                  score_dtype: str = "auto", pack_bases: bool = True,
-                 scheduler=None, runner=None):
+                 scheduler=None, runner=None, autotuner=None):
         from ..parallel.mesh import BatchRunner
         from ..sched import BatchScheduler
 
         resolve_dtype(True, score_dtype)  # reject an unknown posture now
         self.score_dtype = score_dtype
         self.pack_bases = pack_bases
+        self.autotuner = autotuner
+        #: the score dtype per (nb, lb), resolved once
+        self._plans: dict[tuple[int, int], str] = {}
         #: batches per (score dtype, packed)
         self.batches_by_plan: dict[tuple[str, bool], int] = {}
         self.device = resolve(device)
@@ -360,24 +378,24 @@ class DeviceGraphPOA:
             self._set_buckets(grid)
 
     def _pin_batch(self, bucket, forced) -> int:
-        """ONE batch width per bucket: the largest power of two whose
-        footprint fits a quarter of the device budget (several batches
-        are in flight while the pipeline is full), rounded to the lane
-        count."""
+        """ONE batch width per bucket (`pinned_rows`, or `forced`),
+        rounded to the lane count."""
         n_dev = self.runner.n_devices
-        if forced is not None:
-            b = forced
-        else:
-            row = _bytes_per_row(bucket[0], bucket[1], MAX_PRED)
-            b = pin_pow2_rows(device_budget(self.runner.devices[0]) // 4,
-                              row)
+        b = (forced if forced is not None
+             else pinned_rows(self.runner.devices[0], *bucket))
         return max(n_dev, (b // n_dev) * n_dev)
 
     def plan_for(self, nb: int, lb: int) -> str:
-        """The score dtype of bucket (nb, lb) under this engine's
-        posture."""
-        return resolve_dtype(poa_int16_ok(nb, lb, self.match, self.mismatch,
-                                          self.gap), self.score_dtype)
+        """The score dtype of bucket (nb, lb) under this engine's posture
+        and winner table (dtypes.kernel_plan), resolved once a bucket."""
+        plan = self._plans.get((nb, lb))
+        if plan is None:
+            plan = self._plans[(nb, lb)] = kernel_plan(
+                self.score_dtype, self.autotuner, "session", (nb, lb),
+                (self.match, self.mismatch, self.gap, MAX_PRED),
+                poa_int16_ok(nb, lb, self.match, self.mismatch, self.gap),
+                self.device.type)
+        return plan
 
     def _bucket(self, n_nodes: int, length: int) -> tuple[int, int]:
         return next((nb, lb) for nb, lb in self.buckets

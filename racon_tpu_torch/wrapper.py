@@ -8,9 +8,10 @@ chunks, then polish chunk by chunk so peak memory stays bounded; with
 The port's copy of the JAX package's wrapper, byte for byte in its
 output, with the port CLI's device flags (-c/--cudapoa-batches,
 --cudaaligner-batches, -b/--cuda-banded-alignment, --device, --cuda-dtype,
---cuda-engine, --cuda-fused, --cuda-adaptive-buckets). The JAX wrapper
-arms its scheduler through the environment; the port has no environment
-mirror, so its wrapper takes the flag.
+--cuda-engine, --cuda-fused, --cuda-adaptive-buckets,
+--cuda-autotune-table). The JAX wrapper arms its scheduler and names its
+winner table through the environment; the port has no environment
+mirror, so its wrapper takes the flags.
 
 Differences from the reference, both deliberate:
   - rampler is the in-package racon_tpu_torch.rampler (no external
@@ -49,7 +50,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
         cuda_aligner_batches: int = 0, cuda_banded_alignment: bool = False,
         device: str = "cuda", num_shards: int = 1, shard_id: int = 0,
         out=None, score_dtype: str = "auto", cuda_engine: str = "session",
-        cuda_fused: str = "auto", adaptive_buckets: bool = False) -> list:
+        cuda_fused: str = "auto", adaptive_buckets: bool = False,
+        autotune_table: str | None = None) -> list:
     """Polish `target_sequences`, optionally subsampled/split, writing
     FASTA to `out` (default stdout). Returns the chunks' polishers, their
     data freed, for their counters and phase walls.
@@ -62,7 +64,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
     `adaptive_buckets` arms every chunk's occupancy-aware scheduler;
     each chunk's polisher splits its batches over the lanes
     create_polisher gives `device` (every visible card for a bare
-    'cuda')."""
+    'cuda') and consults the winner table at `autotune_table` (None:
+    its default path)."""
     from .core.polisher import PolisherType, create_polisher
 
     if not (0 <= shard_id < num_shards):
@@ -110,7 +113,8 @@ def run(sequences: str, overlaps: str, target_sequences: str,
                 match, mismatch, gap, threads, cuda_poa_batches,
                 cuda_banded_alignment, cuda_aligner_batches, device=device,
                 score_dtype=score_dtype, cuda_engine=cuda_engine,
-                cuda_fused=cuda_fused, adaptive_buckets=adaptive_buckets)
+                cuda_fused=cuda_fused, adaptive_buckets=adaptive_buckets,
+                autotune_table=autotune_table)
             polisher.initialize()
             for seq in polisher.polish(not include_unpolished):
                 out.write(b">" + seq.name.encode() + b"\n" + seq.data + b"\n")
@@ -160,8 +164,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="DP score dtype policy: auto shrinks each "
                              "bucket to int16 when its overflow envelope "
                              "proof holds (half the DP bytes, bit-identical "
-                             "results), int32 forces the wide oracle "
-                             "everywhere")
+                             "results) unless the autotuner table measured "
+                             "int32 faster there, int32 forces the wide "
+                             "oracle everywhere")
     parser.add_argument("--cuda-engine", choices=("session", "fused"),
                         default="session",
                         help="device consensus engine: per-layer "
@@ -171,12 +176,23 @@ def main(argv: list[str] | None = None) -> int:
                         default="auto",
                         help="fused-engine chunk dispatch: 1 = one launch "
                              "per chunk (device-side slicing), 0 = the "
-                             "split chained path, auto = the split path")
+                             "split chained path, auto = the autotuner "
+                             "table's winner per depth bucket (split "
+                             "where it has none)")
     parser.add_argument("--cuda-adaptive-buckets", action="store_true",
                         help="derive each device engine's shape ladder "
                              "from the run's own job shapes and pack "
                              "shape-sorted batches (occupancy-aware "
                              "scheduler); byte-identical output")
+    parser.add_argument("--cuda-autotune-table", default=None,
+                        metavar="FILE",
+                        help="the autotuner's per-bucket winner table, "
+                             "consulted under --cuda-dtype auto and "
+                             "--cuda-fused auto (default: ~/.cache/"
+                             "racon_tpu_torch/racon_tpu_torch_autotune.json;"
+                             " a missing table changes nothing; no "
+                             "end-to-end speed-up from a table is "
+                             "measured yet)")
     parser.add_argument("--num-shards", type=int, default=1,
                         help="file-level scatter over the --split chunks: "
                              "total shards of this workload (cat shard "
@@ -201,7 +217,8 @@ def main(argv: list[str] | None = None) -> int:
             device=args.device, num_shards=args.num_shards,
             shard_id=args.shard_id, score_dtype=args.cuda_dtype,
             cuda_engine=args.cuda_engine, cuda_fused=args.cuda_fused,
-            adaptive_buckets=args.cuda_adaptive_buckets)
+            adaptive_buckets=args.cuda_adaptive_buckets,
+            autotune_table=args.cuda_autotune_table)
     except RaconError as exc:
         print(str(exc), file=sys.stderr)
         return 1

@@ -274,7 +274,7 @@ def test_kernels_match_plain_on_fragment_batches_on_card(small, monkeypatch):
     al = BatchAligner(device="cuda")
     for edge, band, idx in al.chunks(pairs):
         q, t, ql, tl, offs = al.operands(pairs, edge, band, idx)
-        plan = (al.plan_for(edge), q.dtype == torch.uint8)
+        plan = (al.plan_for(edge, band), q.dtype == torch.uint8)
         ops, meta = align_kernels.wavefront_align(q, t, ql, tl, offs, band,
                                                   *plan)
         bp, dist = banded_nw(q, t, ql, tl, offs, band, *plan)

@@ -4,8 +4,10 @@ CPU through both device paths (at the default score-dtype posture, through
 the dispatch pipeline at depth 2 with a span trace and a metrics dump,
 at int16, and with the fused consensus engine at both chunk postures,
 its kernel wrapper and host finalizer loaded; with
---cuda-adaptive-buckets, and through a 2-lane batch runner with the
-scheduler on for both engines, the same FASTA), packs and unpacks bases and resolves a score dtype with its own
+--cuda-adaptive-buckets, through a 2-lane batch runner with the
+scheduler on for both engines, and with --cuda-autotune-table naming a
+winner table that forces int32, the same FASTA; the autotuner, oracle
+and auditor modules loaded), packs and unpacks bases and resolves a score dtype with its own
 copies of the JAX package's encode and dtypes modules, corrects a tiny
 read set with -f (both device paths) and through the wrapper (split into
 chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
@@ -63,6 +65,20 @@ adaptive = run(cli.main, ["--device", "cpu", "-c", "1",
                           "--cudaaligner-batches", "1",
                           "--cuda-adaptive-buckets", *paths])
 assert adaptive == fasta
+from racon_tpu_torch.obs import audit
+from racon_tpu_torch.ops import oracle
+from racon_tpu_torch.sched import autotune
+table = autotune.Autotuner(os.path.join(obs, "autotune.json"))
+for nb, lb in ((320, 256), (768, 640), (1280, 640), (2048, 640)):
+    table.record("session", (nb, lb), (3, -5, -4, 8),
+                 {"kernel": "plain", "dtype": "int32", "ms": {},
+                  "identical": True}, backend="cpu")
+table.save()
+assert run(cli.main, ["--device", "cpu", "-c", "1", "--cudaaligner-batches",
+                      "1", "--cuda-autotune-table", table.path,
+                      *paths]) == fasta
+assert audit.WindowAuditor(0.1, device="cpu").oracle.device == "cpu"
+assert oracle.engine_params_key
 from racon_tpu_torch.core.polisher import PolisherType, create_polisher
 # the fused runs above align on the host
 for engine, want, aligner in (("session", adaptive, 1), ("fused", fused[1], 0)):

@@ -126,7 +126,7 @@ def test_batch_aligner_packs_acgt_batches_and_counts_each_form():
     assert all(r is not None for r in runs[("auto", True)])
     # a bucket beyond the int16 proof stays int32 under every posture
     assert BatchAligner(device="cpu", score_dtype="int16").plan_for(
-        8192) == "int32"
+        8192, 896) == "int32"
     with pytest.raises(ValueError):
         BatchAligner(device="cpu", score_dtype="int8")
 
