@@ -110,15 +110,15 @@ mismatch or exception exits non-zero:
      the memory reserved after it;
   10. the occupancy scheduler (`--cuda-adaptive-buckets`) and the batch
      runner's lanes (adaptive_path): the contig cell with the scheduler
-     on at pipeline depths 2 and 0 (FASTA equal to phase 5's; the
-     derived ladders, each engine's occupancy on and off, K1's and K2's
+     on at pipeline depth 2 (FASTA equal to phase 5's; the derived
+     ladders, each engine's occupancy on and off, K1's and K2's
      launches by shape, which must hold a derived shape); the fullest
      batch of each derived K1 shape and K2 (edge, band) held against the
      plain version; every batch of the cell replayed with the scheduler
      off and on, K1, K2 and K3 timed over all of them (replay_contig);
-     the fused engine with the scheduler on at `--cuda-fused 0` and `1`
-     at both score sets (FASTA equal to phase 9's; K3 launched at a
-     derived depth, one chained call at the smallest derived depth held
+     the fused engine with the scheduler on at `--cuda-fused 0` at
+     5/-4/-8 and `1` at 3/-5/-4 (FASTA equal to phase 9's; K3 launched at
+     a derived depth, one chained call at the smallest derived depth held
      on 8 rows); the fragment shard of phase 8 with the scheduler on
      (FASTA equal to phase 8's); and the contig main path over 2 lanes on
      one card, and over every visible card when there are more, for both
@@ -133,13 +133,23 @@ mismatch or exception exits non-zero:
      the fused runs audited against the oracle on the card (0
      mismatches); a planted mismatch caught, repaired and demoted, and
      the next fused run launching split only with the same FASTA.
+  12. the polisher's hooks (hooks_path): phase 5's polisher rebound to
+     the same triple (FASTA and per-run counters equal to phase 5's),
+     then run as two window-range shards split off the w grid (segments
+     concatenating to phase 5's contig, tags re-derived from
+     `segment_meta`, fewer K2 pairs a shard); two polishing rounds on a
+     fused-engine polisher (round 1 equal to phase 9's, `redraft`'s
+     in-process re-map, round 2 warm equal to a fresh polisher's, K3
+     launched); and the fragment cell's kF shard 0 of 16 through the
+     fused engine at `--cuda-fused 0` and `1` (byte-identical, K3
+     launched, distance below the raw reads').
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
-10 and all of phase 11 (path `autotune`), in all, by path and by
-instantiation; K3: launches on the four runs of phase 9, the fused runs
-of phase 10 and phase 11), the
+10, all of phase 11 (path `autotune`) and of phase 12 (path `hooks`),
+in all, by path and by instantiation; K3: launches on the four runs of
+phase 9, the fused runs of phases 10 and 12 and phase 11), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
@@ -306,19 +316,21 @@ def main() -> int:
                           report)
     k1t, k2t, k3t = phase("11 autotune", autotune_path, dev, big, workdir,
                           report)
+    k1h, k2h, k3h = phase("12 hooks", hooks_path, dev, big, truth, draft,
+                          reads_t, workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
-                         (k1a, k2a), (k1t, k2t)):
+                         (k1a, k2a), (k1t, k2t), (k1h, k2h)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
-                            "adaptive", "autotune"), paths))
+                            "adaptive", "autotune", "hooks"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    for runs in (k3a, k3t):
+    for runs in (k3a, k3t, k3h):
         k3["launches"] += sum(runs.values())
         k3["launches_by_path"].update(runs)
         for row in k3["instantiations"]:
@@ -1186,6 +1198,32 @@ def check_fragment_golden(workdir, report) -> None:
 
 
 
+class Tally:
+    """The launches of a phase's runs: K1's and K2's in all and by
+    instantiation, K3's per run; each run's numbers under its name."""
+
+    def __init__(self):
+        self.runs: dict = {}
+        self.k1 = self.k2 = 0
+        self.k1p: dict = {}
+        self.k2p: dict = {}
+        self.k3: dict = {}
+
+    def add(self, name: str, m: dict) -> None:
+        self.runs[name] = m
+        self.k1 += m["k1_launches"]
+        self.k2 += m["k2_launches"]
+        for src, dst in ((m["k1_launches_by_plan"], self.k1p),
+                         (m["k2_launches_by_plan"], self.k2p)):
+            for key, n in src.items():
+                dst[key] = dst.get(key, 0) + n
+        if "k3_launches" in m:
+            self.k3[name] = m["k3_launches"]
+
+    def result(self):
+        return (self.k1, self.k1p), (self.k2, self.k2p), self.k3
+
+
 def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP),
                 keep_windows: bool = False, **kw):
     """One polish of `paths` with both device paths on at the default
@@ -1196,11 +1234,7 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP),
     keeps the run's windows, consensus filled, as the polisher's
     `kept_windows` (polish() drops its own list). The winner table is
     COLD_TABLE unless `autotune_table` names another."""
-    import torch
-
     from racon_tpu_torch.core.polisher import PolisherType, create_polisher
-    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
-    from racon_tpu_torch.ops import poa_kernels
 
     pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True,
                           *scores, num_threads=os.cpu_count(),
@@ -1208,6 +1242,18 @@ def polish_once(paths, depth: int, scores=(MATCH, MISMATCH, GAP),
                           cuda_aligner_batches=1, device="cuda",
                           pipeline_depth=depth,
                           **{"autotune_table": COLD_TABLE, **kw})
+    return run_measured(pol, keep_windows)
+
+
+def run_measured(pol, keep_windows: bool = False):
+    """One initialize() + polish() of an existing polisher (a fresh one,
+    or one rebound or re-drafted), measured as polish_once measures it."""
+    import torch
+
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+
+    depth = pol.pipeline_depth
     dev = pol.device
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1309,11 +1355,12 @@ def log_depth(label: str, m: dict) -> None:
         f"{m.get('peak_reserved_bytes', 'not read')} reserved")
 
 
-#: what phase 10 holds its runs against, kept by the earlier phases:
-#: the polished FASTA of the contig cell at depth 2 (phase 5, "contig"),
-#: of the fused engine at each score width (phase 9, "fused int32" /
-#: "fused int16") and of the fragment shard (phase 8, "fragment"), and
-#: the fragment cell's input paths
+#: what phases 10 to 12 hold their runs against, kept by the earlier
+#: phases: the polished FASTA of the contig cell at depth 2 (phase 5,
+#: "contig"), its polisher and numbers ("contig_polisher",
+#: "contig_numbers"), of the fused engine at each score width (phase 9,
+#: "fused int32" / "fused int16") and of the fragment shard (phase 8,
+#: "fragment"), and the fragment cell's input paths
 KEPT: dict = {}
 
 
@@ -1355,6 +1402,8 @@ def main_path(dev, paths, truth, draft, report):
         raise SystemExit("main path: the FASTA at pipeline depth 2 differs "
                          "from depth 0's")
     KEPT["contig"] = fasta_of(polished)
+    KEPT["contig_polisher"] = pol
+    KEPT["contig_numbers"] = main
     d_draft = edit_distance(draft, truth)
     d_pol = edit_distance(polished[0].data, truth)
     main.update(draft_distance=d_draft, polished_distance=d_pol)
@@ -2098,11 +2147,10 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
     from racon_tpu_torch.ops.poa_fused import STATE, FusedPOA, fused_raw
     from racon_tpu_torch.pipeline import DispatchPipeline
 
-    k1_all, k2_all, k3_runs = {}, {}, {}
-    k1_n = k2_n = 0
+    tal = Tally()
     d_draft = edit_distance(draft, truth)
     d_session = report["main_path"]["polished_distance"]
-    out: dict = {"runs": {}}
+    out: dict = {"runs": tal.runs}
     for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
         fasta = {}
         for fused in ("0", "1"):
@@ -2136,14 +2184,7 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
                 raise SystemExit(f"fused path {name}: distance {d_pol} not "
                                  f"below the draft's {d_draft}")
             m.update(polished_distance=d_pol, draft_distance=d_draft)
-            out["runs"][name] = m
-            k3_runs[name] = m["k3_launches"]
-            k1_n += m["k1_launches"]
-            k2_n += m["k2_launches"]
-            for src, dst in ((m["k1_launches_by_plan"], k1_all),
-                             (m["k2_launches_by_plan"], k2_all)):
-                for key, n in src.items():
-                    dst[key] = dst.get(key, 0) + n
+            tal.add(name, m)
             log(f"[chip_smoke] fused path {name}: consensus "
                 f"{m['consensus_s']:.3f} s ({m['windows_per_s']:.1f} "
                 f"windows/s), K3 {m['k3_launches']} launches over "
@@ -2329,6 +2370,7 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
                 f"{prof['peak_reserved_bytes']}")
     out["instantiations"] = rows
     report["fused_path"] = out
+    k3_runs = tal.k3
     k3 = sum(k3_runs.values())
     for row in rows:
         row["launches"] = sum(n for name, n in k3_runs.items()
@@ -2345,7 +2387,7 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
              "instantiations": [{k: r[k] for k in (
                  "plan", "launches", "max_abs_err", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")} for r in rows]}
-    return (k1_n, k1_all), (k2_n, k2_all), entry
+    return (tal.k1, tal.k1p), (tal.k2, tal.k2p), entry
 
 def replay_contig(dev, windows, pairs, adaptive_k1) -> dict:
     """Every batch of the contig cell with the scheduler off and on, each
@@ -2491,36 +2533,22 @@ def adaptive_path(dev, paths, windows, report):
     from racon_tpu_torch.ops.poa_graph import BUCKETS
     from racon_tpu_torch.sched import BatchScheduler
 
-    out: dict = {"runs": {}}
-    k1_all, k2_all, k3_runs = {}, {}, {}
-    totals = {"k1": 0, "k2": 0}
-
-    def tally(name, m):
-        out["runs"][name] = m
-        totals["k1"] += m["k1_launches"]
-        totals["k2"] += m["k2_launches"]
-        for src, dst in ((m["k1_launches_by_plan"], k1_all),
-                         (m["k2_launches_by_plan"], k2_all)):
-            for key, n in src.items():
-                dst[key] = dst.get(key, 0) + n
-        if "k3_launches" in m:
-            k3_runs[name] = m["k3_launches"]
+    tal = Tally()
+    out: dict = {"runs": tal.runs}
+    tally = tal.add
 
     def same(got, key, what):
         if got != KEPT[key]:
             raise SystemExit(f"adaptive path: {what}: the FASTA differs "
                              f"from the {key} FASTA of the earlier phase")
 
-    # ---- 1. the contig cell with the scheduler on, depths 2 and 0
+    # ---- 1. the contig cell with the scheduler on (depth 0 against 2
+    # is phase 5's check)
     with PathCapture(keep_all=True) as cap:
         _, polished, m2 = polish_once(paths, 2, adaptive_buckets=True)
     tally("contig depth 2", m2)
     same(fasta_of(polished), "contig", "contig cell, depth 2")
-    _, polished, m0 = polish_once(paths, 0, adaptive_buckets=True)
-    tally("contig depth 0", m0)
-    same(fasta_of(polished), "contig", "contig cell, depth 0")
     log_depth("adaptive path (contig)", m2)
-    log_depth("adaptive path (contig)", m0)
     derived = {}
     for key in m2["occupancy"]["aligner"]["buckets"]:
         edge, band = (int(x) for x in key.strip("()").split(","))
@@ -2531,7 +2559,7 @@ def adaptive_path(dev, paths, windows, report):
                "session_grid": m2["session_grid"]}
     off = report["main_path"]["occupancy"]
     log(f"[chip_smoke] adaptive path: contig FASTA byte-identical to phase "
-        f"5's at depths 2 and 0; aligner edges per static bucket "
+        f"5's at depth 2; aligner edges per static bucket "
         f"{ladders['aligner_edges_by_static_bucket']}, session grid "
         f"{ladders['session_grid']} (static {[list(b) for b in BUCKETS]})")
     log(f"[chip_smoke] adaptive path: contig occupancy on "
@@ -2606,35 +2634,36 @@ def adaptive_path(dev, paths, windows, report):
     out["occupancy"] = {"contig_session": {
         "on": occupancy_view(m2["occupancy"]), "off": occupancy_view(off)}}
 
-    # ---- 3. the fused engine with the scheduler on
+    # ---- 3. the fused engine with the scheduler on, split at int32 and
+    # one launch a chunk at int16 (phase 9 holds the postures equal)
     fused_ladders = {}
-    for scores, dtype in (((5, -4, -8), "int32"), ((3, -5, -4), "int16")):
-        for fused in ("0", "1"):
-            _, polished, m = polish_once(paths, 2, scores=scores,
-                                         cuda_engine="fused",
-                                         cuda_fused=fused,
-                                         adaptive_buckets=True)
-            name = f"{dtype} fused={fused} adaptive"
-            tally(name, m)
-            same(fasta_of(polished), f"fused {dtype}", name)
-            fused_ladders[dtype] = m["k3_depth_buckets"]
-            post = "fused" if fused == "1" else "split"
-            launched = m["k3_depths_launched"][post]
-            if fused == "0" and not any(d not in DEPTH_BUCKETS
-                                        for d in launched):
-                raise SystemExit(f"adaptive path {name}: K3 launched only "
-                                 f"at static depths {launched}")
-            static = report["fused_path"]["runs"][
-                f"{dtype} fused={fused}"]["occupancy"]
-            out["occupancy"][f"contig_fused_{dtype}_{fused}"] = {
-                "on": occupancy_view(m["occupancy"]),
-                "off": occupancy_view(static)}
-            log(f"[chip_smoke] adaptive path {name}: FASTA byte-identical "
-                f"to phase 9's; depth ladder {m['k3_depth_buckets']}, K3 "
-                f"{m['k3_launches']} launches at {post} depths {launched}; "
-                f"consensus {m['consensus_s']:.3f} s; occupancy on "
-                f"{occupancy_view(m['occupancy'])}, off "
-                f"{occupancy_view(static)}")
+    for scores, dtype, fused in (((5, -4, -8), "int32", "0"),
+                                 ((3, -5, -4), "int16", "1")):
+        _, polished, m = polish_once(paths, 2, scores=scores,
+                                     cuda_engine="fused",
+                                     cuda_fused=fused,
+                                     adaptive_buckets=True)
+        name = f"{dtype} fused={fused} adaptive"
+        tally(name, m)
+        same(fasta_of(polished), f"fused {dtype}", name)
+        fused_ladders[dtype] = m["k3_depth_buckets"]
+        post = "fused" if fused == "1" else "split"
+        launched = m["k3_depths_launched"][post]
+        if fused == "0" and not any(d not in DEPTH_BUCKETS
+                                    for d in launched):
+            raise SystemExit(f"adaptive path {name}: K3 launched only "
+                             f"at static depths {launched}")
+        static = report["fused_path"]["runs"][
+            f"{dtype} fused={fused}"]["occupancy"]
+        out["occupancy"][f"contig_fused_{dtype}_{fused}"] = {
+            "on": occupancy_view(m["occupancy"]),
+            "off": occupancy_view(static)}
+        log(f"[chip_smoke] adaptive path {name}: FASTA byte-identical "
+            f"to phase 9's; depth ladder {m['k3_depth_buckets']}, K3 "
+            f"{m['k3_launches']} launches at {post} depths {launched}; "
+            f"consensus {m['consensus_s']:.3f} s; occupancy on "
+            f"{occupancy_view(m['occupancy'])}, off "
+            f"{occupancy_view(static)}")
     ladders["fused_depths"] = fused_ladders
 
     # K3 at the smallest derived depth outside DEPTH_BUCKETS, one chained
@@ -2783,7 +2812,7 @@ def adaptive_path(dev, paths, windows, report):
                 f"; align {m['align_s']:.3f} s, consensus "
                 f"{m['consensus_s']:.3f} s")
     report["adaptive_path"] = out
-    return ((totals["k1"], k1_all), (totals["k2"], k2_all), k3_runs)
+    return tal.result()
 
 
 def autotune_path(dev, paths, workdir, report):
@@ -3038,6 +3067,220 @@ def autotune_path(dev, paths, workdir, report):
                        "k1_by_plan": tot["k1p"], "k2_by_plan": tot["k2p"]}
     report["autotune_path"] = out
     return (tot["k1"], tot["k1p"]), (tot["k2"], tot["k2p"]), tot["k3"]
+
+
+def k3_by_dtype() -> dict:
+    """K3's launches since the last reset, by score dtype."""
+    from racon_tpu_torch.ops import poa_fused_kernels
+
+    out: dict = {}
+    for (_, _, _, dtype, _), n in poa_fused_kernels.launches_by_shape.items():
+        out[dtype] = out.get(dtype, 0) + n
+    return out
+
+
+#: phase 12's window-range split (target coordinates, off the w grid)
+#: and its fragment shard: the split size in bytes and the shard count
+#: (shard 0 is run)
+RANGE_SPLIT = 100_250
+FRAGMENT_SHARD = (300_000, 16)
+
+
+def hooks_path(dev, paths, truth, draft, reads, workdir, report):
+    """Phase 12: the polisher's warm-reuse, range-shard and rounds hooks
+    on the card, every check against the earlier phases' bytes:
+
+      a. phase 5's depth-2 session polisher rebound to the same triple:
+         the FASTA equal to phase 5's, and the run's aligner pairs,
+         pipeline chunks and K1 / K2 launches equal to phase 5's run (the
+         counters are per run);
+      b. the same polisher rebound with `window_range` (0, 100250), then
+         (100250, 10**9) (a split off the w grid): the segments
+         concatenate to phase 5's contig, the LN / RC / XC tags re-derived
+         from `segment_meta` give phase 5's name, and each shard aligns
+         fewer pairs than the whole run (a read across the split is
+         aligned in both);
+      c. a fresh fused-engine polisher (`--cuda-fused 1`, 5/-4/-8): round
+         1 equal to phase 9's int32 FASTA, `redraft` (the in-process
+         re-map: its wall and rows printed), round 2 on the warm polisher
+         with K3 launched, equal to a fresh fused polisher's round 2 on
+         the draft and PAF redraft wrote; the distance to the truth after
+         each round;
+      d. phase 8's reads through the wrapper's kF shard 0 of 16 (split at
+         300,000 bytes) with the fused engine at `--cuda-fused 0` and
+         `1`: the FASTA byte-identical, K3 launched, the corrected reads'
+         summed distance to their truth below the raw reads'.
+
+    Returns (K1 launches, by instantiation), (K2 ...) over the phase's
+    runs, and K3's launches per run."""
+    import io
+
+    import torch
+
+    from racon_tpu_torch import wrapper
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.synth import truth_segment
+
+    tal = Tally()
+    out: dict = {"runs": tal.runs}
+    card = card_info()
+
+    # ---- a. rebind: the same bytes, per-run counters
+    pol = KEPT["contig_polisher"]
+    base = KEPT["contig_numbers"]
+    pol.rebind(*paths)
+    _, polished, m = run_measured(pol)
+    tal.add("rebind", m)
+    if fasta_of(polished) != KEPT["contig"]:
+        raise SystemExit("hooks path: the rebound polisher's FASTA differs "
+                         "from phase 5's")
+    keys = ("pairs", "k1_launches", "k2_launches")
+    got = {k: m[k] for k in keys}
+    got["chunks"] = m["pipeline_stages"]["chunks"]
+    want = {k: base[k] for k in keys}
+    want["chunks"] = base["pipeline_stages"]["chunks"]
+    if got != want:
+        raise SystemExit(f"hooks path: the rebound run's counters {got} "
+                         f"are not phase 5's {want}")
+    log(f"[chip_smoke] hooks path rebind: FASTA byte-identical to phase "
+        f"5's; counters per run {got}; align {m['align_s']:.3f} s, "
+        f"consensus {m['consensus_s']:.3f} s (phase 5: "
+        f"{base['align_s']:.3f} / {base['consensus_s']:.3f} s); card {card}")
+
+    # ---- b. window-range shards of the same polisher
+    name, data = KEPT["contig"][0]
+    segs, metas, shards = [], [], {}
+    for lo, hi in ((0, RANGE_SPLIT), (RANGE_SPLIT, 10**9)):
+        pol.rebind(*paths)
+        pol.window_range = (lo, hi)
+        _, polished, m = run_measured(pol)
+        label = f"range [{lo}, {hi})"
+        tal.add(label, m)
+        segs.append(polished[0].data)
+        metas.append(pol.segment_meta[polished[0].name])
+        shards[label] = {"pairs": m["pairs"], "windows": m["windows"],
+                         "align_s": m["align_s"],
+                         "consensus_s": m["consensus_s"],
+                         "k2_launches": m["k2_launches"]}
+        if m["pairs"] >= base["pairs"]:
+            raise SystemExit(f"hooks path {label}: {m['pairs']} pairs "
+                             f"aligned, the whole run {base['pairs']}")
+    pol.window_range = None
+    joined = b"".join(segs)
+    ratio = sum(x["polished"] for x in metas) / float(
+        metas[0]["total_windows"])
+    derived = (f"{name.split()[0]} LN:i:{len(joined)} "
+               f"RC:i:{metas[0]['coverage']} XC:f:{ratio:.6f}")
+    if joined != data or derived != name:
+        raise SystemExit(f"hooks path: the range segments give {derived} "
+                         f"({len(joined)} bases), phase 5 {name}")
+    out["range"] = {"shards": shards, "segment_meta": metas}
+    log(f"[chip_smoke] hooks path range shards: segments concatenate to "
+        f"phase 5's contig, tags re-derived equal ({derived}); K2 pairs per "
+        f"shard {[v['pairs'] for v in shards.values()]} against "
+        f"{base['pairs']} whole; {shards}")
+
+    # ---- c. rounds on the fused engine
+    d_draft = edit_distance(draft, truth)
+    fpol, polished, m = polish_once(paths, 2, scores=(5, -4, -8),
+                                    cuda_engine="fused", cuda_fused="1")
+    dt = m["k3_dtype"]
+    tal.add(f"{dt} hooks round 1", m)
+    if fasta_of(polished) != KEPT["fused int32"]:
+        raise SystemExit("hooks path: round 1 of the fused engine differs "
+                         "from phase 9's int32 FASTA")
+    d1 = edit_distance(polished[0].data, truth)
+    t0 = time.perf_counter()
+    draft_path, paf_path = fpol.redraft(polished, workdir, "r1")
+    remap_s = time.perf_counter() - t0
+    with open(paf_path) as fh:
+        rows = sum(1 for _ in fh)
+    _, polished2, m2 = run_measured(fpol)
+    tal.add(f"{dt} hooks round 2 warm", m2)
+    _, fresh2, mf = polish_once((paths[0], paf_path, draft_path), 2,
+                                scores=(5, -4, -8), cuda_engine="fused",
+                                cuda_fused="1")
+    tal.add(f"{dt} hooks round 2 fresh", mf)
+    if fasta_of(polished2) != fasta_of(fresh2):
+        raise SystemExit("hooks path: round 2 on the warm fused polisher "
+                         "differs from a fresh polisher's")
+    if m2["k3_launches"] <= 0:
+        raise SystemExit("hooks path: K3 did not launch in round 2")
+    d2 = edit_distance(polished2[0].data, truth)
+    out["rounds"] = {"remap_s": remap_s, "paf_rows": rows,
+                     "distance": [d_draft, d1, d2],
+                     "round2_k3_launches": m2["k3_launches"],
+                     "consensus_s": [m["consensus_s"], m2["consensus_s"],
+                                     mf["consensus_s"]],
+                     "align_s": [m["align_s"], m2["align_s"],
+                                 mf["align_s"]]}
+    log(f"[chip_smoke] hooks path rounds (fused engine, {dt}): round 1 "
+        f"equal to phase 9's; redraft {remap_s:.2f} s ({rows} PAF rows of "
+        f"{len(reads)} reads); round 2 warm equal to a fresh polisher's, K3 "
+        f"{m2['k3_launches']} launches; distance draft {d_draft} -> round "
+        f"1 {d1} -> round 2 {d2}; consensus {m['consensus_s']:.3f} / "
+        f"{m2['consensus_s']:.3f} / {mf['consensus_s']:.3f} s; card {card}")
+
+    # ---- d. the fragment cell through the fused engine
+    fasta = {}
+    for fused in ("0", "1"):
+        buf = io.BytesIO()
+        poa_kernels.reset_launches()
+        align_kernels.reset_launches()
+        poa_fused_kernels.reset_launches()
+        t0 = time.perf_counter()
+        pols = wrapper.run(*KEPT["fragment_paths"], split=FRAGMENT_SHARD[0],
+                           fragment_correction=True, threads=os.cpu_count(),
+                           cuda_poa_batches=1, cuda_aligner_batches=1,
+                           device="cuda", num_shards=FRAGMENT_SHARD[1],
+                           shard_id=0,
+                           out=buf, cuda_engine="fused", cuda_fused=fused,
+                           autotune_table=COLD_TABLE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = k3_by_dtype()
+        fm = {"k1_launches": poa_kernels.launches,
+              "k2_launches": align_kernels.launches,
+              "k1_launches_by_plan": by_plan(poa_kernels.launches_by_shape),
+              "k2_launches_by_plan": by_plan(align_kernels.launches_by_shape),
+              "wall_s": wall, "targets": sum(p.n_targets for p in pols),
+              "align_s": sum(p.phase_s["align"] for p in pols),
+              "consensus_s": sum(p.phase_s["consensus"] for p in pols),
+              "k3_by_dtype": k3}
+        tal.add(f"fragment fused={fused}", fm)
+        for dtype, n in k3.items():
+            tal.k3[f"{dtype} hooks fragment fused={fused}"] = n
+        if not k3:
+            raise SystemExit(f"hooks path: K3 did not launch on the "
+                             f"fragment shard at --cuda-fused {fused}")
+        fasta[fused] = buf.getvalue()
+    if fasta["0"] != fasta["1"]:
+        raise SystemExit("hooks path: the fused fragment shard's FASTA "
+                         "differs between --cuda-fused 0 and 1")
+    lines = fasta["1"].split(b"\n")
+    by_name = {r[0]: r for r in reads}
+    raw = fixed = 0
+    for head, seq in zip(lines[0::2], lines[1::2]):
+        read = by_name[head[1:].split(b" ")[0].decode()[:-1]]
+        seg = truth_segment(truth, read)
+        raw += edit_distance(read[1], seg)
+        fixed += edit_distance(seq, seg)
+    if not fixed < raw:
+        raise SystemExit(f"hooks path: fused fragment distance {fixed} not "
+                         f"below the raw reads' {raw}")
+    out["fragment"] = {"written": len(lines) // 2, "raw_distance": raw,
+                       "corrected_distance": fixed}
+    log(f"[chip_smoke] hooks path fragment (fused engine, shard 0 of "
+        f"{FRAGMENT_SHARD[1]}): FASTA byte-identical at --cuda-fused 0 and 1; {len(lines) // 2} "
+        f"reads written, distance {raw} -> {fixed}; K3 "
+        f"{[tal.runs[f'fragment fused={f}']['k3_by_dtype'] for f in '01']} "
+        f"launches; walls {[round(tal.runs[f'fragment fused={f}']['wall_s'], 3) for f in '01']} s")
+    report["hooks_path"] = out
+    return tal.result()
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -28,11 +28,30 @@ The two types differ in two places only, as in the reference and the
 JAX package: kC keeps just the longest overlap per query, kF every valid
 one (the reads correct each other, so the overlaps must be dual); kF
 names its output reads with an `r` suffix.
+
+Library hooks for a long-lived caller (the JAX package's, which its
+serve layer uses; the one-shot CLI has no flags for them):
+
+  - `rebind(reads, overlaps, target)` points a polisher at a new triple
+    and resets its per-run state; the kernel and host libraries, the
+    lanes' streams and the winner table stay warm, and the next run
+    writes a fresh polisher's bytes;
+  - `redraft(polished, workdir, tag)` re-maps the original reads onto a
+    round's contigs in-process (core/remap.py) and rebinds: the next run
+    is the next polishing round;
+  - `window_range` (target coordinates) and `target_range` (target file
+    indices) restrict a run to a shard; a window-range run writes
+    bare-named segments and their accounting (`segment_meta`);
+  - `progress_hook` receives per-phase progress events (emit_progress);
+  - `polish()` is `_consensus_pass()` then `_stitch()`; ContigStreamer
+    and FragmentStreamer stitch windows delivered in any order into the
+    same output.
 """
 
 from __future__ import annotations
 
 import enum
+import threading
 import time
 
 import numpy as np
@@ -205,8 +224,35 @@ class Polisher:
         self.sequences: list[Sequence] = []
         self.windows: list[Window] = []
         self.targets_coverages: list[int] = []
+        #: window-range shard: (lo, hi) target coordinates. initialize()
+        #: keeps only the windows whose grid start j satisfies
+        #: lo <= j < hi (`rank` stays the window's global grid rank), and
+        #: the stitch emits bare-named segments with their accounting in
+        #: `segment_meta` instead of tagged contigs. None: the whole
+        #: target.
+        self.window_range: tuple[int, int] | None = None
+        #: target-range shard (fragment correction): (lo, hi) indices
+        #: into the target file. initialize() keeps only those targets;
+        #: overlaps onto the others resolve to no target and are skipped.
+        #: None: every target.
+        self.target_range: tuple[int, int] | None = None
+        #: per-contig accounting of a window-range run: {name: {polished,
+        #: windows, total_windows, coverage, lo, hi}}, from which the
+        #: whole contig's LN / RC / XC tags are re-derived
+        self.segment_meta: dict[str, dict] = {}
+        #: per target, the grid rank of its first kept window (all zeros
+        #: outside range mode)
+        self._range_first_rank: list[int] = []
         self.dummy_quality = b"!" * window_length
         self.logger = Logger()
+        #: live progress: callable(event dict) or None (the default).
+        #: Events carry phase / done / total (emit_progress).
+        self.progress_hook = None
+        self._progress_phase: str | None = None
+        self._progress_hwm: tuple[str, int, int] = ("", 0, 0)
+        # built eagerly: two concurrent bar ticks (the pipeline's unpack
+        # worker and its fallback pool) must share one lock
+        self._progress_lock = threading.Lock()
         #: alignment-phase accounting (reference cudapolisher.cpp:204-206)
         self.n_aligner_pairs = 0
         self.n_aligner_device = 0
@@ -264,10 +310,61 @@ class Polisher:
                 for k, n in sorted(now.items())
                 if n > self._consults_base.get(k, 0)}
 
+    @property
+    def posture_key(self) -> tuple:
+        """This polisher's kernel posture (sched/autotune.posture_key):
+        what can change which kernel computes a window's consensus."""
+        from ..sched.autotune import posture_key
+
+        return posture_key(self.device, self.score_dtype, self.pack_bases,
+                           self.cuda_engine, self.cuda_fused)
+
+    # ------------------------------------------------------- progress
+    def emit_progress(self, done, total, phase: str | None = None,
+                      **extra) -> None:
+        """Push one progress event at the armed hook. Per phase, `done`
+        and `total` never decrease (a bar re-armed smaller inside the
+        same phase cannot run the client's bar backwards), and emission
+        never raises: progress is decoration on a run."""
+        hook = self.progress_hook
+        if hook is None:
+            return
+        ph = phase or self._progress_phase or "run"
+        # the hook runs inside the lock: two ticks that computed done 5
+        # and 6 could otherwise deliver 6, then 5
+        with self._progress_lock:
+            hwm_phase, hwm_done, hwm_total = self._progress_hwm
+            if ph != hwm_phase:
+                hwm_done = hwm_total = 0
+            d = max(int(done), hwm_done)
+            t = max(int(total), hwm_total)
+            self._progress_hwm = (ph, d, t)
+            ev = {"phase": ph, "done": min(d, t), "total": t}
+            ev.update(extra)
+            try:
+                hook(ev)
+            except Exception:  # noqa: BLE001 — see docstring
+                pass
+
+    def _progress_tick(self, count: int, total: int) -> None:
+        """Logger.on_bar adapter: a bar's bin transitions become progress
+        events of the phase that runs."""
+        self.emit_progress(min(count, total), total)
+
+    def _arm_progress(self) -> None:
+        """Wire the run's logger's bar ticks into the progress hook (at
+        each phase start: _reset_run_state swaps the logger)."""
+        if self.progress_hook is not None:
+            self.logger.on_bar = self._progress_tick
+
+    # ------------------------------------------------------- warm reuse
     def _reset_run_state(self) -> None:
-        """Fresh per-run counters for a reused polisher: a second
+        """Fresh per-run state for a reused polisher: a second
         initialize() + polish() cycle reports its own stage seconds,
-        occupancy and aligner counts, not a running total."""
+        occupancy, aligner counts and phase walls, not a running total,
+        and writes the same bytes as a fresh polisher. The process-level
+        state (the kernel and host libraries, the lanes' streams, the
+        winner table) stays warm."""
         from ..sched import OccupancyStats
 
         self.hists = HistogramSet()
@@ -277,6 +374,63 @@ class Polisher:
         self.n_aligner_pairs = 0
         self.n_aligner_device = 0
         self.n_aligner_host_fallback = 0
+        self.logger = Logger()
+        self.targets_coverages = []
+        self.segment_meta = {}
+        self._range_first_rank = []
+        self.phase_s = {}
+        self.n_targets = 0
+        self.n_dropped = 0
+        self._progress_phase = None
+        self._progress_hwm = ("", 0, 0)
+
+    def rebind(self, sequences_path: str, overlaps_path: str,
+               target_path: str) -> "Polisher":
+        """Point this polisher at a new input triple: parsers rebuilt,
+        per-run state reset, the process-level state kept. The next
+        initialize() parses the new inputs."""
+        if self.windows:
+            raise RaconError("Polisher.rebind",
+                             "cannot rebind mid-run (windows pending)!")
+        self.sparser = create_sequence_parser(sequences_path,
+                                              "Polisher.rebind")
+        self.oparser = create_overlap_parser(overlaps_path,
+                                             "Polisher.rebind")
+        self.tparser = create_sequence_parser(target_path,
+                                              "Polisher.rebind")
+        self._reset_run_state()
+        return self
+
+    def redraft(self, polished, workdir: str,
+                tag: str = "round") -> tuple[str, str]:
+        """The next polishing round in-process: write round k's stitched
+        contigs as round k+1's draft, re-map the original reads onto them
+        (core/remap.py), and rebind this polisher to the new triple; the
+        next initialize() + polish() is round k+1 on the same engines.
+        Returns the (draft FASTA, overlaps PAF) paths written under
+        `workdir` as `<tag>_draft.fasta` and `<tag>_ovl.paf`. The reads
+        are parsed again from the original reads path."""
+        import os
+
+        from .remap import remap_overlaps, write_fasta, write_paf
+
+        if not polished:
+            raise RaconError("Polisher.redraft",
+                             "no polished sequences to re-draft from!")
+        reads_path = self.sparser.path
+        fasta_path = write_fasta(
+            polished, os.path.join(workdir, f"{tag}_draft.fasta"))
+        reads: list[Sequence] = []
+        rparser = create_sequence_parser(reads_path, "Polisher.redraft")
+        rparser.reset()
+        rparser.parse(reads, -1)
+        rows = remap_overlaps(reads, polished)
+        if not rows:
+            raise RaconError("Polisher.redraft",
+                             "no reads re-mapped onto the new draft!")
+        paf_path = write_paf(rows, os.path.join(workdir, f"{tag}_ovl.paf"))
+        self.rebind(reads_path, paf_path, fasta_path)
+        return fasta_path, paf_path
 
     # ------------------------------------------------------------------ init
     def initialize(self) -> None:
@@ -287,6 +441,7 @@ class Polisher:
         reset_dedup()
         if self._runs_completed:
             self._reset_run_state()
+        self._arm_progress()
         t_init = time.perf_counter()
         self._consults_base = self.autotuner.consults_snapshot()
         log = self.logger
@@ -295,6 +450,24 @@ class Polisher:
         # -- targets (loaded whole; reference polisher.cpp:202-217)
         self.tparser.reset()
         self.tparser.parse(self.sequences, -1)
+        target_base = 0
+        if self.target_range is not None:
+            # keep the targets whose file index lies in [lo, hi); the
+            # id_to_id keys below keep the file index, so id-keyed
+            # overlaps (MHAP) resolve as name-keyed ones do, and overlaps
+            # onto dropped targets resolve to nothing and are skipped
+            lo, hi = self.target_range
+            total = len(self.sequences)
+            lo, hi = max(0, int(lo)), min(int(hi), total)
+            if hi <= lo:
+                raise RaconError(
+                    "Polisher.initialize",
+                    f"target_range [{self.target_range[0]}, "
+                    f"{self.target_range[1]}) selects no targets out of "
+                    f"{total}!")
+            del self.sequences[hi:]
+            del self.sequences[:lo]
+            target_base = lo
         targets_size = len(self.sequences)
         if targets_size == 0:
             raise RaconError("Polisher.initialize", "empty target sequences set!")
@@ -304,7 +477,7 @@ class Polisher:
         id_to_id: dict[int, int] = {}
         for i in range(targets_size):
             name_to_id[self.sequences[i].name + "t"] = i
-            id_to_id[i << 1 | 1] = i
+            id_to_id[(target_base + i) << 1 | 1] = i
 
         has_name = [True] * targets_size
         has_data = [True] * targets_size
@@ -362,7 +535,9 @@ class Polisher:
         # -- overlaps streamed; per-query filtering (polisher.cpp:284-355)
         overlaps = self._load_overlaps(name_to_id, id_to_id,
                                        has_data, has_reverse_data)
-        if not overlaps:
+        if not overlaps and self.target_range is None:
+            # a target-range shard may hold only targets without overlaps
+            # (they come back unpolished and drop as in a whole run)
             raise RaconError("Polisher.initialize", "empty overlap set!")
 
         log.log("[racon_tpu_torch::Polisher.initialize] loaded overlaps")
@@ -372,6 +547,7 @@ class Polisher:
         for i, seq in enumerate(self.sequences):
             seq.transmute(has_name[i], has_data[i], has_reverse_data[i])
 
+        self._progress_phase = "align"
         t_align = time.perf_counter()
         with trace.span("polisher.align_overlaps"):
             self.find_overlap_breaking_points(overlaps)
@@ -379,20 +555,29 @@ class Polisher:
 
         log.log()
 
-        # -- windows (polisher.cpp:384-399)
+        # -- windows (polisher.cpp:384-399); in range mode only the grid
+        #    starts lo <= j < hi materialize, and `rank` stays the global
+        #    grid rank, so a window's output does not depend on its shard
+        rng = self.window_range
         id_to_first_window_id = [0] * (targets_size + 1)
+        self._range_first_rank = [0] * targets_size
         for i in range(targets_size):
             data = self.sequences[i].data
             quality = self.sequences[i].quality
             k = 0
+            kept = 0
             for j in range(0, len(data), self.window_length):
-                length = min(j + self.window_length, len(data)) - j
-                q = quality[j:j + length] if quality \
-                    else self.dummy_quality[:length]
-                self.windows.append(create_window(
-                    i, k, window_type, data[j:j + length], q))
+                if rng is None or rng[0] <= j < rng[1]:
+                    length = min(j + self.window_length, len(data)) - j
+                    q = quality[j:j + length] if quality \
+                        else self.dummy_quality[:length]
+                    self.windows.append(create_window(
+                        i, k, window_type, data[j:j + length], q))
+                    if kept == 0:
+                        self._range_first_rank[i] = k
+                    kept += 1
                 k += 1
-            id_to_first_window_id[i + 1] = id_to_first_window_id[i] + k
+            id_to_first_window_id[i + 1] = id_to_first_window_id[i] + kept
 
         self.targets_coverages = [0] * targets_size
 
@@ -423,7 +608,12 @@ class Polisher:
                     if avg < self.quality_threshold:
                         continue
                 window_start = (t_first // wl) * wl
-                window_id = id_to_first_window_id[o.t_id] + t_first // wl
+                if rng is not None and \
+                        not rng[0] <= window_start < rng[1]:
+                    continue
+                window_id = (id_to_first_window_id[o.t_id]
+                             + t_first // wl
+                             - self._range_first_rank[o.t_id])
                 data = data_src[q_first:q_last1]
                 qual = (qual_src[q_first:q_last1] if qual_src else None)
                 self.windows[window_id].add_layer(
@@ -433,6 +623,9 @@ class Polisher:
 
         log.log("[racon_tpu_torch::Polisher.initialize] transformed data "
                 "into windows")
+        # the window total as consensus progress zero: the client's bar
+        # knows its denominator before the first batch
+        self.emit_progress(0, len(self.windows), phase="consensus")
         t_end = time.perf_counter()
         self.phase_s["initialize"] = t_end - t_init
         self.hists.observe("phase.initialize", t_end - t_init)
@@ -512,7 +705,8 @@ class Polisher:
         """
         from ..native import nw_cigar_batch
 
-        need = [o for o in overlaps if not o.cigar and o.is_valid]
+        need = [o for o in overlaps
+                if not o.cigar and o.is_valid and self._range_keeps(o)]
         if need:
             pairs = []
             for o in need:
@@ -602,18 +796,67 @@ class Polisher:
                          f"form: {plan_split(a.batches_by_plan)}")
 
         for o in overlaps:
-            if o.is_valid and o.cigar:
+            if o.is_valid and o.cigar and self._range_keeps(o):
                 o.find_breaking_points(self.sequences, self.window_length)
 
         self.logger.log("[racon_tpu_torch::Polisher.initialize] aligned "
                         "overlaps")
 
+    def _range_keeps(self, o) -> bool:
+        """Whether an overlap can give layers to this run's kept windows
+        (always outside range mode). Coverage (RC) counts every overlap
+        whatever this says: the layer loop counts it before it reads the
+        breaking points, so skipping the aligner and the breaking-point
+        walk here saves work and changes no byte."""
+        rng = self.window_range
+        if rng is None:
+            return True
+        wl = self.window_length
+        length = len(self.sequences[o.t_id].data)
+        lo, hi = rng
+        # the kept windows' region: window starts are multiples of wl,
+        # so membership does not depend on the split points' alignment
+        first_start = -(-max(lo, 0) // wl) * wl
+        cap = min(hi, length)
+        if first_start >= cap:
+            return False
+        last_start = ((cap - 1) // wl) * wl
+        region_hi = min(length, last_start + wl)
+        return o.t_begin < region_hi and o.t_end > first_start
+
     # ---------------------------------------------------------------- polish
     def polish(self, drop_unpolished_sequences: bool = True) -> list[Sequence]:
         """Per-window consensus + stitch (reference polisher.cpp:486-548)."""
+        self._consensus_pass()
+        t0 = time.perf_counter()
+        dst = self._stitch(drop_unpolished_sequences)
+        t1 = time.perf_counter()
+        self.phase_s["stitch"] = t1 - t0
+        self.emit_progress(len(self.windows), len(self.windows),
+                           phase="stitch", sequences=len(dst))
+        self.hists.observe("phase.stitch", t1 - t0)
+        tr = trace.get_tracer()
+        if tr is not None:
+            tr.complete("polisher.stitch", t0, t1, {"sequences": len(dst)})
+        self.logger.log("[racon_tpu_torch::Polisher.polish] generated "
+                        "consensus")
+        self.logger.total("[racon_tpu_torch::Polisher.] total =")
+        self.windows = []
+        self.sequences = []
+        self._runs_completed += 1
+        self.emit_observability()
+        return dst
+
+    def _consensus_pass(self) -> None:
+        """Run the consensus engine over this run's windows (each window
+        ends up with its `consensus` and `polished` set) and log the
+        phase's reports."""
         from ..ops.poa import BatchPOA
 
         self.logger.log()
+        self._progress_phase = "consensus"
+        self._arm_progress()
+        self.emit_progress(0, len(self.windows))
         pipeline = self._make_pipeline()
         # the stage counters accumulate across phases; the line below
         # describes this phase only
@@ -641,6 +884,13 @@ class Polisher:
         t1 = time.perf_counter()
         dt = t1 - t0
         self.phase_s["consensus"] = dt
+        if self.progress_hook is not None:
+            snap = self.scheduler.stats.snapshot()
+            self.emit_progress(
+                len(self.windows), len(self.windows),
+                occupancy={e: round(v["occupancy_pct"], 1)
+                           for e, v in snap.items()
+                           if "occupancy_pct" in v} or None)
         self.hists.observe("phase.consensus", dt)
         tr = trace.get_tracer()
         if tr is not None:
@@ -677,22 +927,6 @@ class Polisher:
                      + ", ".join(f"{e} {k}{':' + d if d else ''} {n}"
                                  for (e, k, d), n in dec.items()) + ")")
 
-        t0 = time.perf_counter()
-        dst = self._stitch(drop_unpolished_sequences)
-        t1 = time.perf_counter()
-        self.phase_s["stitch"] = t1 - t0
-        self.hists.observe("phase.stitch", t1 - t0)
-        if tr is not None:
-            tr.complete("polisher.stitch", t0, t1, {"sequences": len(dst)})
-        self.logger.log("[racon_tpu_torch::Polisher.polish] generated "
-                        "consensus")
-        self.logger.total("[racon_tpu_torch::Polisher.] total =")
-        self.windows = []
-        self.sequences = []
-        self._runs_completed += 1
-        self.emit_observability()
-        return dst
-
     def emit_observability(self) -> None:
         """End-of-run emission, each part a no-op when its knob is off:
         report suppressed duplicate warnings, dump the metrics snapshot
@@ -721,33 +955,166 @@ class Polisher:
             log_info(f"[racon_tpu_torch::obs] trace written to {saved} "
                      "(open in https://ui.perfetto.dev)")
 
-    def _stitch(self, drop_unpolished_sequences: bool) -> list[Sequence]:
-        """Stitch per-window consensus back into whole sequences with the
-        reference's LN/RC/XC tagging (polisher.cpp:506-545), `r` before
-        the tags for kF."""
-        dst: list[Sequence] = []
-        self.n_dropped = 0
+    def _contig_slices(self) -> list[tuple[int, int]]:
+        """[start, end) window-index ranges, one per target, in target
+        order: a target ends where the next window belongs to another
+        target id (a range shard's first window has a rank above 0)."""
+        slices: list[tuple[int, int]] = []
         start = 0
         for i in range(len(self.windows)):
-            if (i != len(self.windows) - 1
-                    and self.windows[i + 1].id == self.windows[i].id):
-                continue
-            windows = self.windows[start:i + 1]
-            start = i + 1
-            polished_data = bytearray()
-            num_polished_windows = 0
-            for window in windows:
-                num_polished_windows += 1 if window.polished else 0
-                polished_data += window.consensus
-            last = windows[-1]
-            ratio = num_polished_windows / float(last.rank + 1)
-            if drop_unpolished_sequences and ratio <= 0:
-                self.n_dropped += 1
-                continue
-            tags = "r" if self.type == PolisherType.kF else ""
-            tags += f" LN:i:{len(polished_data)}"
-            tags += f" RC:i:{self.targets_coverages[last.id]}"
-            tags += f" XC:f:{ratio:.6f}"
-            dst.append(create_sequence(self.sequences[last.id].name + tags,
-                                       bytes(polished_data)))
+            if (i == len(self.windows) - 1
+                    or self.windows[i + 1].id != self.windows[i].id):
+                slices.append((start, i + 1))
+                start = i + 1
+        return slices
+
+    def _stitch_contig(self, windows: list[Window],
+                       drop_unpolished_sequences: bool) -> Sequence | None:
+        """Stitch one target's windows (rank-ascending) into a polished
+        sequence with the reference's LN/RC/XC tagging
+        (polisher.cpp:506-545), `r` before the tags for kF; None (and
+        counted in n_dropped) when it is dropped as unpolished."""
+        polished_data = bytearray()
+        num_polished_windows = 0
+        for window in windows:
+            num_polished_windows += 1 if window.polished else 0
+            polished_data += window.consensus
+        last = windows[-1]
+        if self.window_range is not None:
+            # a range segment: bare name, never dropped; the whole
+            # contig's tags and drop rule come from the segments'
+            # accounting
+            name = self.sequences[last.id].name
+            data_len = len(self.sequences[last.id].data)
+            wl = self.window_length
+            self.segment_meta[name] = {
+                "polished": num_polished_windows,
+                "windows": len(windows),
+                "total_windows": (data_len + wl - 1) // wl,
+                "coverage": self.targets_coverages[last.id],
+                "lo": self.window_range[0],
+                "hi": self.window_range[1],
+            }
+            return create_sequence(name, bytes(polished_data))
+        ratio = num_polished_windows / float(last.rank + 1)
+        if drop_unpolished_sequences and ratio <= 0:
+            self.n_dropped += 1
+            return None
+        tags = "r" if self.type == PolisherType.kF else ""
+        tags += f" LN:i:{len(polished_data)}"
+        tags += f" RC:i:{self.targets_coverages[last.id]}"
+        tags += f" XC:f:{ratio:.6f}"
+        return create_sequence(self.sequences[last.id].name + tags,
+                               bytes(polished_data))
+
+    def _stitch(self, drop_unpolished_sequences: bool) -> list[Sequence]:
+        """Stitch per-window consensus back into whole sequences, one
+        target at a time."""
+        dst: list[Sequence] = []
+        self.n_dropped = 0
+        for start, end in self._contig_slices():
+            seq = self._stitch_contig(self.windows[start:end],
+                                      drop_unpolished_sequences)
+            if seq is not None:
+                dst.append(seq)
         return dst
+
+
+class ContigStreamer:
+    """Incremental stitcher: feed completed windows in any order
+    (`on_windows`), receive finished targets in target order. A target
+    ships once its last window lands and every earlier target has
+    shipped, so the emitted parts concatenate to `Polisher._stitch`'s
+    output. `on_part` (callable(Sequence) or None) sees each stitched
+    target as it completes; its exceptions are swallowed (streaming is
+    decoration on the polish)."""
+
+    def __init__(self, polisher: Polisher, drop_unpolished: bool,
+                 on_part=None):
+        self._polisher = polisher
+        self._drop = drop_unpolished
+        self._on_part = on_part
+        self._slices = polisher._contig_slices()
+        self._remaining = [end - start for start, end in self._slices]
+        self._contig_of: dict[int, int] = {}
+        for ci, (start, end) in enumerate(self._slices):
+            for w in polisher.windows[start:end]:
+                self._contig_of[id(w)] = ci
+        self._next = 0
+        self._out: list[Sequence] = []
+        polisher.n_dropped = 0
+        #: stitch seconds summed over the deliveries
+        self.stitch_s = 0.0
+
+    def _ready(self, windows: list[Window]):
+        """Count `windows` delivered, then yield each target that is
+        complete in order, stitched (None when dropped)."""
+        for w in windows:
+            self._remaining[self._contig_of[id(w)]] -= 1
+        while (self._next < len(self._slices)
+               and self._remaining[self._next] == 0):
+            start, end = self._slices[self._next]
+            t0 = time.perf_counter()
+            seq = self._polisher._stitch_contig(
+                self._polisher.windows[start:end], self._drop)
+            self.stitch_s += time.perf_counter() - t0
+            self._next += 1
+            yield seq
+
+    def on_windows(self, windows: list[Window]) -> None:
+        for seq in self._ready(windows):
+            if seq is None:
+                continue
+            self._out.append(seq)
+            if self._on_part is not None:
+                try:
+                    self._on_part(seq)
+                except Exception:  # noqa: BLE001 — see docstring
+                    pass
+
+    def finish(self) -> list[Sequence]:
+        """The whole stitched output, equal to `_stitch`'s list, once
+        every window was delivered."""
+        return self._out
+
+
+class FragmentStreamer(ContigStreamer):
+    """ContigStreamer for fragment correction, where every target is a
+    read: corrected reads ship in groups, `on_group(seqs, lo, hi)` once
+    per `group_size` consecutive targets, [lo, hi) being the local
+    target-index range the group covers. Dropped reads still advance the
+    range (a group may be empty), so the groups' ranges tile the targets.
+    finish() flushes the last partial group; its list equals `_stitch`'s.
+    `on_group`'s exceptions are swallowed."""
+
+    def __init__(self, polisher: Polisher, drop_unpolished: bool,
+                 on_group=None, group_size: int = 64):
+        super().__init__(polisher, drop_unpolished, on_part=None)
+        self._on_group = on_group
+        self._group_size = max(1, int(group_size))
+        self._pend: list[Sequence] = []
+        self._group_lo = 0
+
+    def on_windows(self, windows: list[Window]) -> None:
+        for seq in self._ready(windows):
+            if seq is not None:
+                self._out.append(seq)
+                self._pend.append(seq)
+            if self._next - self._group_lo >= self._group_size:
+                self._flush_group()
+
+    def _flush_group(self) -> None:
+        if self._next == self._group_lo:
+            return
+        group, lo, hi = self._pend, self._group_lo, self._next
+        self._pend = []
+        self._group_lo = self._next
+        if self._on_group is not None:
+            try:
+                self._on_group(group, lo, hi)
+            except Exception:  # noqa: BLE001 — see docstring
+                pass
+
+    def finish(self) -> list[Sequence]:
+        self._flush_group()
+        return self._out

@@ -5,7 +5,22 @@ C++ equivalents of the reference's vendored native dependencies: spoa
 session that feeds the GPU POA kernel, and a zlib FASTA/FASTQ loader.
 The sources in `src/` are this package's own copy; the shared object is
 built with g++ at first use into `build/native/` (git-ignored), keyed by
-a hash of the sources and the host CPU, and loaded through ctypes.
+a hash of the sources and the host CPU, one g++ per source started
+together, and loaded through ctypes.
+
+`build(debug=True)` is the sanitizer build (the reference's
+`-Db_sanitize=address`, Makefile:23-25): -O1 -g with ASan and UBSan into
+its own file, `libracon_host_debug-<key>.so`. A process loads it only
+when it asks, with `load(debug=True)` before the first call into the
+library; loading an ASan library through ctypes needs the ASan runtime
+preloaded:
+
+    LD_PRELOAD=$(g++ -print-file-name=libasan.so) \
+        ASAN_OPTIONS=detect_leaks=0 python -c "from racon_tpu_torch \
+        import native; native.load(debug=True); ..."
+
+`python -m racon_tpu_torch.native [--debug] [--force]` builds ahead of
+time and prints the library's path.
 """
 
 from __future__ import annotations
@@ -20,12 +35,22 @@ import threading
 import numpy as np
 
 from .._build import BUILD_DIR, digest, install
+from ..errors import RaconError
 
 _SRC = pathlib.Path(__file__).resolve().parent / "src"
 _SOURCES = ("poa.cpp", "myers.cpp", "parse.cpp", "api.cpp", "session.cpp")
 
+#: the compile flags of each variant, tried in order: native codegen is
+#: about 20% faster on the POA DP loops, and the plain -O3 build serves
+#: toolchains without the flag
+RELEASE_FLAGS = (("-O3", "-march=native", "-funroll-loops"), ("-O3",))
+DEBUG_FLAGS = (("-O1", "-g", "-fsanitize=address,undefined",
+                "-fno-omit-frame-pointer"),)
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+#: the variant this process loads (load())
+_debug = False
 
 
 def _host_fingerprint() -> str:
@@ -41,39 +66,75 @@ def _host_fingerprint() -> str:
     return platform.machine()
 
 
-def build() -> pathlib.Path:
+def _compile(flags, out: pathlib.Path) -> subprocess.CompletedProcess:
+    """One g++ per source, all started together, then the link."""
+    cxx = os.environ.get("CXX", "g++")
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    objs = [out.parent / f"{out.stem}-{s}-{tag}.o" for s in _SOURCES]
+    procs = [subprocess.Popen([cxx, *flags, "-std=c++17", "-fPIC",
+                               "-pthread", "-c", str(_SRC / s), "-o",
+                               str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(_SOURCES, objs)]
+    texts = [p.communicate()[0] for p in procs]
+    if all(p.returncode == 0 for p in procs):
+        cmd = [cxx, *flags, "-shared", "-pthread", "-o", str(out),
+               *map(str, objs), "-lz"]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    else:
+        proc = subprocess.CompletedProcess(
+            [cxx, *flags], 1, "", "".join(texts))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    return proc
+
+
+def build(force: bool = False, debug: bool = False) -> pathlib.Path:
     """Compile the shared library if no build of these sources for this
-    CPU exists yet."""
+    CPU exists yet (`force`: compile it again). `debug` builds the
+    sanitizer variant into its own file."""
     srcs = [_SRC / s for s in _SOURCES] + [_SRC / "poa.hpp"]
-    key = digest(srcs, [_host_fingerprint()])
+    if debug:
+        key = digest(srcs, [_host_fingerprint(), *DEBUG_FLAGS[0]])
+        name, variants = f"libracon_host_debug-{key}.so", DEBUG_FLAGS
+    else:
+        key = digest(srcs, [_host_fingerprint()])
+        name, variants = f"libracon_host-{key}.so", RELEASE_FLAGS
     out_dir = BUILD_DIR / "native"
-    lib = out_dir / f"libracon_host-{key}.so"
+    lib = out_dir / name
     with _lock:
-        if lib.exists():
+        if lib.exists() and not force:
             return lib
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
-        proc = None
-        # native codegen is ~20% faster on the POA DP loops; fall back
-        # for toolchains without the flag
-        for flags in (["-O3", "-march=native", "-funroll-loops"], ["-O3"]):
-            cmd = [os.environ.get("CXX", "g++"), *flags, "-std=c++17",
-                   "-fPIC", "-shared", "-pthread", "-o", str(tmp),
-                   *[str(_SRC / s) for s in _SOURCES], "-lz"]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+        for flags in variants:
+            proc = _compile(flags, tmp)
             if proc.returncode == 0:
                 break
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"native build failed ({' '.join(cmd)}):\n{proc.stderr}")
+            raise RuntimeError(f"native build failed ({' '.join(proc.args)})"
+                               f":\n{proc.stderr}")
         install(tmp, lib)
     return lib
+
+
+def load(debug: bool = False) -> ctypes.CDLL:
+    """Pick the variant this process loads (the sanitizer build with
+    `debug`) and load it. The first load fixes the variant: asking for
+    the other one afterwards raises."""
+    global _debug
+    if _lib is not None and _debug != debug:
+        raise RaconError("native.load", "the "
+                         f"{'debug' if _debug else 'release'} host library "
+                         "is already loaded")
+    _debug = debug
+    return get_lib()
 
 
 def get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(debug=_debug)))
         i64, i32 = ctypes.c_int64, ctypes.c_int32
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)

@@ -16,6 +16,11 @@ stay as they were:
   4. leveled logging (`utils/logger.py`, re-exported here):
      `--cuda-log-level quiet|info|debug`.
 
+For a long-lived process: `obs.flight` (an always-on bounded ring of
+recent spans, dumped per job), `obs.journal` (a size-bounded JSONL
+lifecycle log) and `obs.prom` (Prometheus text exposition and its strict
+parser); the histograms carry exemplars and export for it.
+
 `torch_profile(directory, phase)` is the deep-dive hook, the counterpart
 of the JAX package's `jax_profile`: a context manager that brackets one
 device phase with a `torch.profiler` capture written as Chrome trace

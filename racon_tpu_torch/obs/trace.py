@@ -19,7 +19,13 @@ or chrome://tracing.
      sorts by timestamp.
 
 Span names and `args` keys are the JAX package's (racon_tpu/obs/trace.py
-and its call sites), so one trace reader serves both.
+and its call sites), so one trace reader serves both. For a long-lived
+process: `install()` arms a recorder the caller built (the bounded
+FlightRecorder of obs/flight.py), `scoped()` arms a fresh per-job
+recorder and restores the previous one after (teeing into it when one
+was armed), `rebase()` moves a recorder's time zero earlier, and
+`rebase_events()` / `trace_matches()` merge and select events of one
+distributed trace.
 """
 
 from __future__ import annotations
@@ -97,6 +103,14 @@ class TraceRecorder:
         # clamp: a caller-supplied endpoint can predate this recorder
         return round(max(0.0, t - self._base) * 1e6, 3)
 
+    def rebase(self, base: float) -> None:
+        """Move the recorder's time zero earlier, to perf_counter `base`,
+        so spans that predate its creation (a job's queue wait) keep
+        their real offsets instead of clamping to 0. Valid only before
+        events are recorded; a later or equal base is ignored."""
+        if base < self._base:
+            self._base = base
+
     def complete(self, name: str, t0: float, t1: float,
                  args: dict | None = None) -> None:
         """Record a finished span from its `time.perf_counter` endpoints."""
@@ -163,10 +177,71 @@ def configure(path: str | None = None) -> TraceRecorder:
     return _tracer
 
 
+def install(recorder: TraceRecorder) -> TraceRecorder:
+    """Arm a recorder the caller built (such as obs/flight.py's bounded
+    FlightRecorder) as the process tracer; every hook feeds it."""
+    global _tracer
+    _tracer = recorder
+    return recorder
+
+
 def reset() -> None:
     """Disarm the process tracer."""
     global _tracer
     _tracer = None
+
+
+class _TeeRecorder:
+    """A recorder that forwards every event to several recorders: how a
+    per-job trace (scoped) coexists with a recorder already armed, which
+    keeps recording. Only the recording calls (`complete`, `instant`,
+    `span`) fan out; `events` and `save` are the primary's."""
+
+    def __init__(self, primary: TraceRecorder, *others: TraceRecorder):
+        self._recs = (primary,) + others
+        self.path = primary.path
+
+    def complete(self, name, t0, t1, args=None) -> None:
+        for rec in self._recs:
+            rec.complete(name, t0, t1, args)
+
+    def instant(self, name, args=None) -> None:
+        for rec in self._recs:
+            rec.instant(name, args)
+
+    def span(self, name: str, **args) -> _Span:
+        return _Span(self, name, args or None)
+
+    def events(self) -> list[dict]:
+        return self._recs[0].events()
+
+    def save(self, path: str | None = None) -> str:
+        return self._recs[0].save(path)
+
+
+class scoped:
+    """Context manager arming a fresh in-memory recorder and restoring
+    the previous tracer on exit (a job's own trace). The recorder is the
+    process's for the duration, so spans of concurrent work land in it
+    too. When a recorder is already armed, the scope installs a tee, so
+    the outer recorder keeps seeing every span. Scopes serialize on a
+    lock: the save and restore of the process tracer is not reentrant."""
+
+    _lock = threading.Lock()
+
+    def __enter__(self) -> TraceRecorder:
+        global _tracer
+        self._lock.acquire()
+        self._prev = _tracer
+        rec = TraceRecorder(None)
+        _tracer = rec if self._prev is None else _TeeRecorder(rec,
+                                                              self._prev)
+        return rec
+
+    def __exit__(self, *exc_info) -> None:
+        global _tracer
+        _tracer = self._prev
+        self._lock.release()
 
 
 def save(path: str | None = None) -> str | None:
@@ -177,6 +252,45 @@ def save(path: str | None = None) -> str | None:
     if tr is None or not (path or tr.path):
         return None
     return tr.save(path)
+
+
+def rebase_events(events: list[dict], pid: int, shift_us: float = 0.0,
+                  name: str | None = None) -> list[dict]:
+    """Re-stamp a snapshot of trace events onto process `pid`, shifting
+    span and instant timestamps by `shift_us`: how another process's
+    events merge into a local timeline as a Perfetto process track of
+    their own. Returns fresh dicts (the inputs are not mutated), led by
+    a `process_name` metadata event when `name` is given; metadata
+    events ("M") keep their timestampless shape."""
+    out: list[dict] = []
+    if name is not None:
+        out.append({"name": "process_name", "ph": "M", "pid": pid,
+                    "args": {"name": name}})
+    for ev in events:
+        ev = dict(ev)
+        ev["pid"] = pid
+        if ev.get("ph") != "M" and "ts" in ev:
+            ev["ts"] = round(max(0.0, ev["ts"] + shift_us), 3)
+        out.append(ev)
+    return out
+
+
+def trace_matches(args: dict | None, trace_id: str) -> bool:
+    """Whether a span's or instant's args tie it to `trace_id` or to one
+    of its children (dotted ids, `<trace>.s<k>`: an exact or dotted-prefix
+    match). Args carry either one `trace_id` string or a `trace_ids`
+    list (one a co-scheduled job); a match on either counts."""
+    if not args:
+        return False
+
+    def _hit(t) -> bool:
+        return isinstance(t, str) and (
+            t == trace_id or t.startswith(trace_id + "."))
+
+    if _hit(args.get("trace_id")):
+        return True
+    tids = args.get("trace_ids")
+    return isinstance(tids, (list, tuple)) and any(_hit(t) for t in tids)
 
 
 def span(name: str, **args):

@@ -32,6 +32,26 @@ def _tensors(out):
     return [t for t in out if isinstance(t, torch.Tensor)]
 
 
+def partition_devices(devices=None, k: int = 1) -> list[list]:
+    """Split a device list into `k` contiguous, near-equal lanes (the
+    serve layer's worker lanes, each with its own BatchRunner): `k`
+    clamps to the device count and the first len(devices) % k lanes
+    carry the extra device. `devices=None` takes every visible CUDA
+    device (none on a host without a card: pass the list there)."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = list(devices)
+    k = max(1, min(int(k), len(devices)))
+    base, extra = divmod(len(devices), k)
+    out, start = [], 0
+    for i in range(k):
+        n = base + (1 if i < extra else 0)
+        out.append(devices[start:start + n])
+        start += n
+    return out
+
+
 class BatchRunner:
     """Runs batched kernels with the leading axis split over its lanes.
 

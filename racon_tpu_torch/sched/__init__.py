@@ -33,8 +33,8 @@ add_windows-until-full batch sizing (cudabatch.cpp:77-270).
 
 The posture comes from arguments and flags only (no environment
 mirror), and the JAX package's persistent XLA compile cache has nothing
-to cache here. The serve feeder's `pack_iteration` comes with the serve
-slice.
+to cache here. `pack_iteration` is the serve feeder's incremental form
+of the sorted packing.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ from .ladder import ladder_1d, ladder_2d, padded_cost_1d, round_up
 from .telemetry import OccupancyStats
 
 __all__ = ["BatchScheduler", "OccupancyStats", "ladder_1d", "ladder_2d",
-           "padded_cost_1d", "round_up", "shard_interleave"]
+           "pack_iteration", "padded_cost_1d", "round_up",
+           "shard_interleave"]
 
 
 def shard_interleave(items: list, n_devices: int) -> list:
@@ -60,6 +61,34 @@ def shard_interleave(items: list, n_devices: int) -> list:
     for s in range(n):
         out.extend(items[s::n])
     return out
+
+
+def pack_iteration(items: list, cap: int, shape_key, age_key,
+                   lane_multiple: int = 1):
+    """The serve feeder's packing step: from a pending pool, pick one
+    bounded, shape-homogeneous batch that still ships the oldest item.
+
+    The pool is sorted by `shape_key` (what the ladders bucket on: depth,
+    length), then the contiguous slab of at most `cap` items that holds
+    the item with the least `age_key` is taken: the batch lands in few
+    ladder buckets while the oldest item always ships, however the
+    shapes interleave. `lane_multiple` is the dispatching runner's lane
+    count: when the pool is deep enough the slab is rounded down to a
+    multiple of it, so the lanes' shards are equal (the trimmed items
+    lead the next iteration); a pool smaller than one multiple ships
+    whole. Returns `(batch, rest)`, `rest` in sorted order."""
+    if not items:
+        return [], []
+    ordered = sorted(items, key=shape_key)
+    cap = max(1, int(cap))
+    size = min(cap, len(ordered))
+    m = max(1, int(lane_multiple))
+    if size > m and size % m:
+        size = (size // m) * m
+    oldest = min(range(len(ordered)), key=lambda i: age_key(ordered[i]))
+    start = min(oldest, max(0, len(ordered) - size))
+    return (ordered[start:start + size],
+            ordered[:start] + ordered[start + size:])
 
 
 class BatchScheduler:

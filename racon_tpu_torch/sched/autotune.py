@@ -38,8 +38,9 @@ fastest (`_settle`): the int16 / int32 and split / one-launch gaps are
 mostly inside the calls' spread, and there the entry keeps the cold
 decision and says `noise`.
 
-`posture_key` and `consult_counts`, whose callers are the serve window
-cache, batcher and scrape, come with the serve slice.
+`posture_key` fingerprints the postures that choose a window's kernel
+(the serve window cache keys on it), and `Autotuner.consult_counts`
+gives the consult counters as labeled samples for a scrape.
 """
 
 from __future__ import annotations
@@ -84,6 +85,22 @@ def plane(backend: str) -> str:
     """The kernel plane of a backend: the hand kernels on a card, their
     plain versions on the CPU."""
     return "cuda" if backend == "cuda" else "plain"
+
+
+def posture_key(device="cuda", score_dtype: str = "auto",
+                pack_bases: bool = True, cuda_engine: str = "session",
+                cuda_fused: str = "auto") -> tuple:
+    """The kernel posture fingerprint: each constructor posture that can
+    change which kernel computes a window's consensus (the plane, `cuda`
+    or `plain`, `score_dtype`, `pack_bases`, `cuda_engine`,
+    `cuda_fused`), and the device kind (the card's name, or `cpu`). A
+    window cache keyed on it never returns bytes cached under another
+    posture. Reads no environment."""
+    dev = torch.device(device)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    return (plane(dev.type), str(score_dtype), bool(pack_bases),
+            str(cuda_engine), str(cuda_fused), kind)
 
 
 class Autotuner:
@@ -138,6 +155,14 @@ class Autotuner:
         with self._lock:
             self.consults[decision] = self.consults.get(decision, 0) + 1
         return ent
+
+    def consult_counts(self) -> list[tuple[dict, int]]:
+        """Labeled samples for a scrape: ({engine, decision, dtype},
+        count) per distinct decision handed out so far."""
+        with self._lock:
+            items = sorted(self.consults.items())
+        return [({"engine": eng, "decision": kern, "dtype": dt}, n)
+                for (eng, kern, dt), n in items]
 
     def consults_snapshot(self) -> dict:
         with self._lock:

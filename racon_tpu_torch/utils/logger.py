@@ -107,6 +107,10 @@ class Logger:
         self._total = 0.0
         self._open = False
         self._bar_lock = threading.Lock()
+        #: optional callable(count, total) fired at the bar's bin
+        #: transitions (at most 21 calls a phase): the polisher's progress
+        #: hook. Called outside the bar lock, so it may take its own locks.
+        self.on_bar = None
 
     def log(self, msg: str | None = None) -> None:
         now = time.perf_counter()
@@ -133,6 +137,7 @@ class Logger:
             bins = min(20 * self._bar_count // self._bar_total, 20)
             if bins == self._bar and bins < 20:
                 return
+            notify = (self._bar_count, self._bar_total)
             self._bar = bins
             quiet = _level < INFO
             tty = not quiet and _stderr_is_tty()
@@ -155,6 +160,8 @@ class Logger:
                 sys.stderr.write("\r")
             if not quiet:
                 sys.stderr.flush()
+        if self.on_bar is not None:
+            self.on_bar(*notify)
 
     def total(self, msg: str) -> None:
         elapsed = self._total

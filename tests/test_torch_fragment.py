@@ -4,7 +4,8 @@ On seeded all-vs-all datasets from the port's generator
 (`synth.simulate_truth` + `ava_overlaps`), `python -m racon_tpu_torch
 --device cpu -f` must write FASTA byte-identical to `racon_tpu -f`
 (RACON_TPU_STRICT=1): at `-c 1 --cudaaligner-batches 1` (the kernels'
-plain versions against the XLA programs) on a small kTGS set (3 kb
+plain versions against the XLA programs), with the session engine and
+with the fused engine at `--cuda-fused 1`, on a small kTGS set (3 kb
 genome, 5x, 1.5 kb reads: on a CPU the plain versions take minutes at
 the 6 kb x 10x size), and at `-c 0` on a 6 kb, 10x, 2 kb-read kTGS set
 and on the serve layer's 400 bp kNGS set. The overlap filter keeps every
@@ -108,6 +109,23 @@ def test_fragment_c1_byte_identical_to_jax(small):
                                   "1", *SCORES, *paths])
     got = run_cli(cli.main, ["--device", "cpu", "-f", "-c", "1",
                              "--cudaaligner-batches", "1", *SCORES, *paths])
+    assert got.startswith(b">read") and b"r LN:i:" in got
+    assert got == want
+
+
+def test_fragment_fused_engine_byte_identical_to_jax(small):
+    """-f through the fused engine, one launch a chunk (`--cuda-engine
+    fused --cuda-fused 1`): the plain K3 program, its leftover windows
+    through the session engine, and the plain K2, against the JAX
+    package's fused engine at `--tpu-fused 1`."""
+    paths = small[2]
+    jax_cli = jax_module("racon_tpu.cli")
+    want = run_cli(jax_cli.main, ["-f", "-c", "1", "--tpualigner-batches",
+                                  "1", "--tpu-engine", "fused",
+                                  "--tpu-fused", "1", *SCORES, *paths])
+    got = run_cli(cli.main, ["--device", "cpu", "-f", "-c", "1",
+                             "--cudaaligner-batches", "1", "--cuda-engine",
+                             "fused", "--cuda-fused", "1", *SCORES, *paths])
     assert got.startswith(b">read") and b"r LN:i:" in got
     assert got == want
 

@@ -1,10 +1,17 @@
 """The port's copy of the C++ host library (racon_tpu_torch/native) against
 the JAX package's (racon_tpu/native): the same consensus and coverages,
 CIGARs and edit distances on seeded inputs, and the same records from the
-native sequence loader. Tolerance: none."""
+native sequence loader. The build entry: `python -m racon_tpu_torch.native
+--force` prints the library's path, and the sanitizer build
+(`build(debug=True)`, `--debug`) is a file of its own that a process with
+the ASan runtime preloaded loads (`load(debug=True)`) and computes the
+release build's edit distance with. Tolerance: none."""
 
 import gzip
+import os
 import random
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -12,6 +19,7 @@ import pytest
 from racon_tpu import native as jax_native
 from racon_tpu.io.parsers import create_sequence_parser as jax_parser
 from racon_tpu_torch import native
+from racon_tpu_torch.errors import RaconError
 from racon_tpu_torch.io.parsers import create_sequence_parser
 
 ACGT = b"ACGT"
@@ -85,3 +93,45 @@ def test_sequence_loader_identical(tmp_path):
     jax_parser(str(path), "test").parse(want, -1)
     assert [(s.name, s.data, s.quality) for s in got] == \
         [(s.name, s.data, s.quality) for s in want]
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_python(args, env=None):
+    full = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
+    proc = subprocess.run([sys.executable, *args], cwd=REPO, env=full,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout.strip().splitlines()
+
+
+def test_native_main_builds_and_prints_the_library():
+    path = run_python(["-m", "racon_tpu_torch.native", "--force"])[-1]
+    assert os.path.isfile(path) and path == str(native.build())
+    assert os.path.basename(path).startswith("libracon_host-")
+
+
+def test_debug_build_loads_under_asan():
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    assert os.path.isabs(asan), "no ASan runtime beside g++"
+    debug = run_python(["-m", "racon_tpu_torch.native", "--debug"])[-1]
+    assert debug == str(native.build(debug=True)) != str(native.build())
+    assert os.path.basename(debug).startswith("libracon_host_debug-")
+    rng = random.Random(5)
+    a = bytes(rng.choice(b"ACGT") for _ in range(700))
+    b = mutate(rng, a, 0.15)
+    out = run_python(
+        ["-c", "import sys\n"
+               "from racon_tpu_torch import native\n"
+               "lib = native.load(debug=True)\n"
+               f"print(lib._name)\n"
+               f"print(native.edit_distance({a!r}, {b!r}))"],
+        env={"LD_PRELOAD": asan, "ASAN_OPTIONS": "detect_leaks=0"})
+    assert out[-2] == debug
+    assert int(out[-1]) == native.edit_distance(a, b) > 0
+    # this process loaded the release build: the variant is fixed
+    assert native.load() is native.get_lib()
+    with pytest.raises(RaconError, match="already loaded"):
+        native.load(debug=True)

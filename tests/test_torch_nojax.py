@@ -11,7 +11,13 @@ and auditor modules loaded), packs and unpacks bases and resolves a score dtype 
 copies of the JAX package's encode and dtypes modules, corrects a tiny
 read set with -f (both device paths) and through the wrapper (split into
 chunks, sharded), runs rampler and preprocess, and afterwards no `jax`
-or `racon_tpu` module is loaded."""
+or `racon_tpu` module is loaded. A second interpreter does the same over
+this slice's modules: a polisher rebound, run on a window range with a
+progress hook, and re-drafted (core/remap.py), the native build entry,
+and the serve stack's leaves (sched.pack_iteration, partition_devices,
+posture_key, the histogram export, the tracer's scopes, the flight
+recorder, the journal, the Prometheus round trip, frames, the window
+cache and ingest)."""
 
 import os
 import subprocess
@@ -127,6 +133,88 @@ def test_port_runs_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+LEAVES = r"""
+import io, itertools, json, os, random, socket, sys, tempfile
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.core.polisher import (ContigStreamer, PolisherType,
+                                           create_polisher)
+from racon_tpu_torch.core import remap
+from racon_tpu_torch.native import __main__ as native_main
+from racon_tpu_torch.obs import flight, hist, journal, prom, trace
+from racon_tpu_torch.parallel.mesh import partition_devices
+from racon_tpu_torch.sched import pack_iteration
+from racon_tpu_torch.sched.autotune import Autotuner, posture_key
+from racon_tpu_torch.serve import (IngestSpec, WindowCache, error_response,
+                                   recv_frame, send_frame)
+from racon_tpu_torch.serve.ingest import prepare
+from racon_tpu_torch.synth import simulate, write_dataset
+
+d = tempfile.mkdtemp()
+_, draft, reads, paf = simulate(random.Random(3), 2500, 6, 1500, 0.12, 0.10)
+paths = write_dataset(d, draft, reads, paf)
+pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True, 5, -4,
+                      -8, device="cpu")
+events = []
+pol.progress_hook = events.append
+pol.initialize()
+whole = pol.polish()
+assert events[-1]["phase"] == "stitch", events[-1]
+pol.rebind(*paths)
+pol.window_range = (0, 1200)
+pol.initialize()
+seg = pol.polish()
+assert whole[0].data.startswith(seg[0].data) and pol.segment_meta
+pol.window_range = None
+pol.redraft(whole, d, "r1")
+pol.initialize()
+pol._consensus_pass()
+st = ContigStreamer(pol, True)
+st.on_windows(list(reversed(pol.windows)))
+assert st.finish()[0].name.startswith("draft LN:i:")
+assert remap.remap_overlaps(whole, whole)
+assert native_main.main([]) == 0
+assert pack_iteration([3, 1, 2], 2, int, int) == ([1, 2], [3])
+assert partition_devices(list(range(5)), 2) == [[0, 1, 2], [3, 4]]
+assert posture_key("cpu")[0] == "plain"
+assert Autotuner(os.path.join(d, "t.json")).consult_counts() == []
+h = hist.HistogramSet()
+h.observe("a", 0.5, exemplar={"trace_id": "x", "t": 1.0})
+text = prom.render({"jobs": 1}, None, h)
+assert prom.parse(text).histogram("racon_tpu_a_seconds").count == 1
+ring = trace.install(flight.FlightRecorder(8))
+with trace.scoped() as rec:
+    trace.instant("mark", trace_id="x")
+assert flight.trace_events(ring, "x") and rec.events()
+trace.reset()
+jr = journal.Journal(os.path.join(d, "j.jsonl"))
+jr.record("received", job="j")
+jr.close()
+assert journal.read_journal(os.path.join(d, "j.jsonl"))[0]["job"] == "j"
+a, b = socket.socketpair()
+send_frame(a, error_response("bad-frame", "x"))
+assert recv_frame(b)["code"] == "bad-frame"
+assert WindowCache().snapshot()["entries"] == 0
+assert prepare(*paths, IngestSpec.from_request({"ingest": True}), d,
+               "j1") == paths
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_slice_modules_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", LEAVES], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
