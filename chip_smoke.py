@@ -143,14 +143,27 @@ mismatch or exception exits non-zero:
      launched); and the fragment cell's kF shard 0 of 16 through the
      fused engine at `--cuda-fused 0` and `1` (byte-identical, K3
      launched, distance below the raw reads').
+  13. the warm server (serve_path): one PolishServer on the card (unix
+     socket, 2 workers, `-c 1 --cudaaligner-batches 1`, depth 2,
+     5/-4/-8, warm-up on) driven through its client: two contig-cell
+     jobs (buffered and streamed) pooled in shared iterations (FASTA
+     equal to phase 5's, a two-job iteration, K1 and K2 launched); a
+     fused-engine job beside a session job (FASTA equal to phase 9's
+     int32, K3 launched, no iteration shared across the keys); a
+     `device:chunk=0:raise` job failing typed beside a clean job, then a
+     clean job alone (its wall against phase 5's one-shot wall); a queued
+     job cancelled with the feeder held and both workers busy, then
+     `shutdown` draining cleanly; the fullest K1 batch of the shared
+     iterations held against its plain version.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
-10, all of phase 11 (path `autotune`) and of phase 12 (path `hooks`),
-in all, by path and by instantiation; K3: launches on the four runs of
-phase 9, the fused runs of phases 10 and 12 and phase 11), the
-card's name and power limit, and as the last line
+10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`) and of
+phase 13 (path `serve`), in all, by path and by instantiation; K3:
+launches on the four runs of phase 9, the fused runs of phases 10, 12
+and 13 and phase 11), the card's name and power limit, and as the last
+line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
 nothing of JAX or of the JAX package.
@@ -318,19 +331,21 @@ def main() -> int:
                           report)
     k1h, k2h, k3h = phase("12 hooks", hooks_path, dev, big, truth, draft,
                           reads_t, workdir, report)
+    k1s, k2s, k3s = phase("13 serve", serve_path, dev, big, workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
-                         (k1a, k2a), (k1t, k2t), (k1h, k2h)):
+                         (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
-                            "adaptive", "autotune", "hooks"), paths))
+                            "adaptive", "autotune", "hooks", "serve"),
+                           paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    for runs in (k3a, k3t, k3h):
+    for runs in (k3a, k3t, k3h, k3s):
         k3["launches"] += sum(runs.values())
         k3["launches_by_path"].update(runs)
         for row in k3["instantiations"]:
@@ -3280,6 +3295,260 @@ def hooks_path(dev, paths, truth, draft, reads, workdir, report):
         f"launches; walls {[round(tal.runs[f'fragment fused={f}']['wall_s'], 3) for f in '01']} s")
     report["hooks_path"] = out
     return tal.result()
+
+
+def served_numbers(r, wall: float) -> dict:
+    """One served job's numbers from its response and client wall."""
+    serve = r.serve
+    batch = serve["batch"]
+    return {"queue_wait_s": serve["queue_wait_s"], "exec_s": serve["exec_s"],
+            "wall_s": wall, "align_s": serve["phase_s"].get("align"),
+            "consensus_s": serve["phase_s"].get("consensus"),
+            "iterations": batch["iterations"],
+            "shared_iterations": batch["shared_iterations"],
+            "host_s": batch["host_s"], "device_s": batch["device_s"],
+            "k1_launches": batch["k1_launches"],
+            "k2_launches": batch["k2_launches"],
+            "k3_launches": batch["k3_launches"]}
+
+
+def serve_path(dev, paths, workdir, report):
+    """Phase 13: one warm PolishServer on the card (unix socket, 2
+    workers, `cuda_poa_batches=1`, `cuda_aligner_batches=1`, pipeline
+    depth 2, scores 5/-4/-8, COLD_TABLE, warm-up on), driven through its
+    client, every check against earlier phases' bytes:
+
+      a. two contig-cell jobs (one buffered, one streamed) pooled behind
+         the held feeder: both FASTA equal to phase 5's, the streamed
+         parts concatenating to it, shared iterations, a two-job
+         iteration, K1 and K2 launched;
+      b. a fused-engine job (`--cuda-fused 1`) pooled beside a session
+         job: its FASTA equal to phase 9's int32 FASTA, K3 launched, and
+         no iteration of the two keys shared (the batcher's counters);
+      c. a job on the warm-up dataset with the fault plan
+         `device:chunk=0:raise` fails with JobFailed (DeviceError) while
+         a concurrent contig-cell job gives phase 5's bytes; then one more
+         clean contig-cell job, alone, whose wall is set against phase
+         5's one-shot wall;
+      d. with the feeder held and both workers busy (two warm-up-dataset
+         jobs), a queued job is cancelled (JobCancelled); then
+         `shutdown` drains: drain returns True and every admitted job is
+         answered;
+      e. the fullest K1 batch of part a's shared iterations held against
+         its plain version (hold_k1) and timed.
+
+    The launch counters are zeroed before the server starts and read
+    after the drain (part e's launches excluded). Returns (K1 launches,
+    by instantiation), (K2 ...) and K3's launches by dtype."""
+    import threading
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.serve import (JobCancelled, JobFailed,
+                                       PolishClient, PolishServer,
+                                       make_synth_dataset)
+
+    card = card_info()
+    out: dict = {"jobs": {}}
+    contig = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                      for n, d in KEPT["contig"])
+    fused = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                     for n, d in KEPT["fused int32"])
+    small_dir = os.path.join(workdir, "serve_small")
+    os.makedirs(small_dir)
+    small = make_synth_dataset(small_dir)
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = PolishServer(socket_path=os.path.join(workdir, "serve.sock"),
+                       workers=2, device="cuda", match=MATCH,
+                       mismatch=MISMATCH, gap=GAP,
+                       job_threads=os.cpu_count(), cuda_poa_batches=1,
+                       cuda_aligner_batches=1, pipeline_depth=2,
+                       autotune_table=COLD_TABLE).start()
+    out["start_s"] = time.perf_counter() - t0
+    out["warm"] = srv._warm
+    log(f"[chip_smoke] serve path: server up in {out['start_s']:.3f} s, "
+        f"warm-up {srv._warm['warmup_s']:.3f} s ({srv._warm['compiles']} "
+        f"first dispatches); card {card}")
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=900)
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + 600
+        while not cond():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"serve path: {what}")
+            time.sleep(0.01)
+
+    def submit(name, results, paths_=paths, **kw):
+        t = time.perf_counter()
+        try:
+            results[name] = (cl.submit(*paths_, **kw),
+                             time.perf_counter() - t)
+        except Exception as exc:  # noqa: BLE001 — checked by the caller
+            results[name] = (exc, time.perf_counter() - t)
+
+    def pooled(jobs: dict, n_tickets: int) -> dict:
+        """Submit `jobs` (name -> submit kwargs) behind the held feeder,
+        release it once `n_tickets` jobs pooled, return the results."""
+        results: dict = {}
+        srv.batcher.hold()
+        threads = [threading.Thread(target=submit, args=(k, results),
+                                    kwargs=kw) for k, kw in jobs.items()]
+        for t in threads:
+            t.start()
+        wait_for(lambda: sum(map(len, srv.batcher._job_tickets.values()))
+                 >= n_tickets, "the jobs never pooled")
+        srv.batcher.release()
+        for t in threads:
+            t.join(900)
+        return results
+
+    def check(results, name, want, ref):
+        """Job `name`'s FASTA must equal `want`, phase `ref`'s."""
+        r, wall = results[name]
+        if isinstance(r, Exception):
+            raise SystemExit(f"serve path: job {name} failed: {r}")
+        if r.fasta != want:
+            raise SystemExit(f"serve path: job {name}'s FASTA differs "
+                             f"from phase {ref}'s")
+        nums = served_numbers(r, wall)
+        out["jobs"][name] = nums
+        log(f"[chip_smoke] serve path {name} job: queue wait "
+            f"{nums['queue_wait_s']:.3f} s, align {nums['align_s']:.3f} s, "
+            f"consensus {nums['consensus_s']:.3f} s, end to end "
+            f"{nums['wall_s']:.3f} s; {nums['iterations']} iterations "
+            f"({nums['shared_iterations']} shared), host_s "
+            f"{nums['host_s']:.3f}; launches K1 {nums['k1_launches']} / K2 "
+            f"{nums['k2_launches']} / K3 {nums['k3_launches']}")
+        return r, nums
+
+    # ---- a. two contig-cell jobs in shared iterations
+    parts: list = []
+    with PathCapture() as cap:
+        res = pooled({"buffered": {}, "streamed": {"on_part":
+                                                   parts.append}}, 2)
+    for name in ("buffered", "streamed"):
+        r, nums = check(res, name, contig, 5)
+        if nums["shared_iterations"] < 1:
+            raise SystemExit(f"serve path a: job {name} shared no "
+                             "iteration")
+    if b"".join(p["fasta"].encode("latin-1") for p in parts) != contig:
+        raise SystemExit("serve path a: the streamed parts do not "
+                         "concatenate to phase 5's FASTA")
+    counters = dict(srv.batcher.counters)
+    if counters["max_jobs_in_iteration"] != 2:
+        raise SystemExit(f"serve path a: no two-job iteration "
+                         f"({counters})")
+    if poa_kernels.launches <= 0 or align_kernels.launches <= 0:
+        raise SystemExit(f"serve path a: K1 {poa_kernels.launches} / K2 "
+                         f"{align_kernels.launches} launches")
+    out["a_counters"] = counters
+    log(f"[chip_smoke] serve path a: both jobs equal to phase 5's, the "
+        f"streamed {len(parts)} part(s) too; batcher {counters}")
+
+    # ---- b. a fused-engine job beside a session job
+    before = dict(srv.batcher.counters)
+    res = pooled({"fused": {"options": {"cuda_engine": "fused",
+                                        "cuda_fused": "1"}},
+                  "session": {}}, 2)
+    rf, nf = check(res, "fused", fused, 9)
+    check(res, "session", contig, 5)
+    after = dict(srv.batcher.counters)
+    shared = after["shared_iterations"] - before["shared_iterations"]
+    if nf["k3_launches"] <= 0 or shared or nf["shared_iterations"]:
+        raise SystemExit(f"serve path b: K3 {nf['k3_launches']} launches, "
+                         f"{shared} shared iterations")
+    log(f"[chip_smoke] serve path b: the fused job equals phase 9's int32 "
+        f"FASTA with K3 launched; {after['iterations'] - before['iterations']}"
+        f" iterations, none shared by the two keys")
+
+    # ---- c. a poisoned job beside a clean one, then a clean one alone
+    res: dict = {}
+    threads = [threading.Thread(target=submit, args=("clean", res)),
+               threading.Thread(target=submit, args=("poisoned", res),
+                                kwargs={"paths_": small,
+                                        "fault_plan":
+                                            "device:chunk=0:raise"})]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    bad = res["poisoned"][0]
+    if not isinstance(bad, JobFailed) or bad.error_type != "DeviceError":
+        raise SystemExit(f"serve path c: the poisoned job gave {bad!r}")
+    check(res, "clean", contig, 5)
+    res = {}
+    submit("alone", res)
+    _, alone = check(res, "alone", contig, 5)
+    base = KEPT["contig_numbers"]
+    one_shot = base["initialize_s"] + base["polish_s"]
+    out["served_vs_one_shot_s"] = [alone["wall_s"], one_shot]
+    log(f"[chip_smoke] serve path c: the poisoned job failed typed "
+        f"({bad.error_type}), the concurrent and the next clean job equal "
+        f"phase 5's; served contig job {alone['wall_s']:.3f} s end to end "
+        f"against phase 5's one-shot {one_shot:.3f} s (initialize + "
+        f"polish); card {card}")
+
+    # ---- d. cancel a queued job, then shut down
+    res = {}
+    srv.batcher.hold()
+    busy = [threading.Thread(target=submit, args=(f"busy{i}", res),
+                             kwargs={"paths_": small}) for i in range(2)]
+    for t in busy:
+        t.start()
+    wait_for(lambda: sum(map(len, srv.batcher._job_tickets.values())) == 2,
+             "the two busy jobs never pooled")
+    queued = threading.Thread(target=submit, args=("queued", res),
+                              kwargs={"trace_id": "queued"})
+    queued.start()
+    wait_for(lambda: len(srv.queue) == 1, "the third job never queued")
+    body = cl.cancel(trace_id="queued")
+    queued.join(900)
+    if body.get("cancelled") != "queued" or not isinstance(
+            res["queued"][0], JobCancelled):
+        raise SystemExit(f"serve path d: cancel gave {body}, the job "
+                         f"{res['queued'][0]!r}")
+    srv.batcher.release()
+    cl.shutdown()
+    clean = srv.drain(timeout=600)
+    for t in busy:
+        t.join(900)
+    q = srv.queue.counters
+    answered = q["completed"] + q["failed"] + q["expired"]
+    if (not clean or answered != q["admitted"]
+            or any(isinstance(res[f"busy{i}"][0], Exception)
+                   for i in range(2))):
+        raise SystemExit(f"serve path d: drain {clean}, queue {q}")
+    out["queue"] = dict(q)
+    out["batcher"] = srv.batcher.snapshot()
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    k3 = {f"{dt} serve": n for dt, n in k3_by_dtype().items()}
+    out["launches"] = launches
+    log(f"[chip_smoke] serve path d: queued job cancelled; drained "
+        f"cleanly, {q['admitted']} admitted = {q['completed']} completed "
+        f"+ {q['failed']} failed + {q['expired']} cancelled in queue; "
+        f"launches over the phase {launches}")
+
+    # ---- e. the fullest K1 batch of part a's shared iterations
+    (nb, lb), (n, plan, args) = max(cap.k1.items(),
+                                    key=lambda kv: kv[1][0])
+    held = hold_k1(args, nb, lb, f"the serve path's fullest {(nb, lb)} "
+                   "batch", widths=(plan[0],))[plan]
+    out["k1_fullest"] = {"shape": [nb, lb], "jobs": n,
+                         "plan": plan_name(*plan), **held}
+    log(f"[chip_smoke] serve path e: the fullest K1 batch of the shared "
+        f"iterations, {(nb, lb)} {plan_name(*plan)} with {n} jobs, "
+        f"identical to the plain version; kernel {held['ms']:.3f} ms, "
+        f"plain {held['plain_ms']:.1f} ms, bound {held['bound_ms']:.4f} ms "
+        f"({held['bound_by']}); card {card}")
+    report["serve_path"] = out
+    return (launches["k1"], k1p), (launches["k2"], k2p), k3
 
 
 if __name__ == "__main__":

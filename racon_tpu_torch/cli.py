@@ -11,6 +11,10 @@ counterparts of the JAX CLI's pipeline and observability flags
 --cuda-autotune-table, the flag counterpart of its
 RACON_TPU_AUTOTUNE_CACHE. Polished FASTA goes to stdout; errors print as
 `[racon_tpu_torch::...] error: ...` on stderr with exit status 1.
+
+`python -m racon_tpu_torch serve|submit|cancel ...` runs the warm job
+server, sends it a job, or cancels one (serve/server.py,
+serve/client.py; `--help` on each).
 """
 
 from __future__ import annotations
@@ -341,6 +345,20 @@ def parse_args(argv: list[str]) -> dict | None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    # the serve subcommands: `serve` runs the warm job server, `submit`
+    # sends it one job, `cancel` cancels one
+    if argv and argv[0] == "serve":
+        from .serve.server import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "submit":
+        from .serve.client import submit_main
+
+        return submit_main(argv[1:])
+    if argv and argv[0] == "cancel":
+        from .serve.client import cancel_main
+
+        return cancel_main(argv[1:])
     opts = parse_args(argv)
     if opts is None:
         return 0

@@ -6,7 +6,8 @@ CLI turns it into stderr + exit status 1.
 
 Device failures (a kernel that does not build, a launch the CUDA runtime
 refuses) raise DeviceError and propagate: the port never swaps a failed
-device pass for a host re-run.
+device pass for a host re-run. ChunkCorrupt is the DeviceError a fault
+plan's `corrupt` action raises (resilience/faults.py).
 """
 
 from __future__ import annotations
@@ -23,3 +24,7 @@ class RaconError(RuntimeError):
 
 class DeviceError(RaconError):
     """A kernel build, launch or device query failed."""
+
+
+class ChunkCorrupt(DeviceError):
+    """A chunk's results failed validation or could not be unpacked."""

@@ -20,11 +20,14 @@ from .. import _build
 from ..errors import DeviceError
 from .align import banded_nw, traceback
 from .dtypes import aligner_int16_ok
+from .launch_count import LaunchCounter
 
-#: kernel launches since import (or the last reset), in all and per
-#: (edge, band, score dtype, packed)
-launches = 0
-launches_by_shape: dict[tuple[int, int, str, bool], int] = {}
+#: kernel launches since import (or the last reset): in all
+#: (`launches`, read through the module's __getattr__), per
+#: (edge, band, score dtype, packed) (`launches_by_shape`),
+#: and on the calling thread (`counter.on_thread()`)
+counter = LaunchCounter()
+launches_by_shape = counter.by_shape
 
 #: the widest band the kernel takes: its shared-memory path, at 32 cells
 #: a thread, fits this band's two int32 wavefronts, staging rings and edge
@@ -35,10 +38,14 @@ MAX_BAND = 227 * 1024 // 12
 _NAMES = ("q", "t", "q_lens", "t_lens", "offsets")
 
 
+def __getattr__(name: str):
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_shape.clear()
+    counter.reset()
 
 
 def scratch(B: int, n_waves: int, band: int, dev) -> torch.Tensor:
@@ -54,7 +61,6 @@ def wavefront_align(q, t, q_lens, t_lens, offsets, band: int,
     its traceback. The offsets are as align.band_offsets makes them:
     0 at wavefront 0, steps of 0 or 1 (the kernel relies on both). q and
     t are [B, edge] int8, or [B, edge / 4] uint8 when `packed`."""
-    global launches
     if q.device.type == "cpu":
         bp, dist = banded_nw(q, t, q_lens, t_lens, offsets, band,
                              score_dtype, packed)
@@ -94,7 +100,5 @@ def wavefront_align(q, t, q_lens, t_lens, offsets, band: int,
             meta.data_ptr(), B, edge, band, n_waves,
             2 if score_dtype == "int16" else 4, int(packed), stream)
     _build.check(lib, rc, "wavefront_align")
-    launches += 1
-    key = (edge, band, score_dtype, bool(packed))
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    counter.count((edge, band, score_dtype, bool(packed)))
     return ops, meta

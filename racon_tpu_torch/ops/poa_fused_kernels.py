@@ -24,13 +24,16 @@ import torch
 from .. import _build
 from ..errors import DeviceError
 from .dtypes import poa_int16_ok
+from .launch_count import LaunchCounter
 from .poa_fused import STATE, fused_raw
 from .poa_graph import RING
 
-#: kernel launches since import (or the last reset), in all and per
-#: (N, L, D, score dtype, sliced)
-launches = 0
-launches_by_shape: dict[tuple[int, int, int, str, bool], int] = {}
+#: kernel launches since import (or the last reset): in all
+#: (`launches`, read through the module's __getattr__), per
+#: (N, L, D, score dtype, sliced) (`launches_by_shape`),
+#: and on the calling thread (`counter.on_thread()`)
+counter = LaunchCounter()
+launches_by_shape = counter.by_shape
 
 #: the kernel's limits: the sort key keeps the node id in 11 bits, a
 #: node holds at most 8 predecessor slots, and a thread at most 5 of a
@@ -50,10 +53,14 @@ _STATE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int32,
                  torch.int32, torch.int32, torch.bool)
 
 
+def __getattr__(name: str):
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_shape.clear()
+    counter.reset()
 
 
 def scratch(B: int, N: int, L: int, dev, score_dtype: str = "int32"
@@ -88,7 +95,6 @@ def fused_layers(state, seqs, lens, wts, slicing, lbase, match: int,
     (spill, bps) pair from `scratch()` at this shape and score dtype on
     the state's device, reused (the caller keeps one per stream), or None
     to allocate one. Returns the state tuple."""
-    global launches
     B, N, P = state[1].shape
     _, D, L = seqs.shape
     sliced = len(slicing) == 4
@@ -159,7 +165,5 @@ def fused_layers(state, seqs, lens, wts, slicing, lbase, match: int,
             mismatch, gap, int(banded_only),
             2 if score_dtype == "int16" else 4, int(sliced), stream)
     _build.check(lib, rc, "fused_layers")
-    launches += 1
-    key = (N, L, D, score_dtype, sliced)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    counter.count((N, L, D, score_dtype, sliced))
     return state

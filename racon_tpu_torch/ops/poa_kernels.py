@@ -19,12 +19,15 @@ import torch
 from .. import _build
 from ..errors import DeviceError
 from .dtypes import poa_int16_ok
+from .launch_count import LaunchCounter
 from .poa_graph import graph_aligner, scratch_cols
 
-#: kernel launches since import (or the last reset), in all and per
-#: (N, L, score dtype, packed)
-launches = 0
-launches_by_shape: dict[tuple[int, int, str, bool], int] = {}
+#: kernel launches since import (or the last reset): in all
+#: (`launches`, read through the module's __getattr__), per
+#: (N, L, score dtype, packed) (`launches_by_shape`),
+#: and on the calling thread (`counter.on_thread()`)
+counter = LaunchCounter()
+launches_by_shape = counter.by_shape
 
 #: the kernel's limits: a team of 128 threads holds a row's window as
 #: runs of at most 5 columns, and the predecessor count is a template
@@ -40,10 +43,14 @@ def _score_bytes(score_dtype: str) -> int:
     return 2 if score_dtype == "int16" else 4
 
 
+def __getattr__(name: str):
+    if name == "launches":
+        return counter.total
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_shape.clear()
+    counter.reset()
 
 
 def ring_rows(n_nodes: int, seq_len: int, max_pred: int, width: int,
@@ -75,7 +82,6 @@ def window_sweep(codes, preds, centers, sinks, seq, lens, band, nnodes,
     traceback: ranks [B, L] int32 (node rank, -1 insertion, -2 beyond the
     layer's length). With `packed`, codes are [B, ceil(N/4)] and seq
     [B, L/4] uint8 (L a multiple of 4)."""
-    global launches
     B, N, P = preds.shape
     L = seq.shape[1] * 4 if packed else seq.shape[1]
     if codes.device.type == "cpu":
@@ -124,7 +130,5 @@ def window_sweep(codes, preds, centers, sinks, seq, lens, band, nnodes,
             out.data_ptr(), B, N, L, P, match, mismatch, gap,
             _score_bytes(score_dtype), int(packed), stream)
     _build.check(lib, rc, "window_sweep")
-    launches += 1
-    key = (N, L, score_dtype, bool(packed))
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    counter.count((N, L, score_dtype, bool(packed)))
     return out

@@ -38,10 +38,14 @@ skipped and the run continues; `on_error` raising aborts the run with
 that exception. No caller in the port passes a handler: a failed device
 chunk is never re-run on the host.
 
-The JAX pipeline's watchdog and fault-injection hooks and its simulated
-device-latency knobs serve its serve and resilience layers; they come
-with that slice of the port. Their counters (faults, retries, ...) stay
-in `PipelineStats` at zero so the snapshot keys match.
+Fault injection (resilience/faults.py): a pipeline given a `FaultPlan`
+fires it as each of the pack, device (dispatch) and unpack stages starts
+its N-th item of a run, and as the N-th fallback job starts; a fired
+fault is counted as `faults`. Without a plan the stage callbacks run as
+they are. The JAX pipeline's watchdog (its retry and deadline policy)
+and its simulated device-latency knobs are not ported; their counters
+(retries, timeouts, ...) stay in `PipelineStats` at zero so the snapshot
+keys match.
 """
 
 from __future__ import annotations
@@ -123,10 +127,12 @@ class DispatchPipeline:
     """
 
     def __init__(self, depth: int = 2, fallback_workers: int = 2,
-                 stats: PipelineStats | None = None):
+                 stats: PipelineStats | None = None, faults=None):
         self.depth = max(0, int(depth))
         self.fallback_workers = max(1, int(fallback_workers))
         self.stats = stats if stats is not None else PipelineStats()
+        #: a resilience.FaultPlan fired at the stages, or None
+        self.faults = faults
         self._fb_counter = itertools.count()
         self._executor: ThreadPoolExecutor | None = None
         self._futures: list[Future] = []
@@ -137,6 +143,8 @@ class DispatchPipeline:
         `describe(item) -> dict` supplies per-chunk span args. Both cost
         nothing when tracing is off."""
         items = list(items)
+        if self.faults is not None:
+            pack, dispatch, unpack = self._armed(pack, dispatch, unpack)
         tr = trace.get_tracer()
         args_of = None
         if tr is not None:
@@ -153,6 +161,28 @@ class DispatchPipeline:
             return
         self._run_async(items, pack, dispatch, wait, unpack, on_error,
                         tr, args_of)
+
+    def _armed(self, pack, dispatch, unpack):
+        """The stage callbacks with the fault plan fired as each starts
+        its N-th item of this run (each stage runs on one thread, so a
+        counter per stage is the submission order)."""
+        fire, stats = self.faults.fire, self.stats
+        counters = {s: itertools.count() for s in ("pack", "device",
+                                                   "unpack")}
+
+        def pack_f(item):
+            fire("pack", next(counters["pack"]), stats)
+            return pack(item)
+
+        def dispatch_f(item, ops):
+            fire("device", next(counters["device"]), stats)
+            return dispatch(item, ops)
+
+        def unpack_f(item, res):
+            fire("unpack", next(counters["unpack"]), stats)
+            return unpack(item, res)
+
+        return pack_f, dispatch_f, unpack_f
 
     def _run_sync(self, items, pack, dispatch, wait, unpack, on_error,
                   tr=None, args_of=None):
@@ -335,12 +365,14 @@ class DispatchPipeline:
         """Schedule host-only work concurrently with the device stages
         (inline at depth 0). Returns a Future; collect with `.result()`
         after `drain_fallback()`."""
-        stats = self.stats
+        stats, faults = self.stats, self.faults
         idx = next(self._fb_counter)
 
         def timed():
             t0 = time.perf_counter()
             try:
+                if faults is not None:
+                    faults.fire("fallback", idx, stats)
                 return fn(*args, **kwargs)
             finally:
                 t1 = time.perf_counter()

@@ -1,22 +1,37 @@
-"""The warm polishing service's leaf modules.
+"""The warm polishing service.
 
+    queue.py      the bounded job queue: admission with retry-after,
+                  FIFO within a priority, weighted fair order across
+                  tenants, quotas, deadlines, cancel and drain
+    batcher.py    WindowBatcher: concurrent jobs' windows merged into
+                  shared device iterations by one feeder thread
+    server.py     ServeConfig, PolishServer (warm-up, transport, workers,
+                  cancel, drain), make_synth_dataset and `serve`
+    client.py     PolishClient, its typed errors, `submit` and `cancel`
     protocol.py   length-prefixed JSON frames, the typed frame errors and
                   `error_response`
     wincache.py   the content-addressed window consensus cache, keyed on
                   sched/autotune.posture_key
     ingest.py     admit-time validation, pair normalization and
                   subsampling over the port's rampler and preprocess
-
-The queue, the batcher, the server and the client build on these.
 """
 
+from .batcher import WindowBatcher
+from .client import (DeadlineDoomed, JobCancelled, JobFailed, PolishClient,
+                     PolishResult, QueueFull, ServeError, ServerDraining,
+                     TenantQuota)
 from .ingest import IngestError, IngestSpec
 from .protocol import (FrameGarbage, FrameTooLarge, FrameTruncated,
                        ProtocolError, error_response, recv_frame,
                        send_frame)
+from .queue import JobQueue
+from .server import PolishServer, ServeConfig, make_synth_dataset
 from .wincache import WindowCache, window_content_digest
 
-__all__ = ["FrameGarbage", "FrameTooLarge", "FrameTruncated",
-           "IngestError", "IngestSpec", "ProtocolError", "WindowCache",
-           "error_response", "recv_frame", "send_frame",
-           "window_content_digest"]
+__all__ = ["DeadlineDoomed", "FrameGarbage", "FrameTooLarge",
+           "FrameTruncated", "IngestError", "IngestSpec", "JobCancelled",
+           "JobFailed", "JobQueue", "PolishClient", "PolishResult",
+           "PolishServer", "ProtocolError", "QueueFull", "ServeConfig",
+           "ServeError", "ServerDraining", "TenantQuota", "WindowBatcher",
+           "WindowCache", "error_response", "make_synth_dataset",
+           "recv_frame", "send_frame", "window_content_digest"]

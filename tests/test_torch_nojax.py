@@ -17,7 +17,10 @@ progress hook, and re-drafted (core/remap.py), the native build entry,
 and the serve stack's leaves (sched.pack_iteration, partition_devices,
 posture_key, the histogram export, the tracer's scopes, the flight
 recorder, the journal, the Prometheus round trip, frames, the window
-cache and ingest)."""
+cache and ingest). A third does it over the warm server: the fault plan
+(resilience/), the job queue, the window batcher, the server and the
+client, with a job served on the CPU (buffered and streamed) equal to a
+one-shot polish, and a fault-plan job failing typed."""
 
 import os
 import subprocess
@@ -215,6 +218,59 @@ def test_slice_modules_run_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", LEAVES], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+SERVE = r"""
+import os, random, sys, tempfile
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+from racon_tpu_torch.resilience import FaultPlan
+from racon_tpu_torch.serve import queue, batcher, server, client
+from racon_tpu_torch.synth import simulate, write_dataset
+
+d = tempfile.mkdtemp()
+_, draft, reads, paf = simulate(random.Random(3), 2500, 6, 1500, 0.12, 0.10)
+paths = write_dataset(d, draft, reads, paf)
+pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, True, 5, -4,
+                      -8, num_threads=2, device="cpu")
+pol.initialize()
+want = b"".join(b">" + s.name.encode() + b"\n" + s.data + b"\n"
+                for s in pol.polish())
+assert FaultPlan.parse("device:chunk=0:raise").unfired
+srv = server.PolishServer(socket_path=os.path.join(d, "s.sock"),
+                          device="cpu", match=5, mismatch=-4,
+                          gap=-8).start()
+try:
+    cl = client.PolishClient(socket_path=srv.config.socket_path,
+                             timeout=120)
+    assert cl.submit(*paths).fasta == want
+    assert cl.submit(*paths, stream=True).fasta == want
+    try:
+        cl.submit(*paths, fault_plan="pack:chunk=0:raise")
+        raise AssertionError("the fault-plan job did not fail")
+    except client.JobFailed as exc:
+        assert exc.error_type == "DeviceError"
+    assert isinstance(srv.batcher, batcher.WindowBatcher)
+    assert isinstance(srv.queue, queue.JobQueue)
+finally:
+    assert srv.drain(timeout=60)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_serve_modules_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", SERVE], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
