@@ -155,15 +155,31 @@ mismatch or exception exits non-zero:
      job cancelled with the feeder held and both workers busy, then
      `shutdown` draining cleanly; the fullest K1 batch of the shared
      iterations held against its plain version.
+  14. what a served job can ask for (serve_kinds_path): one PolishServer
+     on the card as in phase 13 with the window cache and preemption
+     armed and fragment groups of 16: a fused rounds job (`rounds=2`,
+     FASTA equal to phase 12's round 2, K2 launched in both rounds, K3
+     launched) and the same job again (every round-1 window answered by
+     the cache, fewer K1 and K3 launches); two range shards at once
+     (segments concatenating to phase 5's contig, tags re-derived from
+     their `seg` accounting); a fragment job on the first 1/16 of phase
+     8's targets (groups of at most 16 reads tiling the slice, equal to
+     a one-shot kF polisher on the same slice, closer to the truth than
+     the raw reads); an ingest job (phase 5's bytes), a cut reads file
+     refused typed `rejected-ingest`, a job after it; a contig job
+     preempted by a higher-priority job and resumed (1 preemption, 1
+     resume, the bytes of phase 5, device seconds for both tenants);
+     `shutdown` draining cleanly; the fullest K3 call of the rounds job
+     held against its plain version and timed against its bound.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
-10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`) and of
-phase 13 (path `serve`), in all, by path and by instantiation; K3:
-launches on the four runs of phase 9, the fused runs of phases 10, 12
-and 13 and phase 11), the card's name and power limit, and as the last
-line
+10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
+phase 13 (path `serve`) and of phase 14 (path `serve_kinds`), in all, by
+path and by instantiation; K3: launches on the four runs of phase 9, the
+fused runs of phases 10, 12, 13 and 14 and phase 11, and phase 14's held
+call), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
 nothing of JAX or of the JAX package.
@@ -332,20 +348,23 @@ def main() -> int:
     k1h, k2h, k3h = phase("12 hooks", hooks_path, dev, big, truth, draft,
                           reads_t, workdir, report)
     k1s, k2s, k3s = phase("13 serve", serve_path, dev, big, workdir, report)
+    k1k, k2k, k3k = phase("14 serve kinds", serve_kinds_path, dev, big,
+                          truth, reads_t, workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
-                         (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s)):
+                         (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
+                         (k1k, k2k)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
-                            "adaptive", "autotune", "hooks", "serve"),
-                           paths))
+                            "adaptive", "autotune", "hooks", "serve",
+                            "serve_kinds"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    for runs in (k3a, k3t, k3h, k3s):
+    for runs in (k3a, k3t, k3h, k3s, k3k):
         k3["launches"] += sum(runs.values())
         k3["launches_by_path"].update(runs)
         for row in k3["instantiations"]:
@@ -353,6 +372,7 @@ def main() -> int:
                                    if name.startswith(row["plan"])
                                    or (row["plan"] == "int32"
                                        and name.startswith("fused ")))
+    k3["held_serve_kinds"] = report["serve_kinds_path"]["k3_held"]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -3224,6 +3244,7 @@ def hooks_path(dev, paths, truth, draft, reads, workdir, report):
                          "differs from a fresh polisher's")
     if m2["k3_launches"] <= 0:
         raise SystemExit("hooks path: K3 did not launch in round 2")
+    KEPT["fused round 2"] = fasta_of(polished2)
     d2 = edit_distance(polished2[0].data, truth)
     out["rounds"] = {"remap_s": remap_s, "paf_rows": rows,
                      "distance": [d_draft, d1, d2],
@@ -3548,6 +3569,501 @@ def serve_path(dev, paths, workdir, report):
         f"plain {held['plain_ms']:.1f} ms, bound {held['bound_ms']:.4f} ms "
         f"({held['bound_by']}); card {card}")
     report["serve_path"] = out
+    return (launches["k1"], k1p), (launches["k2"], k2p), k3
+
+
+
+class K3Capture:
+    """For one job, patches K3's wrapper (ops/poa_fused_kernels.
+    fused_layers, which the fused engine looks up at each pass): every
+    call's inputs are copied on the device, on the launching stream and
+    before the launch (the kernel updates its state in place), with the
+    call's scores and posture, then the call goes through, so every
+    launch is the job's own and is counted where it launches."""
+
+    def __init__(self):
+        #: (state, seqs, lens, wts, slicing, lbase, scores, kwargs)
+        self.calls: list = []
+
+    def __enter__(self):
+        from racon_tpu_torch.ops import poa_fused_kernels as fk
+
+        self._saved = fk.fused_layers
+        launch = self._saved
+        cap = self
+
+        def fused_layers(state, seqs, lens, wts, slicing, lbase, match,
+                         mismatch, gap, banded_only=False,
+                         score_dtype="int32", scratch=None):
+            cap.calls.append((
+                tuple(t.clone() for t in state), seqs.clone(),
+                lens.clone(), wts.clone(),
+                tuple(t.clone() for t in slicing), lbase.clone(),
+                (match, mismatch, gap),
+                {"banded_only": banded_only, "score_dtype": score_dtype}))
+            return launch(state, seqs, lens, wts, slicing, lbase, match,
+                          mismatch, gap, banded_only=banded_only,
+                          score_dtype=score_dtype, scratch=scratch)
+
+        fk.fused_layers = fused_layers
+        return self
+
+    def __exit__(self, *exc):
+        from racon_tpu_torch.ops import poa_fused_kernels as fk
+
+        fk.fused_layers = self._saved
+        return False
+
+    def fullest(self):
+        """The call with the most real rows (a row with a layer), and
+        among those the one with the fewest layers, the cheapest to hold
+        on the plain version; with its real rows."""
+        import torch
+
+        torch.cuda.synchronize()
+        rows = [int((c[2] > 0).any(1).sum()) for c in self.calls]
+        k = min(range(len(rows)),
+                key=lambda i: (-rows[i], self.calls[i][1].shape[1]))
+        return self.calls[k], rows[k]
+
+
+def hold_k3_call(call, what: str) -> dict:
+    """One captured K3 call against its plain version (fused_raw at the
+    call's shape, on the same tensors): all 11 state arrays must be
+    identical. Returns the kernel's ms (CUDA events around each of 2
+    launches on fresh copies of the state, the mean), the plain version's
+    host-clocked ms, the max |diff| and the bound (fused_bound, layer by
+    layer; a fused launch's slices derived per layer as the kernel and
+    the plain version derive them)."""
+    import torch
+
+    from racon_tpu_torch.ops import poa_fused_kernels as fk
+    from racon_tpu_torch.ops.poa_fused import STATE, fused_raw, slice_layer
+
+    state, seqs, lens, wts, slicing, lbase, scores, kw = call
+    B, N, P = state[1].shape
+    _, D, L = seqs.shape
+    sliced = len(slicing) == 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fused_raw(N, L, D, P, *scores, device_slice=sliced, **kw)(
+        *state, seqs, lens, wts, *slicing, lbase)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = fk.fused_layers(tuple(t.clone() for t in state), seqs, lens, wts,
+                          slicing, lbase, *scores, **kw)
+    err = 0
+    for nm, x, y in zip(STATE, got, want):
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+        if not torch.equal(x, y):
+            raise SystemExit(f"K3 {kw['score_dtype']}: {nm} differs from "
+                             f"the plain version on {what}")
+    ms = []
+    for _ in range(2):
+        st = tuple(t.clone() for t in state)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fk.fused_layers(st, seqs, lens, wts, slicing, lbase, *scores, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    if sliced:
+        per = [slice_layer(slicing[0][:, d], slicing[1][:, d],
+                           lens[:, d].to(torch.int32), slicing[2],
+                           slicing[3]) for d in range(D)]
+        ranges = tuple(torch.stack([p[i] for p in per], 1).contiguous()
+                       for i in range(3))
+    else:
+        ranges = slicing
+    bms, by = fused_bound(state, (seqs, lens, wts) + tuple(ranges),
+                          int(lbase[0]), scores, kw["score_dtype"])
+    return {"dtype": kw["score_dtype"], "layers": D, "rows": B,
+            "fused_launch": sliced, "max_abs_err": err,
+            "ms": sum(ms) / len(ms), "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def serve_kinds_path(dev, paths, truth, reads, workdir, report):
+    """Phase 14: what a served job can ask for, on one PolishServer on the
+    card (unix socket, 2 workers, `cuda_poa_batches=1`,
+    `cuda_aligner_batches=1`, pipeline depth 2, scores 5/-4/-8,
+    COLD_TABLE, warm-up on, the window cache armed, preemption armed,
+    `frag_group=16`), driven through its client, every check against
+    bytes an earlier phase kept:
+
+      a. a rounds job on the contig cell (`rounds=2`, the fused engine at
+         `--cuda-fused 1`): its FASTA equal to phase 12's round 2, two
+         entries in its `rounds` block, K2 launched in both rounds and K3
+         launched; every K3 call it made copied (K3Capture);
+      b. the same job again: the same FASTA, round 1's cache answering
+         every one of its windows, fewer K1 and K3 launches than a; the
+         cache's entries and bytes;
+      c. two range shards of the contig cell at phase 12's split, at once:
+         the streamed raw segments concatenate to phase 5's contig, the
+         name re-derived from their `seg` accounting equals phase 5's,
+         and each shard aligns fewer pairs than the whole job;
+      d. a fragment job (`mode: "fragment"`) on phase 8's reads and
+         all-vs-all overlaps, `frag_lo` / `frag_hi` the first 1/16 of the
+         targets: groups of at most 16 reads whose `frag` ranges tile the
+         slice, equal to a one-shot kF polisher with the same
+         `target_range` at the same posture (run in this phase, before
+         the server starts), K1 and K2 launched, the corrected reads
+         closer to their truth than the raw reads;
+      e. admit-time ingest: a contig-cell job with `ingest` gives phase
+         5's bytes; a job whose reads file (phase 5's, cut inside a
+         record's header) does not parse fails typed `rejected-ingest`;
+         the server then serves the warm-up dataset;
+      f. preemption: with the feeder held, a priority-0 contig-cell job
+         (tenant `bulk`) and a priority-1 warm-up-dataset job (`side`)
+         pooled on both workers, a priority-5 warm-up-dataset job
+         (`gold`) parks the contig job's windows; after the release the
+         `qos` counters show 1 preemption and 1 resume, the contig job
+         gives phase 5's bytes, the other two part e's, and both
+         `bulk` and `gold` have device seconds. These three run at
+         pipeline depth 0, an engine key no earlier part used, so no
+         cached window answers them and their windows pool behind the
+         held feeder (the depth changes no byte, phase 5);
+      then `shutdown` drains cleanly; after it, the fullest K3 call of
+      part a (the most real rows, then the fewest layers) is held
+      against its plain version and timed against its bound.
+
+    The launch counters are zeroed once the one-shot of part d is done,
+    before the server starts, and read after the drain. Returns (K1
+    launches, by instantiation), (K2 ...) and K3's launches by dtype."""
+    import gzip
+    import threading
+
+    import torch
+
+    from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.native import edit_distance
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.serve import (PolishClient, PolishServer,
+                                       ServeError, make_synth_dataset)
+    from racon_tpu_torch.synth import truth_segment
+
+    card = card_info()
+    out: dict = {"jobs": {}}
+
+    def as_fasta(pairs) -> bytes:
+        return b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                        for n, d in pairs)
+
+    contig = as_fasta(KEPT["contig"])
+    round2 = as_fasta(KEPT["fused round 2"])
+    base = KEPT["contig_numbers"]
+    small_dir = os.path.join(workdir, "serve_kinds_small")
+    os.makedirs(small_dir)
+    small = make_synth_dataset(small_dir)
+    with gzip.open(paths[0], "rb") as fh:
+        body = fh.read()
+    cut_reads = os.path.join(workdir, "serve_kinds_cut_reads.fasta")
+    with open(cut_reads, "wb") as fh:
+        fh.write(body[:body.index(b"\n>", len(body) // 2) + 4])
+    del body
+
+    # ---- d's one-shot: a kF polisher on the same target slice
+    fpaths = KEPT["fragment_paths"]
+    frag_hi = -(-len(reads) // 16)
+    t0 = time.perf_counter()
+    fpol = create_polisher(*fpaths, PolisherType.kF, 500, 10.0, 0.3, True,
+                           MATCH, MISMATCH, GAP, num_threads=os.cpu_count(),
+                           cuda_poa_batches=1, cuda_banded_alignment=False,
+                           cuda_aligner_batches=1, device="cuda",
+                           pipeline_depth=2, autotune_table=COLD_TABLE)
+    fpol.target_range = (0, frag_hi)
+    fpol.initialize()
+    frag_want = as_fasta(fasta_of(fpol.polish()))
+    out["fragment_one_shot_s"] = time.perf_counter() - t0
+    del fpol
+
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = PolishServer(socket_path=os.path.join(workdir, "kinds.sock"),
+                       workers=2, device="cuda", match=MATCH,
+                       mismatch=MISMATCH, gap=GAP,
+                       job_threads=os.cpu_count(), cuda_poa_batches=1,
+                       cuda_aligner_batches=1, pipeline_depth=2,
+                       autotune_table=COLD_TABLE, wincache=True,
+                       preempt=True, frag_group=16).start()
+    out["start_s"] = time.perf_counter() - t0
+    log(f"[chip_smoke] serve kinds path: server up in {out['start_s']:.3f} "
+        f"s (window cache and preemption armed, fragment groups of 16); "
+        f"the one-shot kF slice [0, {frag_hi}) took "
+        f"{out['fragment_one_shot_s']:.3f} s; card {card}")
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=900)
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + 600
+        while not cond():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"serve kinds path: {what}")
+            time.sleep(0.01)
+
+    def submit(name, results, paths_=paths, **kw):
+        t = time.perf_counter()
+        try:
+            results[name] = (cl.submit(*paths_, **kw),
+                             time.perf_counter() - t)
+        except Exception as exc:  # noqa: BLE001 — checked by the caller
+            results[name] = (exc, time.perf_counter() - t)
+
+    def check(results, name, want, ref):
+        r, wall = results[name]
+        if isinstance(r, Exception):
+            raise SystemExit(f"serve kinds path: job {name} failed: {r!r}")
+        if r.fasta != want:
+            raise SystemExit(f"serve kinds path: job {name}'s FASTA "
+                             f"differs from {ref}'s")
+        nums = served_numbers(r, wall)
+        if r.rounds:
+            nums["rounds"] = r.rounds
+        out["jobs"][name] = nums
+        log(f"[chip_smoke] serve kinds path {name} job: queue wait "
+            f"{nums['queue_wait_s']:.3f} s, end to end {nums['wall_s']:.3f} "
+            f"s; {nums['iterations']} iterations (last pass), launches K1 "
+            f"{nums['k1_launches']} / K2 {nums['k2_launches']} / K3 "
+            f"{nums['k3_launches']}")
+        return r, nums
+
+    # ---- a. a fused rounds job
+    fused = {"cuda_engine": "fused", "cuda_fused": "1"}
+    res: dict = {}
+    with K3Capture() as k3cap:
+        submit("rounds", res, options=fused, rounds=2)
+    ra, na = check(res, "rounds", round2, "phase 12's round 2")
+    per = ra.rounds["per_round"]
+    if (len(per) != 2 or any(p["k2_launches"] <= 0 for p in per)
+            or na["k3_launches"] <= 0):
+        raise SystemExit(f"serve kinds path a: rounds block {ra.rounds}, "
+                         f"K3 {na['k3_launches']} launches")
+    log(f"[chip_smoke] serve kinds path a: the fused rounds job equals "
+        f"phase 12's round 2; per round "
+        + "; ".join(f"r{p['round']} {p['wall_s']:.3f} s, {p['windows']} "
+                    f"windows, cache {p['cache']}, K1 {p['k1_launches']} / "
+                    f"K2 {p['k2_launches']} / K3 {p['k3_launches']}"
+                    for p in per) + f"; {len(k3cap.calls)} K3 calls copied")
+
+    # ---- b. the same job again, from the window cache
+    res = {}
+    submit("rounds again", res, options=fused, rounds=2)
+    rb, nb = check(res, "rounds again", round2, "phase 12's round 2")
+    first = rb.rounds["per_round"][0]
+    wc = srv.batcher.snapshot()["wincache"]
+    if (first["cache"] != {"hits": first["windows"], "misses": 0}
+            or first["windows"] != base["windows"]
+            or any(0 < na[k] <= nb[k] for k in ("k1_launches",
+                                                  "k3_launches"))
+            or nb["k1_launches"] + nb["k3_launches"]
+            >= na["k1_launches"] + na["k3_launches"]
+            or wc["entries"] <= 0 or wc["bytes"] <= 0):
+        raise SystemExit(f"serve kinds path b: round 1 {first}, launches "
+                         f"K1 {nb['k1_launches']} / K3 {nb['k3_launches']}"
+                         f" against a's {na['k1_launches']} / "
+                         f"{na['k3_launches']}, cache {wc}")
+    out["wincache"] = wc
+    log(f"[chip_smoke] serve kinds path b: the same bytes, round 1's cache "
+        f"{first['cache']['hits']} hits of {first['windows']} windows, "
+        f"launches K1 {nb['k1_launches']} / K3 {nb['k3_launches']} against "
+        f"{na['k1_launches']} / {na['k3_launches']}; cache {wc['entries']} "
+        f"entries, {wc['bytes']} bytes, hit rate {wc['hit_rate']:.3f}")
+
+    # ---- c. two range shards at once
+    name, data = KEPT["contig"][0]
+    shard_res: dict = {}
+
+    def shard(lo, hi):
+        frames: list = []
+        t = time.perf_counter()
+        try:
+            resp = cl.request({"type": "submit", "sequences": paths[0],
+                               "overlaps": paths[1], "target": paths[2],
+                               "range_lo": lo, "range_hi": hi,
+                               "stream": True}, on_part=frames.append)
+        except Exception as exc:  # noqa: BLE001 — checked below
+            resp = exc
+        shard_res[(lo, hi)] = (resp, frames, time.perf_counter() - t)
+
+    splits = ((0, RANGE_SPLIT), (RANGE_SPLIT, 10**9))
+    threads = [threading.Thread(target=shard, args=sp) for sp in splits]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    segs, metas, shards = [], [], {}
+    for sp in splits:
+        resp, frames, wall = shard_res[sp]
+        if isinstance(resp, Exception) or len(frames) != 1:
+            raise SystemExit(f"serve kinds path c {sp}: {resp!r}, "
+                             f"{len(frames)} frames")
+        pairs = resp["metrics"]["aligner"]["pairs"]
+        if pairs >= base["pairs"]:
+            raise SystemExit(f"serve kinds path c {sp}: {pairs} pairs "
+                             f"aligned, the whole job {base['pairs']}")
+        segs.append(frames[0]["fasta"].encode("latin-1"))
+        metas.append(frames[0]["seg"])
+        shards[f"[{sp[0]}, {sp[1]})"] = {
+            "pairs": pairs, "wall_s": wall,
+            "k1_launches": resp["serve"]["batch"]["k1_launches"],
+            "k2_launches": resp["serve"]["batch"]["k2_launches"]}
+    joined = b"".join(segs)
+    ratio = sum(m["polished"] for m in metas) / float(
+        metas[0]["total_windows"])
+    derived = (f"{name.split()[0]} LN:i:{len(joined)} "
+               f"RC:i:{metas[0]['coverage']} XC:f:{ratio:.6f}")
+    if joined != data or derived != name:
+        raise SystemExit(f"serve kinds path c: the served segments give "
+                         f"{derived} ({len(joined)} bases), phase 5 {name}")
+    out["range"] = {"shards": shards, "segment_meta": metas}
+    log(f"[chip_smoke] serve kinds path c: the two served range shards "
+        f"concatenate to phase 5's contig, tags re-derived equal; {shards} "
+        f"(whole job {base['pairs']} pairs)")
+
+    # ---- d. a fragment job on a slice of the targets
+    frames = []
+    t = time.perf_counter()
+    rd = cl.submit(*fpaths, fragment=True, frag_lo=0, frag_hi=frag_hi,
+                   on_part=frames.append)
+    nd = served_numbers(rd, time.perf_counter() - t)
+    tiles = [f["frag"] for f in frames]
+    if (rd.fasta != frag_want or any(f["reads"] > 16 for f in frames)
+            or [lo for lo, _ in tiles] != [0] + [hi for _, hi in tiles[:-1]]
+            or tiles[-1][1] != frag_hi or nd["k1_launches"] <= 0
+            or nd["k2_launches"] <= 0):
+        raise SystemExit(f"serve kinds path d: equal to the one-shot "
+                         f"{rd.fasta == frag_want}, groups "
+                         f"{[(f['reads'], f['frag']) for f in frames]}, "
+                         f"K1 {nd['k1_launches']} / K2 {nd['k2_launches']}")
+    lines = rd.fasta.split(b"\n")
+    by_name = {r[0]: r for r in reads}
+    raw = fixed = 0
+    for head, seq in zip(lines[0::2], lines[1::2]):
+        read = by_name[head[1:].split(b" ")[0].decode()[:-1]]
+        seg = truth_segment(truth, read)
+        raw += edit_distance(read[1], seg)
+        fixed += edit_distance(seq, seg)
+    if not fixed < raw:
+        raise SystemExit(f"serve kinds path d: distance {fixed} not below "
+                         f"the raw reads' {raw}")
+    nd.update(groups=len(frames), written=len(lines) // 2,
+              raw_distance=raw, corrected_distance=fixed)
+    out["jobs"]["fragment"] = nd
+    log(f"[chip_smoke] serve kinds path d: the fragment slice [0, "
+        f"{frag_hi}) equals the one-shot kF polisher's; {len(frames)} "
+        f"groups of at most 16 reads tiling it, {len(lines) // 2} reads "
+        f"written, distance {raw} -> {fixed}; end to end "
+        f"{nd['wall_s']:.3f} s, launches K1 {nd['k1_launches']} / K2 "
+        f"{nd['k2_launches']}")
+
+    # ---- e. admit-time ingest
+    res = {}
+    submit("ingest", res, ingest=True)
+    check(res, "ingest", contig, "phase 5")
+    try:
+        cl.submit(cut_reads, paths[1], paths[2], ingest=True)
+        raise SystemExit("serve kinds path e: the cut reads file was "
+                         "admitted")
+    except ServeError as exc:
+        if (exc.code != "bad-request"
+                or exc.response.get("terminal") != "rejected-ingest"):
+            raise SystemExit(f"serve kinds path e: the cut reads file gave "
+                             f"{exc.response}") from None
+        rejected = exc.response
+    res = {}
+    submit("small", res, paths_=small)
+    if isinstance(res["small"][0], Exception):
+        raise SystemExit(f"serve kinds path e: the job after the refusal "
+                         f"failed: {res['small'][0]!r}")
+    small_fasta = res["small"][0].fasta
+    check(res, "small", small_fasta, "itself")
+    log(f"[chip_smoke] serve kinds path e: the ingest job equals phase 5's; "
+        f"the cut reads file refused ({rejected['terminal']}, stage "
+        f"{rejected['stage']}: {rejected['message'][:80]}); the server then "
+        f"served the warm-up dataset")
+
+    # ---- f. preemption
+    depth0 = {"pipeline_depth": 0}
+    res = {}
+    srv.batcher.hold()
+    busy = [threading.Thread(target=submit, args=("bulk", res),
+                             kwargs={"tenant": "bulk", "options": depth0}),
+            threading.Thread(target=submit, args=("side", res),
+                             kwargs={"paths_": small, "priority": 1,
+                                     "tenant": "side", "options": depth0})]
+    for t in busy:
+        t.start()
+    wait_for(lambda: len(srv.batcher._job_tickets) == 2,
+             "the bulk and side jobs never pooled")
+    gold = threading.Thread(target=submit, args=("gold", res),
+                            kwargs={"paths_": small, "priority": 5,
+                                    "tenant": "gold", "options": depth0})
+    gold.start()
+    wait_for(lambda: srv.qos["preemptions"] == 1,
+             "the gold job never preempted the bulk job")
+    # the gold job's windows pool before the release: released earlier,
+    # the side job's iteration would cache them and gold would run none
+    wait_for(lambda: len(srv.batcher._job_tickets) == 3,
+             "the gold job never pooled")
+    parked = srv.batcher.snapshot().get("parked_windows", 0)
+    srv.batcher.release()
+    for t in busy + [gold]:
+        t.join(900)
+    check(res, "bulk", contig, "phase 5")
+    check(res, "side", small_fasta, "part e's")
+    check(res, "gold", small_fasta, "part e's")
+    stats = srv.stats_snapshot()
+    qos = stats["qos"]
+    tds = stats.get("tenant_device_seconds", {})
+    if (parked <= 0 or qos["preemptions"] != 1 or qos["resumes"] != 1
+            or not tds.get("bulk", 0) > 0 or not tds.get("gold", 0) > 0):
+        raise SystemExit(f"serve kinds path f: {parked} windows parked, "
+                         f"qos {qos}, tenant device seconds {tds}")
+    out["qos"] = qos
+    out["tenant_device_seconds"] = tds
+    log(f"[chip_smoke] serve kinds path f: the gold job parked {parked} "
+        f"windows of the bulk job; qos {qos}; all three FASTA correct; "
+        f"tenant device seconds {tds}; card {card}")
+
+    # ---- close
+    cl.shutdown()
+    if not srv.drain(timeout=600):
+        raise SystemExit("serve kinds path: the drain ran over budget")
+    q = srv.queue.counters
+    out["queue"] = dict(q)
+    out["batcher"] = srv.batcher.snapshot()
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    k3 = {f"{dt} serve_kinds": n for dt, n in k3_by_dtype().items()}
+    out["launches"] = launches
+    log(f"[chip_smoke] serve kinds path: drained cleanly, {q['admitted']} "
+        f"admitted = {q['completed']} completed + {q['failed']} failed + "
+        f"{q['expired']} cancelled in queue; launches over the phase "
+        f"{launches}")
+
+    # ---- the fullest K3 call of part a against its plain version
+    call, rows = k3cap.fullest()
+    what = f"the served rounds job's fullest K3 call ({rows} rows)"
+    held = hold_k3_call(call, what)
+    held["real_rows"] = rows
+    held["calls"] = len(k3cap.calls)
+    del k3cap
+    out["k3_held"] = held
+    log(f"[chip_smoke] serve kinds path: {what}, {held['layers']} layers "
+        f"x {held['rows']} rows ({'fused launch' if held['fused_launch'] else 'chained call'}, "
+        f"{held['dtype']}), identical to the plain version on every state "
+        f"array; kernel {held['ms']:.2f} ms, plain {held['plain_ms']:.0f} "
+        f"ms, bound {held['bound_ms']:.4f} ms ({held['bound_by']}); card "
+        f"{card}")
+    report["serve_kinds_path"] = out
     return (launches["k1"], k1p), (launches["k2"], k2p), k3
 
 

@@ -150,6 +150,22 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             default: none
             capture each device phase with torch.profiler into
             <dir>/align.json and <dir>/consensus.json (Chrome trace)
+
+    subcommands (--help on each for every flag):
+        serve [--wincache] [--wincache-max-bytes <int>]
+              [--frag-group <int>] [--preempt] [--abort-margin <seconds>]
+            the warm job server: the window cache, corrected reads per
+            streamed frame of a fragment job, priority preemption and
+            the deadline-abort margin
+        submit [--rounds <int>] [-f | --fragment]
+               [--frag-lo <int> --frag-hi <int>] [--ingest]
+               [--subsample <ref_len> <cov>] [--normalize]
+               <sequences> <overlaps> <target sequences>
+            sends the server one job: polishing rounds, read correction
+            (a target slice of it), admit-time validation, subsampling
+            and pair normalization
+        cancel --job-id <id> | --trace-id <id>
+            cancels a queued or running job
 """
 
 

@@ -278,12 +278,14 @@ class Polisher:
         self.n_dropped = 0
         #: a server's job identity, read by its window batcher and by
         #: the server (serve/): the job id, the tenant, the job's absolute
-        #: perf_counter deadline, and the batcher's iteration accounting
-        #: of the last batched pass (_Ticket.batch_info)
+        #: perf_counter deadline, the batcher's iteration accounting of
+        #: the last batched pass (_Ticket.batch_info) and its window
+        #: cache's hits and misses there (None: no cache consulted)
         self.serve_job_id: str | None = None
         self.serve_tenant: str | None = None
         self.serve_deadline: float | None = None
         self.serve_batch: dict | None = None
+        self.serve_cache: dict | None = None
         self.metrics = MetricsRegistry()
         self.metrics.register(
             "pipeline", lambda: {k: v for k, v in self.stage_stats.items()

@@ -6,7 +6,9 @@
     batcher.py    WindowBatcher: concurrent jobs' windows merged into
                   shared device iterations by one feeder thread
     server.py     ServeConfig, PolishServer (warm-up, transport, workers,
-                  cancel, drain), make_synth_dataset and `serve`
+                  rounds, range and fragment jobs, admit-time ingest,
+                  preemption, cancel, drain), make_synth_dataset,
+                  make_fragment_dataset and `serve`
     client.py     PolishClient, its typed errors, `submit` and `cancel`
     protocol.py   length-prefixed JSON frames, the typed frame errors and
                   `error_response`
@@ -25,7 +27,8 @@ from .protocol import (FrameGarbage, FrameTooLarge, FrameTruncated,
                        ProtocolError, error_response, recv_frame,
                        send_frame)
 from .queue import JobQueue
-from .server import PolishServer, ServeConfig, make_synth_dataset
+from .server import (PolishServer, ServeConfig, make_fragment_dataset,
+                     make_synth_dataset)
 from .wincache import WindowCache, window_content_digest
 
 __all__ = ["DeadlineDoomed", "FrameGarbage", "FrameTooLarge",
@@ -33,5 +36,6 @@ __all__ = ["DeadlineDoomed", "FrameGarbage", "FrameTooLarge",
            "JobFailed", "JobQueue", "PolishClient", "PolishResult",
            "PolishServer", "ProtocolError", "QueueFull", "ServeConfig",
            "ServeError", "ServerDraining", "TenantQuota", "WindowBatcher",
-           "WindowCache", "error_response", "make_synth_dataset",
+           "WindowCache", "error_response", "make_fragment_dataset",
+           "make_synth_dataset",
            "recv_frame", "send_frame", "window_content_digest"]

@@ -45,6 +45,27 @@ injected errors fail that job only. A failure inside a shared iteration
 fails the jobs with windows in it (their other pooled windows are
 dropped); the feeder carries on.
 
+Window cache (`wincache`, a serve/wincache.WindowCache, None = off):
+`consensus` looks each window up before pooling, keyed by its content,
+the engine key and the polisher's kernel posture; a hit gets the stored
+consensus and goes straight to the job's thread, never to an iteration
+(`polisher.serve_cache` counts the hits and misses). Each iteration's
+windows are stored once it ends. Isolation jobs neither consult nor
+store.
+
+QoS: `withdraw_job` parks a running job's pooled windows between
+iterations (the entries keep their arrival sequence; windows the job
+pools later park directly) and `resume_job` returns them, so the resumed
+job keeps its place and its bytes. With `abort_margin` set (None = off)
+the job's thread checks after each delivered batch whether the job's
+remaining windows, at its observed rate, can still finish by its
+deadline (`polisher.serve_deadline`) and raises `queue.DeadlineDoomed`
+when they overshoot by more than the margin. Each iteration's wall is
+prorated over the tenants whose windows rode it, by window count (the
+session engine charges no pipeline device seconds, so the wall is the
+device-busy time the feeder holds); `tenant_device_seconds()` gives the
+per-tenant sums once a named tenant has one.
+
 `cancel_job` kills a running job's tickets with a typed
 `queue.JobCancelledError`; the feeder drops their pooled windows at its
 next scan and the job's thread raises. `hold` / `release` pause the
@@ -52,9 +73,8 @@ feeder before its next extraction (tests and the chip smoke use them to
 pool several jobs deterministically).
 
 Not ported here: more than one worker lane (with lane quarantine and
-re-probes), the identity-audit hooks, the window cache, preemption
-(withdraw / resume), the iteration-boundary deadline abort and the
-per-tenant device-second proration.
+re-probes, whose callers invalidate the window cache) and the
+identity-audit hooks.
 """
 
 from __future__ import annotations
@@ -66,7 +86,7 @@ import time
 
 from ..errors import RaconError
 from ..obs import trace
-from .queue import DeliveryQueue, JobCancelledError
+from .queue import DeadlineDoomed, DeliveryQueue, JobCancelledError
 
 
 class _Ticket:
@@ -76,8 +96,9 @@ class _Ticket:
 
     __slots__ = ("polisher", "key", "error", "total", "remaining", "done",
                  "iterations", "iteration_ids", "shared_iterations",
-                 "compiles", "compile_s", "device_s", "host_s",
-                 "k1_launches", "k3_launches", "_delivery", "event")
+                 "compiles", "compile_s", "device_s", "device_share_s",
+                 "host_s", "k1_launches", "k3_launches", "_delivery",
+                 "event")
 
     def __init__(self, polisher, key):
         self.polisher = polisher
@@ -93,6 +114,8 @@ class _Ticket:
         self.compile_s = 0.0
         #: the iterations' walls, each billed in full to every rider
         self.device_s = 0.0
+        #: this job's window share of those walls (the tenant's cost)
+        self.device_share_s = 0.0
         self.host_s = 0.0
         self.k1_launches = 0
         self.k3_launches = 0
@@ -109,7 +132,7 @@ class _Ticket:
         return self._delivery.take(timeout)
 
     def batch_info(self, solo: bool = False) -> dict:
-        return {"iterations": self.iterations,
+        info = {"iterations": self.iterations,
                 "iteration_ids": list(self.iteration_ids),
                 "shared_iterations": self.shared_iterations,
                 "windows": self.total, "solo": solo,
@@ -119,6 +142,13 @@ class _Ticket:
                 "host_s": round(self.host_s, 4),
                 "k1_launches": self.k1_launches,
                 "k3_launches": self.k3_launches}
+        tenant = self.polisher.serve_tenant
+        if tenant:
+            # a tenanted job carries its prorated share; an untenanted
+            # response keeps its shape
+            info["tenant"] = tenant
+            info["device_share_s"] = round(self.device_share_s, 4)
+        return info
 
 
 class _IterProgress:
@@ -231,6 +261,16 @@ class WindowBatcher:
         self._held = False
         #: serve job id -> its live tickets (cancel_job's handle)
         self._job_tickets: dict[str, list] = {}
+        #: preemption: the withdrawn jobs' ids (windows they pool later
+        #: park directly) and their parked (engine key, pool entry) pairs
+        self._withdrawn: set[str] = set()
+        self._parked: dict[str, list] = {}
+        #: the deadline-abort margin in seconds (None: off)
+        self.abort_margin: float | None = None
+        #: the window cache (serve/wincache.WindowCache) or None
+        self.wincache = None
+        #: tenant -> prorated iteration seconds ("" = untenanted)
+        self._tenant_device: dict[str, float] = {}
         self._busy = False
         self._busy_s = 0.0
         self.counters = {"iterations": 0, "solo_iterations": 0,
@@ -240,6 +280,13 @@ class WindowBatcher:
                          #: summed iteration wall minus device-stage
                          #: seconds; isolation passes are not included
                          "host_s": 0.0}
+
+    def _accrue_tenant_device(self, tenant: str | None,
+                              share_s: float) -> None:
+        with self._cond:
+            key = tenant or ""
+            self._tenant_device[key] = (self._tenant_device.get(key, 0.0)
+                                        + share_s)
 
     # ------------------------------------------------------------ entry
     def consensus(self, polisher, on_windows=None) -> None:
@@ -256,22 +303,55 @@ class WindowBatcher:
         if ticket.total == 0:
             polisher.serve_batch = ticket.batch_info()
             return
+        pend = polisher.windows
+        cache = self.wincache
+        if cache is not None:
+            # a hit carries bytes an earlier dispatch of the same content
+            # under the same engine key and posture produced: it goes to
+            # this job's thread and never into the pool
+            posture = polisher.posture_key
+            hits: list = []
+            pend = []
+            for w in polisher.windows:
+                ent = cache.lookup(cache.key(w, ticket.key, posture))
+                if ent is None:
+                    pend.append(w)
+                else:
+                    w.consensus, w.polished = ent
+                    hits.append(w)
+            polisher.serve_cache = {"hits": len(hits),
+                                    "misses": len(pend)}
+            if hits:
+                ticket.done += len(hits)
+                ticket.remaining -= len(hits)
+                ticket.deliver(hits)
+                if ticket.remaining <= 0:
+                    ticket.finish()
         now = time.monotonic()
         job_id = polisher.serve_job_id
-        with self._cond:
-            if self._stop:
-                raise RaconError("WindowBatcher",
-                                 "batcher is closed (server draining)")
-            self._ensure_feeder_locked()
-            if job_id is not None:
-                self._job_tickets.setdefault(job_id, []).append(ticket)
-            self._pools.setdefault(ticket.key, []).extend(
-                [next(self._entry_seq), now, ticket, w]
-                for w in polisher.windows)
-            self._cond.notify_all()
+        if pend:
+            with self._cond:
+                if self._stop:
+                    raise RaconError("WindowBatcher",
+                                     "batcher is closed (server draining)")
+                self._ensure_feeder_locked()
+                if job_id is not None:
+                    self._job_tickets.setdefault(job_id, []).append(ticket)
+                entries = [[next(self._entry_seq), now, ticket, w]
+                           for w in pend]
+                if job_id is not None and job_id in self._withdrawn:
+                    # a preempted job's later windows (its next round)
+                    # park at once, never reaching an extraction
+                    self._parked.setdefault(job_id, []).extend(
+                        (ticket.key, e) for e in entries)
+                else:
+                    self._pools.setdefault(ticket.key, []).extend(entries)
+                self._cond.notify_all()
         # deliveries are consumed on this thread: the stitch callback
         # bills to this job, never to the feeder, and its exception fails
         # this job
+        deadline = polisher.serve_deadline
+        t_run0 = time.perf_counter()
         try:
             try:
                 while True:
@@ -279,6 +359,7 @@ class WindowBatcher:
                     if ws is not None:
                         if on_windows is not None:
                             on_windows(ws)
+                        self._doomed_check(ticket, deadline, t_run0)
                         continue
                     if ticket.event.is_set():
                         break
@@ -303,9 +384,38 @@ class WindowBatcher:
                         ts.remove(ticket)
                         if not ts:
                             del self._job_tickets[job_id]
+                    # a ticket that dies while parked strands its entries
+                    # (nothing resumes a dead job): drop them
+                    parked = self._parked.get(job_id)
+                    if parked:
+                        parked[:] = [pe for pe in parked
+                                     if pe[1][2] is not ticket]
+                        if not parked:
+                            del self._parked[job_id]
+                            self._withdrawn.discard(job_id)
         if ticket.error is not None:
             raise ticket.error
         polisher.serve_batch = ticket.batch_info()
+
+    def _doomed_check(self, ticket: _Ticket, deadline: float | None,
+                      t0: float) -> None:
+        """The iteration-boundary deadline abort, on the job's thread
+        after each delivered batch: the remaining windows at this job's
+        observed rate per window (the work queued ahead is ignored, so
+        the estimate is optimistic) against the time left to the
+        deadline. Raises DeadlineDoomed when the estimate overshoots by
+        more than `abort_margin`."""
+        margin = self.abort_margin
+        if deadline is None or margin is None:
+            return
+        done, remaining = ticket.done, ticket.remaining
+        if done <= 0 or remaining <= 0:
+            return
+        now = time.perf_counter()
+        predicted_s = (now - t0) / done * remaining
+        remaining_s = deadline - now
+        if predicted_s > remaining_s + margin:
+            raise DeadlineDoomed(predicted_s, remaining_s, phase="mid-run")
 
     def _isolated(self, polisher, on_windows) -> None:
         """A fault-plan job's consensus: its polisher's own pass, alone
@@ -334,7 +444,9 @@ class WindowBatcher:
         ticket = _Ticket(polisher, None)
         ticket.iterations = 1
         ticket.iteration_ids = [it]
-        ticket.device_s = t1 - t0
+        # one rider: the whole wall is its share
+        ticket.device_s = ticket.device_share_s = t1 - t0
+        self._accrue_tenant_device(polisher.serve_tenant, t1 - t0)
         polisher.serve_batch = ticket.batch_info(solo=True)
         if on_windows is not None:
             on_windows(list(polisher.windows))
@@ -530,6 +642,13 @@ class WindowBatcher:
             self.hists.observe("serve.iteration_host", host_s)
         self._account(len(tickets), len(windows), solo=False,
                       host_s=host_s)
+        cache = self.wincache
+        if cache is not None:
+            for t, ws in per_ticket.items():
+                posture = t.polisher.posture_key
+                for w in ws:
+                    cache.store(cache.key(w, t.key, posture), w.consensus,
+                                w.polished)
         shared = len(tickets) > 1
         for ticket, ws in per_ticket.items():
             ticket.iterations += 1
@@ -539,6 +658,11 @@ class WindowBatcher:
             ticket.compiles += post_c - pre_c
             ticket.compile_s += post_s - pre_s
             ticket.device_s += t1 - t0
+            # the job's window share of the wall: the shares of one
+            # iteration sum to its wall
+            share = (t1 - t0) * len(ws) / len(windows)
+            ticket.device_share_s += share
+            self._accrue_tenant_device(ticket.polisher.serve_tenant, share)
             ticket.host_s += host_s
             ticket.k1_launches += post_k1 - pre_k1
             ticket.k3_launches += post_k3 - pre_k3
@@ -579,6 +703,45 @@ class WindowBatcher:
                 c["max_windows_in_iteration"], windows)
 
     # ------------------------------------------------------------ control
+    def withdraw_job(self, job_id: str) -> int:
+        """Preempt a running job: move its pooled windows (not yet in an
+        iteration) to the parked store, entries unchanged, and mark the
+        job so windows it pools later park directly. Windows already in
+        an iteration finish and deliver. Returns the entries parked."""
+        with self._cond:
+            self._withdrawn.add(job_id)
+            parked = self._parked.setdefault(job_id, [])
+            n = 0
+            for key, pool in list(self._pools.items()):
+                keep = []
+                for e in pool:
+                    if e[2].polisher.serve_job_id == job_id:
+                        parked.append((key, e))
+                        n += 1
+                    else:
+                        keep.append(e)
+                if len(keep) != len(pool):
+                    if keep:
+                        self._pools[key] = keep
+                    else:
+                        del self._pools[key]
+            if not parked:
+                del self._parked[job_id]
+            return n
+
+    def resume_job(self, job_id: str) -> int:
+        """Return a preempted job's parked windows to their pools and
+        clear its mark. The entries keep their arrival sequence, so the
+        job is served at the age it had. Returns the entries returned."""
+        with self._cond:
+            self._withdrawn.discard(job_id)
+            parked = self._parked.pop(job_id, [])
+            for key, e in parked:
+                self._pools.setdefault(key, []).append(e)
+            if parked:
+                self._cond.notify_all()
+            return len(parked)
+
     def cancel_job(self, job_id: str) -> bool:
         """Cancel a running job: its live tickets die with a typed
         JobCancelledError, which its thread raises; the feeder drops
@@ -592,10 +755,21 @@ class WindowBatcher:
             for t in tickets:
                 if t.error is None:
                     t.error = exc
+            self._parked.pop(job_id, None)
+            self._withdrawn.discard(job_id)
             self._cond.notify_all()
         for t in tickets:
             t.finish()
         return True
+
+    def tenant_device_seconds(self) -> dict:
+        """Tenant -> its prorated iteration seconds ("" untenanted),
+        empty until a named tenant has some."""
+        with self._cond:
+            if not any(t for t in self._tenant_device):
+                return {}
+            return {t: round(v, 4)
+                    for t, v in sorted(self._tenant_device.items())}
 
     def hold(self) -> None:
         """Pause the feeder before its next extraction."""
@@ -615,9 +789,17 @@ class WindowBatcher:
             out["busy_s"] = round(self._busy_s, 4)
             out["pending_windows"] = sum(len(p) for p in
                                          self._pools.values())
+            # shown only while a preemption holds windows
+            if self._withdrawn or self._parked:
+                out["withdrawn_jobs"] = len(self._withdrawn)
+                out["parked_windows"] = sum(len(v) for v in
+                                            self._parked.values())
+
         compiles, compile_s = self._compile_totals()
         out["compiles"] = compiles
         out["compile_s"] = round(compile_s, 3)
         out["occupancy"] = self.scheduler.stats.snapshot()
         out["pipeline"] = self.pipeline_stats.snapshot()
+        if self.wincache is not None:
+            out["wincache"] = self.wincache.snapshot()
         return out

@@ -24,7 +24,11 @@ on_progress=cb)` interleaves `progress` frames (queue position while
 pending, then phase / done / total); `--stream` / `submit(...,
 on_part=cb)` streams each polished contig as a `result_part` frame as
 soon as its windows are done, and the parts concatenate to the buffered
-FASTA.
+FASTA. `submit(..., rounds=N)` / `--rounds N` polishes N rounds in the
+server, `fragment=True` / `-f` corrects reads (optionally a `frag_lo` /
+`frag_hi` target slice), `ingest` / `subsample` / `normalize` have the
+server check or rewrite the inputs on admit, and `request()` sends any
+frame, such as a `range_lo` / `range_hi` shard.
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ _ERROR_TYPES = {"queue-full": QueueFull, "draining": ServerDraining,
 
 class PolishResult:
     __slots__ = ("job_id", "fasta", "metrics", "serve", "streamed",
-                 "parts")
+                 "parts", "rounds")
 
     def __init__(self, resp: dict):
         self.job_id = resp.get("job_id")
@@ -129,6 +133,9 @@ class PolishResult:
         #: queue wait, exec and phase walls, and the `batch` block
         #: (iterations, shared iterations, K1 / K2 / K3 launches, ...)
         self.serve = resp.get("serve") or {}
+        #: a rounds job's accounting (requested, completed, per_round
+        #: walls and cache counts, cache totals); {} for a single pass
+        self.rounds = resp.get("rounds") or {}
 
 
 class PolishClient:
@@ -191,8 +198,12 @@ class PolishClient:
                options: dict | None = None, priority: int = 0,
                deadline_s: float | None = None,
                fault_plan: str | None = None, tenant: str | None = None,
-               trace_id: str | None = None, on_progress=None,
-               on_part=None, stream: bool = False, retries: int = 0,
+               trace_id: str | None = None, rounds: int | None = None,
+               fragment: bool = False, frag_lo: int | None = None,
+               frag_hi: int | None = None, ingest: bool = False,
+               subsample: dict | None = None, normalize: bool = False,
+               on_progress=None, on_part=None, stream: bool = False,
+               retries: int = 0,
                cancel_on_timeout: bool = False) -> PolishResult:
         """Polish one input triple on the server. Paths are made absolute
         before they cross the wire (the server's working directory is not
@@ -200,6 +211,14 @@ class PolishClient:
         (serve.server.ALLOWED_OPTIONS); `fault_plan` arms injected faults
         for this job only; `tenant` names its fair-scheduling bucket;
         `trace_id` names the job so another client can cancel it.
+        `rounds=N` polishes N rounds in the server (PolishResult.rounds
+        has their accounting); `fragment` corrects reads instead of
+        polishing contigs (mode "fragment"), `frag_lo` / `frag_hi`
+        bounding the target indices; `ingest` has the server parse the
+        inputs on admit, `subsample` ({reference_length, coverage[,
+        seed]}) subsample the reads and `normalize` rename paired reads
+        first. A range shard (`range_lo` / `range_hi`) goes through
+        `request()`.
         `on_progress` turns on progress frames, `on_part` or `stream` the
         streamed contigs. `retries` resubmits after a jittered
         `retry_after` on full-queue rejects. `cancel_on_timeout` (with a
@@ -225,6 +244,20 @@ class PolishClient:
             req["tenant"] = str(tenant)
         if trace_id:
             req["trace_id"] = str(trace_id)
+        if rounds is not None:
+            req["rounds"] = int(rounds)
+        if fragment:
+            req["mode"] = "fragment"
+        if frag_lo is not None:
+            req["frag_lo"] = int(frag_lo)
+        if frag_hi is not None:
+            req["frag_hi"] = int(frag_hi)
+        if ingest:
+            req["ingest"] = True
+        if subsample is not None:
+            req["subsample"] = dict(subsample)
+        if normalize:
+            req["normalize"] = True
         if on_progress is not None:
             req["progress"] = True
         if stream or on_part is not None:
@@ -362,6 +395,36 @@ def submit_main(argv: list[str]) -> int:
     ap.add_argument("--fault-plan", default=None,
                     help="inject faults into this job's pipelines, e.g. "
                          "device:chunk=0:raise (testing)")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="polishing rounds in the server: round k's "
+                         "contigs are round k+1's draft, the reads "
+                         "re-mapped in its process; per-round walls and "
+                         "window-cache hits on stderr")
+    ap.add_argument("-f", "--fragment-correction", "--fragment",
+                    dest="fragment", action="store_true",
+                    help="correct reads instead of polishing contigs "
+                         "(mode \"fragment\"): the corrected reads, "
+                         "byte-identical to the one-shot -f run")
+    ap.add_argument("--frag-lo", type=int, default=None,
+                    help="with -f: correct only the targets of index "
+                         ">= this")
+    ap.add_argument("--frag-hi", type=int, default=None,
+                    help="with -f: correct only the targets of index "
+                         "< this")
+    ap.add_argument("--ingest", action="store_true",
+                    help="the server parses all three inputs on admit, "
+                         "so a malformed file fails the job at the door")
+    ap.add_argument("--subsample", nargs=2, type=int, default=None,
+                    metavar=("REF_LEN", "COV"),
+                    help="the server subsamples the reads to about "
+                         "REF_LEN * COV bases on admit (seeded, "
+                         "deterministic)")
+    ap.add_argument("--subsample-seed", type=int, default=None,
+                    help="the subsample's shuffle seed (default: "
+                         "rampler's)")
+    ap.add_argument("--normalize", action="store_true",
+                    help="paired-end header normalization on admit, as "
+                         "`python -m racon_tpu_torch.preprocess` does")
     ap.add_argument("-u", "--include-unpolished", action="store_true")
     ap.add_argument("-w", "--window-length", type=int, default=None)
     ap.add_argument("-q", "--quality-threshold", type=float, default=None)
@@ -405,13 +468,22 @@ def submit_main(argv: list[str]) -> int:
         def on_part(frame):
             sys.stdout.buffer.write(frame.get("fasta", "").encode("latin-1"))
             sys.stdout.buffer.flush()
+    subsample = None
+    if args.subsample is not None:
+        subsample = {"reference_length": args.subsample[0],
+                     "coverage": args.subsample[1]}
+        if args.subsample_seed is not None:
+            subsample["seed"] = args.subsample_seed
     try:
         result = client.submit(
             args.sequences, args.overlaps, args.target, options=options,
             priority=args.priority, deadline_s=args.deadline,
             fault_plan=args.fault_plan, tenant=args.tenant,
-            trace_id=args.trace_id, on_progress=on_progress,
-            on_part=on_part, retries=args.retries,
+            trace_id=args.trace_id, rounds=args.rounds,
+            fragment=args.fragment,
+            frag_lo=args.frag_lo, frag_hi=args.frag_hi, ingest=args.ingest,
+            subsample=subsample, normalize=args.normalize,
+            on_progress=on_progress, on_part=on_part, retries=args.retries,
             cancel_on_timeout=args.cancel_on_timeout)
     except (ServeError, OSError) as exc:
         if on_progress is not None:
@@ -428,6 +500,16 @@ def submit_main(argv: list[str]) -> int:
         print(f"[racon_tpu_torch::serve] job {result.job_id}: queue wait "
               f"{serve.get('queue_wait_s', 0):.3f}s, exec "
               f"{serve.get('exec_s', 0):.3f}s", file=sys.stderr)
+    if result.rounds:
+        walls = ", ".join(f"r{r['round']}={r['wall_s']:.3f}s"
+                          for r in result.rounds.get("per_round", []))
+        cache = result.rounds.get("cache")
+        tail = (f", cache hits {cache['hits']}/"
+                f"{cache['hits'] + cache['misses']}" if cache else "")
+        print(f"[racon_tpu_torch::serve] rounds "
+              f"{result.rounds.get('completed')}/"
+              f"{result.rounds.get('requested')}: {walls}{tail}",
+              file=sys.stderr)
     return 0
 
 

@@ -36,11 +36,31 @@ Transport: a unix socket (default) or localhost TCP, length-prefixed
 JSON frames (serve/protocol.py). `python -m racon_tpu_torch serve` is
 the CLI surface, `serve.client.PolishClient` the Python one.
 
-Not ported here: polishing rounds, fragment jobs, admit-time ingest, the
-window cache, the identity audit, preemption and the deadline-abort
-margin, worker lanes, the metrics HTTP port and `scrape`, the journal,
-the flight recorder, `trace_pull` / `debug`, per-job trace scoping and
-the SLO burn-rate tracker.
+What a submit may ask for beyond the triple and its options:
+
+  - `rounds: N` (1-64): round k's contigs become round k+1's draft, the
+    reads re-mapped in this process (Polisher.redraft); only the last
+    round streams, and the response's `rounds` block has each round's
+    wall and, with the window cache armed, its hits and misses;
+  - `range_lo` / `range_hi`: a window-range shard; its result_part
+    frames carry the raw segment and its `seg` accounting;
+  - `mode: "fragment"` (read correction, the polisher's kF) with
+    optional `frag_lo` / `frag_hi` target-index bounds: corrected reads
+    stream in groups of `frag_group`, each frame's `frag` range on the
+    whole read set;
+  - `ingest` / `subsample` / `normalize`: the inputs parsed (and
+    subsampled or pair-normalized) on admit; a file that does not parse
+    fails the job there, `bad-request` with `terminal:
+    "rejected-ingest"`, and the server goes on.
+
+With `wincache` the batcher answers repeated windows from the window
+cache; with `preempt` a higher-priority job parks a lower one's pooled
+windows; with `abort_margin` a job that cannot meet its deadline fails
+typed `deadline-doomed`.
+
+Not ported here: the identity audit, worker lanes, the metrics HTTP port
+and `scrape`, the journal, the flight recorder, `trace_pull` / `debug`,
+per-job trace scoping and the SLO burn-rate tracker.
 """
 
 from __future__ import annotations
@@ -61,8 +81,9 @@ from ..utils.logger import log_info
 from .batcher import WindowBatcher
 from .protocol import (DEFAULT_MAX_FRAME, ProtocolError, error_response,
                        recv_frame, send_frame)
-from .queue import (Draining, Job, JobCancelledError, JobQueue, QueueFull,
-                    TenantQuotaExceeded)
+from .queue import (DeadlineDoomed, Draining, Job, JobCancelledError,
+                    JobQueue, QueueFull, TenantQuotaExceeded)
+from .wincache import DEFAULT_MAX_BYTES
 
 #: request option keys a submit may carry; anything else is rejected
 #: with `bad-request` (a typo'd knob must not polish with defaults)
@@ -71,7 +92,10 @@ ALLOWED_OPTIONS = frozenset((
     "match", "mismatch", "gap", "include_unpolished", "cuda_poa_batches",
     "cuda_aligner_batches", "cuda_aligner_band_width",
     "cuda_banded_alignment", "cuda_engine", "cuda_fused",
-    "pipeline_depth", "score_dtype", "pack_bases"))
+    "pipeline_depth", "score_dtype", "pack_bases", "fragment_correction"))
+
+#: the most polishing rounds one submit may ask for
+MAX_ROUNDS = 64
 
 #: option key -> the type its value is converted with
 _OPTION_TYPES = {"window_length": int, "quality_threshold": float,
@@ -81,7 +105,8 @@ _OPTION_TYPES = {"window_length": int, "quality_threshold": float,
                  "cuda_aligner_band_width": int,
                  "cuda_banded_alignment": bool, "cuda_engine": str,
                  "cuda_fused": str, "pipeline_depth": int,
-                 "score_dtype": str, "pack_bases": bool}
+                 "score_dtype": str, "pack_bases": bool,
+                 "fragment_correction": bool}
 
 #: the options whose value is one of a few words
 _OPTION_CHOICES = {"cuda_engine": ("session", "fused"),
@@ -183,6 +208,33 @@ class ServeConfig:
         self.pipeline_depth = kw.pop("pipeline_depth", 2)
         self.adaptive_buckets = bool(kw.pop("adaptive_buckets", False))
         self.autotune_table = kw.pop("autotune_table", None)
+        #: the content-addressed window cache (off by default): a window
+        #: whose content, engine key and kernel posture were polished
+        #: before skips the device (serve/wincache.py), LRU-bounded by
+        #: payload bytes
+        self.wincache = bool(kw.pop("wincache", False))
+        self.wincache_max_bytes = int(kw.pop("wincache_max_bytes",
+                                             DEFAULT_MAX_BYTES))
+        if self.wincache_max_bytes <= 0:
+            raise RaconError("ServeConfig",
+                             f"invalid wincache_max_bytes "
+                             f"{self.wincache_max_bytes} (expected a "
+                             "positive integer)")
+        #: corrected reads a fragment job streams per result_part frame
+        self.frag_group = int(kw.pop("frag_group", 64))
+        if self.frag_group <= 0:
+            raise RaconError("ServeConfig",
+                             f"invalid frag_group {self.frag_group} "
+                             "(expected a positive integer)")
+        #: QoS, off by default: a newly admitted job of a higher priority
+        #: preempts a running lower one (its pooled windows park between
+        #: iterations), and a job whose predicted finish lies past its
+        #: deadline by more than `abort_margin` seconds fails typed, at
+        #: admission and at iteration boundaries (None: off)
+        self.preempt = bool(kw.pop("preempt", False))
+        margin = kw.pop("abort_margin", None)
+        self.abort_margin = None if margin is None else max(0.0,
+                                                            float(margin))
         if kw:
             raise RaconError("ServeConfig",
                              f"unknown option(s): {', '.join(sorted(kw))}")
@@ -237,6 +289,60 @@ def make_synth_dataset(dirname: str, seed: int = 11,
     return paths
 
 
+def make_fragment_dataset(dirname: str, seed: int = 13,
+                          genome_len: int = 2000, read_len: int = 400,
+                          step: int = 100) -> tuple[str, str, str]:
+    """Tiny deterministic read-correction dataset for fragment jobs:
+    staggered noisy reads off one truth genome and their all-vs-all PAF
+    rows between reads that share at least a quarter read of truth.
+    Returns (sequences, overlaps, target) where sequences and target are
+    the same reads file, the shape of `python -m racon_tpu_torch -f
+    reads ava.paf reads`. The same files as the JAX package's function
+    of the same name at the same arguments."""
+    from ..synth import ACGT, mutate
+
+    rng = random.Random(seed)
+    truth = bytes(rng.choice(ACGT) for _ in range(genome_len))
+    reads: list[tuple[str, bytes, int, int]] = []
+    for k, start in enumerate(range(0, genome_len - read_len + 1, step)):
+        end = min(start + read_len, genome_len)
+        reads.append((f"f{k}", mutate(rng, truth[start:end], 0.05), start,
+                      end))
+    paf = []
+    for qn, qd, qs0, qe0 in reads:
+        for tn, td, ts0, te0 in reads:
+            if qn == tn:
+                continue
+            ov0, ov1 = max(qs0, ts0), min(qe0, te0)
+            if ov1 - ov0 < read_len // 4:
+                continue
+            # the truth overlap on each noisy read, clamped to its length
+            qlo = min(max(0, ov0 - qs0), len(qd))
+            qhi = min(ov1 - qs0, len(qd))
+            tlo = min(max(0, ov0 - ts0), len(td))
+            thi = min(ov1 - ts0, len(td))
+            if qhi <= qlo or thi <= tlo:
+                continue
+            paf.append(f"{qn}\t{len(qd)}\t{qlo}\t{qhi}\t+\t"
+                       f"{tn}\t{len(td)}\t{tlo}\t{thi}\t"
+                       f"{qhi - qlo}\t{qhi - qlo}\t60")
+    reads_path = os.path.join(dirname, "frags.fasta.gz")
+    ovl_path = os.path.join(dirname, "frags_ava.paf.gz")
+    with gzip.open(reads_path, "wb") as f:
+        for name, data, _s, _e in reads:
+            f.write(b">" + name.encode() + b"\n" + data + b"\n")
+    with gzip.open(ovl_path, "wb") as f:
+        f.write(("\n".join(paf) + "\n").encode())
+    return reads_path, ovl_path, reads_path
+
+
+def _bad_bounds(lo, hi) -> bool:
+    """Whether a request's [lo, hi) is not two integers (booleans
+    refused) with 0 <= lo < hi."""
+    return (any(isinstance(v, bool) or not isinstance(v, int)
+                for v in (lo, hi)) or lo < 0 or hi <= lo)
+
+
 def _job_launches() -> tuple[int, int, int]:
     """K1's, K2's and K3's launches on the calling thread so far."""
     from ..ops import align_kernels, poa_fused_kernels, poa_kernels
@@ -260,11 +366,18 @@ class PolishServer:
                               hists=self.hists,
                               tenant_weights=cfg.tenant_weights,
                               tenant_quota=cfg.tenant_quota,
-                              tenant_burst=cfg.tenant_burst)
+                              tenant_burst=cfg.tenant_burst,
+                              abort_margin=cfg.abort_margin)
         self.batcher = WindowBatcher(
             iteration_windows=cfg.iteration_windows,
             max_wait_s=cfg.max_wait_s,
             scheduler=BatchScheduler(adaptive=cfg.adaptive_buckets))
+        self.batcher.abort_margin = cfg.abort_margin
+        if cfg.wincache:
+            from .wincache import WindowCache
+
+            self.batcher.wincache = WindowCache(
+                max_bytes=cfg.wincache_max_bytes)
         self.batcher.hists = self.hists
         self.batcher.pipeline_stats.hists = self.hists
         self.batcher.scheduler.stats.hists = self.hists
@@ -273,6 +386,19 @@ class PolishServer:
         self._run_lock = threading.Lock()
         self._running: dict[str, Job] = {}
         self.cancelled = 0
+        #: QoS, under `_run_lock`: the running jobs parked by preemption,
+        #: and the lifetime counters (stats show them once armed or
+        #: counted)
+        self._preempted: dict[str, Job] = {}
+        self.qos = {"preemptions": 0, "resumes": 0,
+                    "doomed_at_admission": 0, "doomed_mid_run": 0}
+        #: rounds jobs seen, rounds completed, rounds jobs running
+        self._rounds_lock = threading.Lock()
+        self._rounds = {"jobs": 0, "completed": 0, "inflight": 0}
+        #: admit-time ingest's rewritten inputs: one directory per
+        #: server, made at the first ingest job, removed by drain()
+        self._ingest_dir: str | None = None
+        self._ingest_lock = threading.Lock()
         self._listener: socket.socket | None = None
         self._threads: list[threading.Thread] = []
         self._conns: set[socket.socket] = set()
@@ -287,6 +413,13 @@ class PolishServer:
         self._drained_clean = False
         self._t_start = time.perf_counter()
         self._warm: dict | None = None
+
+    def _ingest_workdir(self) -> str:
+        with self._ingest_lock:
+            if self._ingest_dir is None:
+                self._ingest_dir = tempfile.mkdtemp(
+                    prefix="racon_torch_ingest_")
+            return self._ingest_dir
 
     # ---------------------------------------------------------- lifecycle
     def start(self) -> "PolishServer":
@@ -343,8 +476,10 @@ class PolishServer:
             conv = _OPTION_TYPES.get(key)
             return conv(val) if conv is not None else val
 
+        kind = (PolisherType.kF if opts.get("fragment_correction")
+                else PolisherType.kC)
         return create_polisher(
-            *paths, PolisherType.kC, opt("window_length"),
+            *paths, kind, opt("window_length"),
             opt("quality_threshold"), opt("error_threshold"), opt("trim"),
             opt("match"), opt("mismatch"), opt("gap"),
             num_threads=cfg.job_threads,
@@ -430,6 +565,11 @@ class PolishServer:
         if self.config.port is None:
             with contextlib.suppress(OSError):
                 os.unlink(self.config.socket_path)
+        if self._ingest_dir is not None:
+            import shutil
+
+            shutil.rmtree(self._ingest_dir, ignore_errors=True)
+            self._ingest_dir = None
         q = self.queue.counters
         b = self.batcher.snapshot()
         log_info(f"[racon_tpu_torch::serve] drained "
@@ -576,6 +716,79 @@ class PolishServer:
                 FaultPlan.parse(fault_plan)
             except RaconError as exc:
                 return error_response("bad-request", str(exc))
+        rounds = req.get("rounds")
+        if rounds is not None and (
+                isinstance(rounds, bool) or not isinstance(rounds, int)
+                or not 1 <= rounds <= MAX_ROUNDS):
+            return error_response(
+                "bad-request",
+                f"rounds must be an integer in [1, {MAX_ROUNDS}]")
+        # a window-range shard of the targets (a router's child job)
+        range_lo = req.get("range_lo")
+        range_hi = req.get("range_hi")
+        if range_lo is not None or range_hi is not None:
+            if _bad_bounds(range_lo, range_hi):
+                return error_response(
+                    "bad-request",
+                    "range_lo/range_hi must be integers with "
+                    "0 <= range_lo < range_hi")
+            if rounds is not None:
+                # round 2 would re-map the reads onto a segment, which is
+                # not what rounds on the whole contig compute
+                return error_response(
+                    "bad-request",
+                    "rounds cannot be combined with range_lo/range_hi")
+        mode = req.get("mode")
+        if mode is not None and mode not in ("contig", "fragment"):
+            return error_response(
+                "bad-request", 'mode must be "contig" or "fragment"')
+        fragment = mode == "fragment"
+        if fragment:
+            if range_lo is not None or range_hi is not None:
+                # fragment jobs shard the target index (frag_lo/frag_hi)
+                return error_response(
+                    "bad-request",
+                    'mode "fragment" cannot be combined with '
+                    "range_lo/range_hi")
+            if rounds is not None and rounds > 1:
+                # corrected reads have no draft to re-map onto
+                return error_response(
+                    "bad-request",
+                    'rounds > 1 cannot be combined with mode '
+                    '"fragment"')
+            options = dict(options)
+            options["fragment_correction"] = True
+        # a target-index shard of a fragment job
+        frag_lo = req.get("frag_lo")
+        frag_hi = req.get("frag_hi")
+        if frag_lo is not None or frag_hi is not None:
+            if _bad_bounds(frag_lo, frag_hi):
+                return error_response(
+                    "bad-request",
+                    "frag_lo/frag_hi must be integers with "
+                    "0 <= frag_lo < frag_hi")
+            if not fragment:
+                return error_response(
+                    "bad-request",
+                    'frag_lo/frag_hi require mode "fragment"')
+            if rounds is not None:
+                return error_response(
+                    "bad-request",
+                    "rounds cannot be combined with frag_lo/frag_hi")
+        # admit-time ingest: the shapes are checked here, the files
+        # parsed once the job has its id
+        ingest_spec = None
+        if (req.get("ingest") is not None or req.get("subsample")
+                is not None or req.get("normalize") is not None):
+            from .ingest import IngestError, IngestSpec
+
+            try:
+                ingest_spec = IngestSpec.from_request(req)
+            except IngestError as exc:
+                return error_response("bad-request", str(exc))
+            if not (req.get("ingest") or ingest_spec.subsample
+                    or ingest_spec.normalize):
+                ingest_spec = None
         with self._job_seq_lock:
             self._job_seq += 1
             job_id = f"j{self._job_seq}"
@@ -584,7 +797,24 @@ class PolishServer:
                   fault_plan=fault_plan, trace_id=req.get("trace_id"),
                   want_progress=bool(req.get("progress")),
                   want_stream=bool(req.get("stream")),
-                  tenant=req.get("tenant") or "")
+                  tenant=req.get("tenant") or "", rounds=rounds,
+                  range_lo=range_lo, range_hi=range_hi, fragment=fragment,
+                  frag_lo=frag_lo, frag_hi=frag_hi)
+        if ingest_spec is not None:
+            # a file that does not parse fails this job at the door,
+            # typed, before it takes queue or device time
+            from .ingest import IngestError, prepare
+
+            try:
+                done = prepare(job.sequences, job.overlaps, job.target,
+                               ingest_spec, self._ingest_workdir(), job.id,
+                               trace_id=job.trace_id)
+            except IngestError as exc:
+                return error_response("bad-request", str(exc),
+                                      job_id=job_id,
+                                      terminal="rejected-ingest",
+                                      stage=exc.stage)
+            job.sequences, job.overlaps, job.target = done
         try:
             self.queue.submit(job)
         except TenantQuotaExceeded as exc:
@@ -595,8 +825,18 @@ class PolishServer:
             return error_response("queue-full", str(exc),
                                   retry_after=round(exc.retry_after, 3),
                                   job_id=job_id)
+        except DeadlineDoomed as exc:
+            # the service-time estimate says the job cannot meet its
+            # deadline: it fails before it costs queue or device time
+            with self._run_lock:
+                self.qos["doomed_at_admission"] += 1
+            return error_response(
+                "deadline-doomed", str(exc), job_id=job_id,
+                predicted_s=round(exc.predicted_s, 3),
+                remaining_s=round(exc.remaining_s, 3))
         except Draining as exc:
             return error_response("draining", str(exc), job_id=job_id)
+        self._maybe_preempt(job)
         if job.relaying:
             self._stream_frames(job, conn)
         else:
@@ -680,6 +920,16 @@ class PolishServer:
             resp = error_response("cancelled", str(exc), job_id=job.id,
                                   error_type=type(exc).__name__,
                                   queue_wait_s=round(job.queue_wait_s, 4))
+        except DeadlineDoomed as exc:
+            # the iteration-boundary estimate gave the deadline up
+            with self._run_lock:
+                self.qos["doomed_mid_run"] += 1
+            resp = error_response("deadline-doomed", str(exc),
+                                  job_id=job.id,
+                                  error_type=type(exc).__name__,
+                                  predicted_s=round(exc.predicted_s, 3),
+                                  remaining_s=round(exc.remaining_s, 3),
+                                  queue_wait_s=round(job.queue_wait_s, 4))
         except Exception as exc:  # noqa: BLE001 — per-job isolation: the
             # job answers typed, the server and its engines go on
             resp = error_response("job-failed", str(exc), job_id=job.id,
@@ -690,11 +940,79 @@ class PolishServer:
             self.queue.task_done(job, ok, time.perf_counter() - t0)
         finally:
             job.finish()
-            with self._run_lock:
-                self._running.pop(job.id, None)
+            self._qos_job_done(job)
             with self._idle:
                 self._inflight -= 1
                 self._idle.notify_all()
+
+    # ---------------------------------------------------------------- qos
+    def _surge_worker(self) -> None:
+        """A one-job worker started by a preemption: the victim's worker
+        stays blocked on its parked windows, so the freed capacity needs
+        a thread, which the queue's priority order gives the new job."""
+        job = self.queue.pop(timeout=1.0)
+        if job is not None:
+            self._process_one(job)
+
+    def _qos_job_done(self, job: Job) -> None:
+        """Drop a finished job from the running set, free any windows it
+        left parked (a job may end while preempted), then give the freed
+        capacity to the highest parked job."""
+        with self._run_lock:
+            self._running.pop(job.id, None)
+            if not self.config.preempt:
+                return
+            was_parked = self._preempted.pop(job.id, None) is not None
+        if was_parked:
+            self.batcher.resume_job(job.id)
+        self._maybe_resume()
+
+    def _maybe_preempt(self, job: Job) -> None:
+        """A newly admitted job preempts the lowest-priority running job
+        of a strictly lower priority when every worker is busy: the
+        victim's pooled windows park between iterations and a surge
+        worker runs the new job. Fault-plan jobs run alone and are never
+        victims."""
+        if not self.config.preempt:
+            return
+        with self._run_lock:
+            active = [j for jid, j in self._running.items()
+                      if jid not in self._preempted]
+            if len(active) < self.config.workers:
+                return
+            victims = [j for j in active if j.priority < job.priority
+                       and j.fault_plan is None]
+            if not victims:
+                return
+            victim = min(victims, key=lambda j: j.priority)
+            self._preempted[victim.id] = victim
+            self.qos["preemptions"] += 1
+        parked = self.batcher.withdraw_job(victim.id)
+        log_info(f"[racon_tpu_torch::serve] preempted job {victim.id} "
+                 f"(priority {victim.priority}) for {job.id} (priority "
+                 f"{job.priority}): {parked} windows parked")
+        threading.Thread(target=self._surge_worker,
+                         name="racon-torch-serve-surge",
+                         daemon=True).start()
+
+    def _maybe_resume(self) -> None:
+        """Resume the highest parked job once a worker is free, unless a
+        strictly higher priority still waits in the queue."""
+        top = self.queue.highest_queued_priority()
+        with self._run_lock:
+            if not self._preempted:
+                return
+            active = len(self._running) - len(self._preempted)
+            if active >= self.config.workers:
+                return
+            cand = max(self._preempted.values(), key=lambda j: j.priority)
+            if top is not None and top > cand.priority:
+                return
+            del self._preempted[cand.id]
+            self.qos["resumes"] += 1
+        n = self.batcher.resume_job(cand.id)
+        log_info(f"[racon_tpu_torch::serve] resumed job {cand.id}: {n} "
+                 f"windows back in the pool")
 
     def _cancel(self, req: dict) -> dict:
         """Dequeue a queued job (its submitter gets a typed `cancelled`
@@ -741,6 +1059,14 @@ class PolishServer:
             polisher.progress_hook = job.notify_progress
         if job.cancelled:
             raise JobCancelledError("running")
+        if job.range_lo is not None:
+            # a range shard: only the windows whose grid start lies in
+            # [range_lo, range_hi), streamed as bare-named segments
+            polisher.window_range = (job.range_lo, job.range_hi)
+        if job.frag_lo is not None:
+            # a fragment shard: only the targets of index [lo, hi)
+            polisher.target_range = (job.frag_lo, job.frag_hi)
+        mark = _job_launches()
         polisher.initialize()
         # each finished contig is a part; with `stream` the client gets
         # it as a result_part frame before the job ends, and the parts
@@ -750,13 +1076,95 @@ class PolishServer:
         def on_part(seq) -> None:
             part = b">" + seq.name.encode() + b"\n" + seq.data + b"\n"
             parts.append(part)
-            job.notify_part({"type": "result_part", "job_id": job.id,
-                             "part": len(parts), "name": seq.name,
-                             "fasta": part.decode("latin-1")})
+            frame = {"type": "result_part", "job_id": job.id,
+                     "part": len(parts), "name": seq.name,
+                     "fasta": part.decode("latin-1")}
+            if job.range_lo is not None:
+                # a range shard's frame carries the raw segment and the
+                # accounting the whole contig's tags are re-derived from;
+                # its parts do not concatenate to a FASTA
+                frame["fasta"] = seq.data.decode("latin-1")
+                frame["seg"] = polisher.segment_meta.get(seq.name)
+            job.notify_part(frame)
 
-        polished = polisher.polish(
-            not opts.get("include_unpolished", False),
-            batcher=self.batcher, on_part=on_part)
+        def on_group(seqs, lo, hi) -> None:
+            # a fragment job's reads ship in groups of frag_group
+            # targets; `frag` is the group's target range on the whole
+            # read set (dropped reads advance it too)
+            body = b"".join(b">" + s.name.encode() + b"\n" + s.data
+                            + b"\n" for s in seqs)
+            parts.append(body)
+            base = job.frag_lo or 0
+            job.notify_part({"type": "result_part", "job_id": job.id,
+                             "part": len(parts), "reads": len(seqs),
+                             "frag": [base + lo, base + hi],
+                             "fasta": body.decode("latin-1")})
+
+        drop = not opts.get("include_unpolished", False)
+
+        def one_pass(final: bool):
+            if job.fragment:
+                return polisher.polish(drop, batcher=self.batcher,
+                                       on_group=on_group if final else None,
+                                       group_size=self.config.frag_group)
+            return polisher.polish(drop, batcher=self.batcher,
+                                   on_part=on_part if final else None)
+
+        per_round: list[dict] = []
+        #: each pass's K1 / K3 launches in the iterations it rode
+        ridden: list[tuple[int, int]] = []
+
+        def ride() -> None:
+            batch = polisher.serve_batch or {}
+            ridden.append((batch.get("k1_launches", 0),
+                           batch.get("k3_launches", 0)))
+
+        if job.rounds is None:
+            polished = one_pass(True)
+            ride()
+        else:
+            # round k's contigs are round k+1's draft, re-mapped in this
+            # process (Polisher.redraft); only the last round streams
+            with self._rounds_lock:
+                self._rounds["jobs"] += 1
+                self._rounds["inflight"] += 1
+            try:
+                with tempfile.TemporaryDirectory(
+                        prefix=f"racon_torch_rounds_{job.id}_") as workdir:
+                    for rnd in range(1, job.rounds + 1):
+                        final = rnd == job.rounds
+                        if job.cancelled:
+                            raise JobCancelledError("running")
+                        rt0 = time.perf_counter()
+                        polished = one_pass(final)
+                        wall = time.perf_counter() - rt0
+                        ride()
+                        batch = polisher.serve_batch or {}
+                        info = {"round": rnd, "wall_s": round(wall, 4),
+                                "windows": batch.get("windows"),
+                                "iterations": batch.get("iterations"),
+                                "sequences": len(polished)}
+                        # the round's launches: K2 in the initialize()
+                        # before it, K1 / K3 in its pass
+                        now = _job_launches()
+                        info.update(
+                            k1_launches=now[0] - mark[0] + ridden[-1][0],
+                            k2_launches=now[1] - mark[1],
+                            k3_launches=now[2] - mark[2] + ridden[-1][1])
+                        mark = now
+                        if polisher.serve_cache is not None:
+                            info["cache"] = dict(polisher.serve_cache)
+                        per_round.append(info)
+                        self.hists.observe(f"serve.round_{rnd}", wall)
+                        with self._rounds_lock:
+                            self._rounds["completed"] += 1
+                        if not final:
+                            polisher.redraft(polished, workdir,
+                                             tag=f"r{rnd}")
+                            polisher.initialize()
+            finally:
+                with self._rounds_lock:
+                    self._rounds["inflight"] -= 1
         if job.cancelled:
             # a cancel that reached a fault-plan job mid-pass (no pooled
             # ticket to kill): its bytes are unwanted
@@ -768,12 +1176,13 @@ class PolishServer:
                          for s in polished)
         k1, k2, k3 = (b - a for a, b in zip(launches0, _job_launches()))
         batch = dict(polisher.serve_batch or {})
-        # launches on this worker thread (K2 in initialize, K1 / K3 of a
-        # fault-plan job's own pass) plus those of the iterations the
-        # job rode, each billed in full to every rider
-        batch["k1_launches"] = k1 + batch.get("k1_launches", 0)
+        # launches on this worker thread (K2 in each initialize(), K1 / K3
+        # of a fault-plan job's own pass) plus those of the iterations
+        # the job rode, each billed in full to every rider; a rounds job
+        # is billed every round's
+        batch["k1_launches"] = k1 + sum(r[0] for r in ridden)
         batch["k2_launches"] = k2
-        batch["k3_launches"] = k3 + batch.get("k3_launches", 0)
+        batch["k3_launches"] = k3 + sum(r[1] for r in ridden)
         resp = {"type": "result", "job_id": job.id,
                 "sequences": len(polished),
                 "metrics": polisher.metrics.snapshot(),
@@ -782,6 +1191,17 @@ class PolishServer:
                           "phase_s": {k: round(v, 4) for k, v in
                                       polisher.phase_s.items()},
                           "batch": batch}}
+        if job.rounds is not None:
+            # present only when the request asked for rounds; cache
+            # totals only with the window cache armed
+            block = {"requested": job.rounds, "completed": len(per_round),
+                     "per_round": per_round}
+            caches = [i["cache"] for i in per_round if i.get("cache")]
+            if caches:
+                block["cache"] = {"hits": sum(c["hits"] for c in caches),
+                                  "misses": sum(c["misses"]
+                                                for c in caches)}
+            resp["rounds"] = block
         if job.want_stream:
             resp["streamed"] = True
             resp["parts"] = len(parts)
@@ -800,19 +1220,35 @@ class PolishServer:
         deadlined = q["deadline_hit"] + q["deadline_miss"]
         with self._run_lock:
             cancelled = self.cancelled
-        return {"uptime_s": round(time.perf_counter() - self._t_start, 3),
-                "warm": self._warm, "inflight": self._inflight_count(),
-                "draining": self._draining.is_set(),
-                "device": str(self.config.device), "cancelled": cancelled,
-                "queue": q, "batcher": self.batcher.snapshot(),
-                "slo": {"deadline_hit": q["deadline_hit"],
-                        "deadline_miss": q["deadline_miss"],
-                        "expired": q["expired"],
-                        "miss_rate": (round(q["deadline_miss"] / deadlined,
-                                            4) if deadlined else 0.0),
-                        "recent": q.get("recent"),
-                        "latency": (latency.snapshot()
-                                    if latency is not None else None)}}
+            qos = dict(self.qos)
+            qos["preempted_inflight"] = len(self._preempted)
+        out = {"uptime_s": round(time.perf_counter() - self._t_start, 3),
+               "warm": self._warm, "inflight": self._inflight_count(),
+               "draining": self._draining.is_set(),
+               "device": str(self.config.device), "cancelled": cancelled,
+               "queue": q, "batcher": self.batcher.snapshot(),
+               "slo": {"deadline_hit": q["deadline_hit"],
+                       "deadline_miss": q["deadline_miss"],
+                       "expired": q["expired"],
+                       "miss_rate": (round(q["deadline_miss"] / deadlined,
+                                           4) if deadlined else 0.0),
+                       "recent": q.get("recent"),
+                       "latency": (latency.snapshot()
+                                   if latency is not None else None)}}
+        # each block below appears only once its feature is armed or has
+        # counted, so a server without them answers as before
+        cfg = self.config
+        if (cfg.preempt or cfg.abort_margin is not None
+                or cfg.tenant_burst > 0 or any(qos.values())):
+            qos["preempt"] = cfg.preempt
+            out["qos"] = qos
+        tenants = self.batcher.tenant_device_seconds()
+        if tenants:
+            out["tenant_device_seconds"] = tenants
+        with self._rounds_lock:
+            if self._rounds["jobs"]:
+                out["rounds"] = dict(self._rounds)
+        return out
 
     @property
     def address(self) -> str:
@@ -891,6 +1327,29 @@ def serve_main(argv: list[str]) -> int:
     ap.add_argument("--cuda-pipeline-depth", type=int, default=2)
     ap.add_argument("--cuda-adaptive-buckets", action="store_true")
     ap.add_argument("--cuda-autotune-table", default=None)
+    ap.add_argument("--wincache", action="store_true",
+                    help="arm the window cache: a window whose content, "
+                         "engine parameters and kernel posture were "
+                         "polished before skips the device (rounds jobs "
+                         "gain most); the output does not change")
+    ap.add_argument("--wincache-max-bytes", type=int,
+                    default=DEFAULT_MAX_BYTES,
+                    help="the window cache's LRU bound in bytes (default "
+                         f"{DEFAULT_MAX_BYTES})")
+    ap.add_argument("--frag-group", type=int, default=64,
+                    help="corrected reads per result_part frame of a "
+                         "fragment job (default 64)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="a newly admitted job of a higher priority "
+                         "parks a running lower one's pooled windows "
+                         "between device iterations; the parked job "
+                         "resumes, with the same bytes, once a worker "
+                         "frees")
+    ap.add_argument("--abort-margin", type=float, default=None,
+                    help="fail a job typed deadline-doomed when its "
+                         "predicted finish lies past its deadline by more "
+                         "than this many seconds, at admission and at "
+                         "iteration boundaries (default: off)")
     args = ap.parse_args(argv)
 
     kw = dict(socket_path=args.socket, port=args.port, workers=args.workers,
@@ -914,7 +1373,11 @@ def serve_main(argv: list[str]) -> int:
               score_dtype=args.cuda_dtype,
               pipeline_depth=args.cuda_pipeline_depth,
               adaptive_buckets=args.cuda_adaptive_buckets,
-              autotune_table=args.cuda_autotune_table)
+              autotune_table=args.cuda_autotune_table,
+              wincache=args.wincache,
+              wincache_max_bytes=args.wincache_max_bytes,
+              frag_group=args.frag_group, preempt=args.preempt,
+              abort_margin=args.abort_margin)
     try:
         server = PolishServer(**kw).start()
     except (RaconError, OSError) as exc:

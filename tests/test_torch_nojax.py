@@ -20,7 +20,12 @@ recorder, the journal, the Prometheus round trip, frames, the window
 cache and ingest). A third does it over the warm server: the fault plan
 (resilience/), the job queue, the window batcher, the server and the
 client, with a job served on the CPU (buffered and streamed) equal to a
-one-shot polish, and a fault-plan job failing typed."""
+one-shot polish, and a fault-plan job failing typed. A fourth serves
+what a job can ask for: rounds with the window cache armed and a
+resubmit answered from it, range shards, a fragment job and a fragment
+slice, admit-time ingest with subsample and normalize (the lazily
+imported rampler and preprocess), under preemption and the abort margin
+armed."""
 
 import os
 import subprocess
@@ -271,6 +276,88 @@ def test_serve_modules_run_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", SERVE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+SERVE_KINDS = r"""
+import gzip, os, sys, tempfile
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+from racon_tpu_torch.serve import (PolishClient, PolishServer, ServeError,
+                                   make_fragment_dataset, make_synth_dataset)
+
+def fa(polished):
+    return b"".join(b">" + s.name.encode() + b"\n" + s.data + b"\n"
+                    for s in polished)
+
+d = tempfile.mkdtemp()
+paths = make_synth_dataset(d, contigs=2)
+frags = make_fragment_dataset(d)
+pol = create_polisher(*paths, PolisherType.kC, 500, 10.0, 0.3, device="cpu")
+pol.initialize()
+r1 = pol.polish()
+pol.redraft(r1, d, "r1")
+pol.initialize()
+want = fa(pol.polish())
+fpol = create_polisher(*frags, PolisherType.kF, 500, 10.0, 0.3, device="cpu")
+fpol.initialize()
+fwant = fa(fpol.polish())
+srv = PolishServer(socket_path=os.path.join(d, "s.sock"), device="cpu",
+                   warmup=False, wincache=True, preempt=True,
+                   abort_margin=30.0, frag_group=4).start()
+try:
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=120)
+    assert cl.submit(*paths, rounds=2).fasta == want
+    again = cl.submit(*paths, rounds=2)
+    assert again.fasta == want and again.rounds["cache"]["misses"] == 0
+    segs = []
+    for lo, hi in ((0, 1000), (1000, 10**9)):
+        parts = []
+        cl.request({"type": "submit", "sequences": paths[0],
+                    "overlaps": paths[1], "target": paths[2],
+                    "range_lo": lo, "range_hi": hi, "stream": True},
+                   on_part=parts.append)
+        assert all(p["seg"] for p in parts)
+        segs.append(parts)
+    assert cl.submit(*frags, fragment=True).fasta == fwant
+    assert cl.submit(*frags, fragment=True, frag_lo=0,
+                     frag_hi=4).fasta.count(b">") <= 4
+    sub = {"reference_length": 2000, "coverage": 2, "seed": 7}
+    assert cl.submit(*paths, ingest=True, subsample=sub).fasta
+    norm = os.path.join(d, "ovl_norm.paf.gz")
+    with gzip.open(paths[1], "rt") as fh, gzip.open(norm, "wt") as out:
+        for line in fh:
+            cols = line.split("\t")
+            cols[0] += "1"
+            out.write("\t".join(cols))
+    assert cl.submit(paths[0], norm, paths[2], normalize=True).fasta
+    bad = os.path.join(d, "bad.fasta")
+    with open(bad, "w") as fh:
+        fh.write("not fasta\n")
+    try:
+        cl.submit(bad, paths[1], paths[2], ingest=True)
+        raise AssertionError("the poisoned input was admitted")
+    except ServeError as exc:
+        assert exc.response["terminal"] == "rejected-ingest"
+    assert srv.stats_snapshot()["qos"]["preemptions"] == 0
+finally:
+    assert srv.drain(timeout=60)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_serve_kinds_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", SERVE_KINDS], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
