@@ -171,15 +171,31 @@ mismatch or exception exits non-zero:
      resume, the bytes of phase 5, device seconds for both tenants);
      `shutdown` draining cleanly; the fullest K3 call of the rounds job
      held against its plain version and timed against its bound.
+  15. worker lanes and the identity audit (serve_lanes_path): one
+     PolishServer with two worker lanes over [cuda:0, cuda:0] (3
+     workers, the window cache on, audit rate 1.0, a scratch winner
+     table with one hand-recorded session entry): two contig jobs and a
+     fused job at once (FASTA equal to phases 5 and 9's, both lanes ran,
+     K1, K2 and K3 launched; the lanes' iterations and busy seconds, the
+     most iterations at once); their audit clean; a
+     `device:chunk=1:sdc` job beside a clean job (both equal to phase
+     5's; 1 mismatch repaired, the entry demoted on disk, the lane
+     quarantined, re-probed and back at health 1.0, one dual-stream
+     dump, the window cache invalidated); every cached consensus flipped
+     and the job resubmitted (phase 5's bytes, the entries blamed, no
+     demotion, no lane quarantined); `shutdown` draining cleanly; the
+     fullest K1 batch of lane 1's iterations held against its plain
+     version and timed against its bound.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
 10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
-phase 13 (path `serve`) and of phase 14 (path `serve_kinds`), in all, by
-path and by instantiation; K3: launches on the four runs of phase 9, the
-fused runs of phases 10, 12, 13 and 14 and phase 11, and phase 14's held
-call), the card's name and power limit, and as the last line
+phase 13 (path `serve`), of phase 14 (path `serve_kinds`) and of phase 15
+(path `serve_lanes`), in all, by path and by instantiation; K3: launches
+on the four runs of phase 9, the fused runs of phases 10, 12, 13, 14 and
+15 and phase 11, and phase 14's held call), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
 nothing of JAX or of the JAX package.
@@ -350,21 +366,23 @@ def main() -> int:
     k1s, k2s, k3s = phase("13 serve", serve_path, dev, big, workdir, report)
     k1k, k2k, k3k = phase("14 serve kinds", serve_kinds_path, dev, big,
                           truth, reads_t, workdir, report)
+    k1l, k2l, k3l = phase("15 serve lanes", serve_lanes_path, dev, big,
+                          workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
                          (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
-                         (k1k, k2k)):
+                         (k1k, k2k), (k1l, k2l)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
                             "adaptive", "autotune", "hooks", "serve",
-                            "serve_kinds"), paths))
+                            "serve_kinds", "serve_lanes"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    for runs in (k3a, k3t, k3h, k3s, k3k):
+    for runs in (k3a, k3t, k3h, k3s, k3k, k3l):
         k3["launches"] += sum(runs.values())
         k3["launches_by_path"].update(runs)
         for row in k3["instantiations"]:
@@ -373,6 +391,8 @@ def main() -> int:
                                    or (row["plan"] == "int32"
                                        and name.startswith("fused ")))
     k3["held_serve_kinds"] = report["serve_kinds_path"]["k3_held"]
+    kernels[0]["held_serve_lanes"] = report["serve_lanes_path"][
+        "k1_fullest_lane1"]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -1698,11 +1718,14 @@ class PathCapture:
     device-side copy of its inputs, taken without a sync, with the
     instantiation it ran), the pairs of every align call (references)
     and the calls' summed wall; with `keep_all`, every K1 batch as well
-    (for replay_contig). Both call through, so every launch is the run's
-    own and is counted where it launches."""
+    (for replay_contig). With `runner` (one worker lane's BatchRunner),
+    only the K1 batches of engines on that runner are kept: not the
+    other lane's, nor the audit oracle's. Both call through, so every
+    launch is the run's own and is counted where it launches."""
 
-    def __init__(self, keep_all: bool = False):
+    def __init__(self, keep_all: bool = False, runner=None):
         self.keep_all = keep_all
+        self.runner = runner
         #: ((nb, lb), plan, inputs) of every K1 batch, with keep_all
         self.k1_batches: list = []
         self.k1: dict = {}          # (nb, lb) -> (real jobs, plan, inputs)
@@ -1722,12 +1745,18 @@ class PathCapture:
         dispatch, run_bucket, align = self._saved
         cap = self
 
+        def kept(eng) -> bool:
+            return cap.runner is None or eng.runner is cap.runner
+
         def _dispatch(eng, jobs, sel, nb, lb, B):
-            cap._n = len(sel)
-            cap.k1_jobs += len(sel)
+            if kept(eng):
+                cap._n = len(sel)
+                cap.k1_jobs += len(sel)
             return dispatch(eng, jobs, sel, nb, lb, B)
 
         def _run_bucket(eng, nb, lb, *args):
+            if not kept(eng):
+                return run_bucket(eng, nb, lb, *args)
             plan = (eng.plan_for(nb, lb), args[0].dtype == torch.uint8)
             if cap.keep_all:
                 cap.k1_batches.append(((nb, lb), plan,
@@ -4064,6 +4093,343 @@ def serve_kinds_path(dev, paths, truth, reads, workdir, report):
         f"ms, bound {held['bound_ms']:.4f} ms ({held['bound_by']}); card "
         f"{card}")
     report["serve_kinds_path"] = out
+    return (launches["k1"], k1p), (launches["k2"], k2p), k3
+
+
+def serve_lanes_path(dev, paths, workdir, report):
+    """Phase 15: one PolishServer on the card with two worker lanes over
+    `devices=[cuda:0, cuda:0]` (3 workers, `cuda_poa_batches=1`,
+    `cuda_aligner_batches=1`, pipeline depth 2, scores 5/-4/-8, warm-up
+    on, the window cache armed, `audit_rate=1.0` with its dumps under the
+    workdir, and a scratch winner table holding one hand-recorded
+    session-engine entry: the dtype phase 5's polisher ran at its
+    smallest int16 bucket), every check against earlier phases' bytes:
+
+      a. two contig-cell jobs and a fused-engine job (`--cuda-fused 1`)
+         submitted at once behind the held feeders: the session jobs'
+         FASTA equal to phase 5's, the fused job's to phase 9's int32;
+         both lanes ran an iteration; K1, K2 and K3 launched; each lane's
+         iterations and busy seconds, the most iterations at once, the
+         iterations' summed seconds against their union (the part's
+         `serve.iteration` spans, traced) and each job's wall are
+         printed;
+      b. the audit of part a: 0 mismatches, every sampled window audited,
+         the shadow seconds against the consensus walls;
+      c. a `device:chunk=1:sdc` contig job beside a clean one: both
+         FASTA equal to phase 5's (the corrupted window repaired), 1
+         mismatch, 1 repair, a demotion; the hand-recorded entry demoted
+         on disk (a fresh Autotuner on the file); 1 lane quarantine and
+         1 rejoin, both lanes back at health 1.0 within a deadline; one
+         dual-stream dump whose produced bytes differ from the oracle's;
+         the window cache invalidated;
+      d. the cache: a clean contig job fills it, one base of every cached
+         consensus is flipped, and the resubmitted job gives phase 5's
+         FASTA with more mismatches, no more demotions, no lane
+         quarantined, and at least as many entries quarantined as new
+         mismatches;
+      e. `shutdown` drains cleanly;
+      f. the fullest K1 batch of lane 1's iterations (PathCapture on
+         lane 1's runner) held against its plain version and timed
+         against its bound.
+
+    The launch counters are zeroed before the server starts and read
+    after the drain (part f's launches excluded). Returns (K1 launches,
+    by instantiation), (K2 ...) and K3's launches by dtype."""
+    import threading
+
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.obs import trace
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.ops.poa_graph import MAX_PRED
+    from racon_tpu_torch.sched.autotune import Autotuner, plane
+    from racon_tpu_torch.serve import PolishClient, PolishServer
+    from racon_tpu_torch.utils.logger import log_level, set_log_level
+
+    card = card_info()
+    out: dict = {"jobs": {}}
+    contig = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                      for n, d in KEPT["contig"])
+    fused = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                     for n, d in KEPT["fused int32"])
+    # the hand-recorded entry: the bucket of the contig cell's fullest K1
+    # batch (phase 5), at the dtype a cold table gives it
+    plans = KEPT["contig_polisher"].poa.engine._plans
+    bucket = max(plans, key=lambda b: (plans[b] == "int16", -b[0]))
+    params = (MATCH, MISMATCH, GAP, MAX_PRED)
+    table = os.path.join(workdir, "lanes_autotune.json")
+    at = Autotuner(table)
+    at.record("session", bucket, params,
+              {"kernel": plane(dev.type), "dtype": plans[bucket], "ms": {},
+               "identical": True}, backend=dev.type)
+    at.save()
+    entry_key = Autotuner.key("session", bucket, params, backend=dev.type)
+    flight = os.path.join(workdir, "lanes_flight")
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = PolishServer(socket_path=os.path.join(workdir, "lanes.sock"),
+                       workers=3, device="cuda", devices=[dev, dev],
+                       worker_lanes=2, match=MATCH, mismatch=MISMATCH,
+                       gap=GAP, job_threads=os.cpu_count(),
+                       cuda_poa_batches=1, cuda_aligner_batches=1,
+                       pipeline_depth=2, autotune_table=table,
+                       wincache=True, audit_rate=1.0,
+                       flight_dir=flight).start()
+    out["start_s"] = time.perf_counter() - t0
+    lanes = srv.batcher._lanes
+    if len(lanes) != 2:
+        raise SystemExit(f"serve lanes path: {len(lanes)} lanes, not 2")
+    log(f"[chip_smoke] serve lanes path: server up in {out['start_s']:.3f} "
+        f"s with 2 lanes on {dev} (warm-up {srv._warm['warmup_s']:.3f} s), "
+        f"audit rate 1.0, window cache on; hand-recorded entry {entry_key} "
+        f"= {plans[bucket]}; card {card}")
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=900)
+
+    def wait_for(cond, what, timeout=600):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"serve lanes path: {what}")
+            time.sleep(0.01)
+
+    def submit(name, results, **kw):
+        t = time.perf_counter()
+        try:
+            results[name] = (cl.submit(*paths, **kw),
+                             time.perf_counter() - t)
+        except Exception as exc:  # noqa: BLE001 — checked by the caller
+            results[name] = (exc, time.perf_counter() - t)
+
+    def at_once(jobs: dict, pool: bool = True) -> dict:
+        """Submit `jobs` (name -> submit kwargs) together; with `pool`,
+        behind the held feeders until every ticket pooled."""
+        results: dict = {}
+        if pool:
+            srv.batcher.hold()
+        threads = [threading.Thread(target=submit, args=(k, results),
+                                    kwargs=kw) for k, kw in jobs.items()]
+        for t in threads:
+            t.start()
+        if pool:
+            wait_for(lambda: sum(map(len, srv.batcher._job_tickets.values()))
+                     >= len(jobs), "the jobs never pooled")
+            srv.batcher.release()
+        for t in threads:
+            t.join(900)
+        return results
+
+    def check(results, name, want, ref):
+        r, wall = results[name]
+        if isinstance(r, Exception):
+            raise SystemExit(f"serve lanes path: job {name} failed: {r}")
+        if r.fasta != want:
+            raise SystemExit(f"serve lanes path: job {name}'s FASTA "
+                             f"differs from phase {ref}'s")
+        nums = served_numbers(r, wall)
+        out["jobs"][name] = nums
+        log(f"[chip_smoke] serve lanes path {name} job: align "
+            f"{nums['align_s']:.3f} s, consensus {nums['consensus_s']:.3f} "
+            f"s, end to end {nums['wall_s']:.3f} s; {nums['iterations']} "
+            f"iterations; launches K1 {nums['k1_launches']} / K2 "
+            f"{nums['k2_launches']} / K3 {nums['k3_launches']}")
+        return nums
+
+    def lane_view():
+        snap = srv.batcher.snapshot()
+        return snap, [(ln["iterations"], ln["busy_s"], ln["health"])
+                      for ln in snap["lanes"]]
+
+    # ---- a. two contig jobs and a fused job at once, on two lanes
+    _, before = lane_view()
+    t0 = time.perf_counter()
+    # lane 1's engines run serially under its lock: one writer at a time
+    with PathCapture(runner=lanes[1].runner) as cap:
+        # the part's spans: each shared iteration's (lane, start, end)
+        rec = trace.configure()
+        try:
+            res = at_once({"contig1": {}, "contig2": {},
+                           "fused": {"options": {"cuda_engine": "fused",
+                                                 "cuda_fused": "1"}}})
+        finally:
+            trace.reset()
+        wall_a = time.perf_counter() - t0
+        spans = sorted((e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6)
+                       for e in rec.events()
+                       if e.get("name") == "serve.iteration"
+                       and not e["args"].get("solo"))
+        union, end = 0.0, None
+        for a0, a1 in spans:
+            if end is None or a0 >= end:
+                union += a1 - a0
+                end = a1
+            elif a1 > end:
+                union += a1 - end
+                end = a1
+        summed = sum(a1 - a0 for a0, a1 in spans)
+        nums = [check(res, "contig1", contig, 5),
+                check(res, "contig2", contig, 5),
+                check(res, "fused", fused, 9)]
+        snap, after = lane_view()
+        ran = [a[0] - b[0] for a, b in zip(after, before)]
+        busy = [a[1] - b[1] for a, b in zip(after, before)]
+        if min(ran) < 1:
+            raise SystemExit(f"serve lanes path a: lane iterations {ran}")
+        if (poa_kernels.launches <= 0 or align_kernels.launches <= 0
+                or poa_fused_kernels.launches <= 0):
+            raise SystemExit(f"serve lanes path a: K1 "
+                             f"{poa_kernels.launches} / K2 "
+                             f"{align_kernels.launches} / K3 "
+                             f"{poa_fused_kernels.launches} launches")
+        out["a"] = {"wall_s": wall_a, "lane_iterations": ran,
+                    "lane_busy_s": busy,
+                    "max_concurrent_iterations":
+                        snap["max_concurrent_iterations"],
+                    "iterations_summed_s": summed,
+                    "iterations_union_s": union}
+        log(f"[chip_smoke] serve lanes path a: 3 jobs in {wall_a:.3f} s; "
+            f"lane iterations {ran}, busy {[round(b, 3) for b in busy]} s; "
+            f"the {len(spans)} iterations summed {summed:.3f} s over a "
+            f"union of {union:.3f} s (overlap {summed - union:.3f} s), at "
+            f"most {snap['max_concurrent_iterations']} at once; job walls "
+            f"{[round(n['wall_s'], 3) for n in nums]} s; card {card}")
+
+        # ---- b. the audit of part a
+        a = srv.auditor.snapshot()
+        if a["mismatches"] or a["audited"] != a["sampled"]:
+            raise SystemExit(f"serve lanes path b: audit {a}")
+        consensus = sum(n["consensus_s"] or 0.0 for n in nums)
+        out["b"] = {"audited": a["audited"], "shadow_s": a["shadow_s"],
+                    "consensus_s": consensus,
+                    "audit_s": snap["audit_s"]}
+        log(f"[chip_smoke] serve lanes path b: {a['audited']} windows "
+            f"audited (warm-up included), 0 mismatches; shadow "
+            f"{a['shadow_s']:.3f} s against the three jobs' consensus "
+            f"{consensus:.3f} s; the feeders' audit_s "
+            f"{snap['audit_s']:.3f} s; card {card}")
+
+        # ---- c. a silent corruption beside a clean job
+        inval0 = srv.batcher.wincache.snapshot()["invalidations"]
+        res = at_once({"sdc": {"fault_plan": "device:chunk=1:sdc",
+                               "trace_id": "sdc"},
+                       "clean": {}}, pool=False)
+        check(res, "sdc", contig, 5)
+        check(res, "clean", contig, 5)
+        a = srv.auditor.snapshot()
+        if (a["mismatches"], a["repaired"]) != (1, 1) or a["demotions"] < 1:
+            raise SystemExit(f"serve lanes path c: audit {a}")
+        ent = Autotuner(table).table.get(entry_key, {})
+        if not ent.get("demoted") or ent.get("dtype") != "int32":
+            raise SystemExit(f"serve lanes path c: the entry on disk reads "
+                             f"{ent}")
+        wait_for(lambda: lane_view()[0]["lane_rejoins"] >= 1,
+                 "the quarantined lane never rejoined", 300)
+        snap, view = lane_view()
+        dumps = sorted(os.listdir(flight))
+        doc = json.load(open(os.path.join(flight, dumps[0])))["flight"] \
+            if len(dumps) == 1 else {}
+        inval = snap["wincache"]["invalidations"] - inval0
+        if (snap["lane_quarantines"] != 1 or snap["lane_rejoins"] != 1
+                or any(h != 1.0 for _, _, h in view) or len(dumps) != 1
+                or doc.get("produced") == doc.get("oracle") or inval < 1):
+            raise SystemExit(f"serve lanes path c: quarantines "
+                             f"{snap['lane_quarantines']}, rejoins "
+                             f"{snap['lane_rejoins']}, lanes {view}, dumps "
+                             f"{dumps}, cache invalidations {inval}")
+        out["c"] = {"audit": {k: a[k] for k in ("mismatches", "repaired",
+                                                 "demotions")},
+                    "lane_reprobes": snap["lane_reprobes"],
+                    "invalidations": inval, "recent": a["recent"][-1]}
+        log(f"[chip_smoke] serve lanes path c: the sdc job's corrupted "
+            f"window caught on lane {a['recent'][-1]['lane']} and repaired "
+            f"(both FASTA equal to phase 5's); {a['demotions']} entry "
+            f"demoted on disk; lane quarantined once, {snap['lane_reprobes']}"
+            f" re-probe(s), rejoined; dump {dumps[0]}; the window cache "
+            f"invalidated {inval} time(s); card {card}")
+
+        # ---- d. a poisoned cache entry takes the blame
+        res = {}
+        submit("fill", res)
+        check(res, "fill", contig, 5)
+        before_d = srv.auditor.snapshot()
+        q0 = srv.batcher.wincache.snapshot()["quarantined"]
+        wc = srv.batcher.wincache
+        with wc._lock:
+            for key, (cons, pol) in list(wc._entries.items()):
+                mid = len(cons) // 2
+                flip = b"T" if cons[mid:mid + 1] != b"T" else b"A"
+                wc._entries[key] = (cons[:mid] + flip + cons[mid + 1:], pol)
+            flipped = len(wc._entries)
+        level = log_level()
+        set_log_level("quiet")  # one line a caught entry otherwise
+        try:
+            res = {}
+            submit("poisoned", res)
+        finally:
+            set_log_level({0: "quiet", 1: "info", 2: "debug"}[level])
+        check(res, "poisoned", contig, 5)
+        a = srv.auditor.snapshot()
+        snap, view = lane_view()
+        new = a["mismatches"] - before_d["mismatches"]
+        quarantined = snap["wincache"]["quarantined"] - q0
+        if (new < 1 or a["demotions"] != before_d["demotions"]
+                or snap["lane_quarantines"] != 1
+                or any(h != 1.0 for _, _, h in view)
+                or quarantined < new):
+            raise SystemExit(f"serve lanes path d: {new} new mismatches, "
+                             f"demotions {before_d['demotions']} -> "
+                             f"{a['demotions']}, lane quarantines "
+                             f"{snap['lane_quarantines']}, lanes {view}, "
+                             f"{quarantined} entries quarantined")
+        out["d"] = {"flipped": flipped, "new_mismatches": new,
+                    "entries_quarantined": quarantined,
+                    "wall_s": res["poisoned"][1]}
+        log(f"[chip_smoke] serve lanes path d: {flipped} cached entries "
+            f"flipped; the resubmitted job equals phase 5's with {new} "
+            f"cache-hit mismatches caught, {quarantined} entries "
+            f"quarantined, no demotion, no lane quarantined; card {card}")
+
+        # ---- e. shut down
+        cl.shutdown()
+        if not srv.drain(timeout=600):
+            raise SystemExit("serve lanes path e: the drain ran over "
+                             "budget")
+    q = srv.queue.counters
+    out["queue"] = dict(q)
+    out["batcher"] = srv.batcher.snapshot()
+    out["audit"] = {k: v for k, v in srv.auditor.snapshot().items()
+                    if k != "recent"}
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    k3 = {f"{dt} serve_lanes": n for dt, n in k3_by_dtype().items()}
+    out["launches"] = launches
+    log(f"[chip_smoke] serve lanes path e: drained cleanly, "
+        f"{q['admitted']} admitted = {q['completed']} completed + "
+        f"{q['failed']} failed; lanes "
+        f"{[(ln['iterations'], ln['busy_s']) for ln in out['batcher']['lanes']]}"
+        f" (iterations, busy s); launches over the phase {launches}")
+
+    # ---- f. the fullest K1 batch of lane 1's iterations
+    if not cap.k1:
+        raise SystemExit("serve lanes path f: lane 1 launched no K1 batch")
+    (nb, lb), (n, plan, args) = max(cap.k1.items(),
+                                    key=lambda kv: kv[1][0])
+    torch.cuda.synchronize()
+    held = hold_k1(args, nb, lb, f"lane 1's fullest {(nb, lb)} batch",
+                   widths=(plan[0],))[plan]
+    out["k1_fullest_lane1"] = {"shape": [nb, lb], "jobs": n,
+                               "plan": plan_name(*plan), **held}
+    log(f"[chip_smoke] serve lanes path f: lane 1's fullest K1 batch, "
+        f"{(nb, lb)} {plan_name(*plan)} with {n} jobs, identical to the "
+        f"plain version; kernel {held['ms']:.3f} ms, plain "
+        f"{held['plain_ms']:.1f} ms, bound {held['bound_ms']:.4f} ms "
+        f"({held['bound_by']}); card {card}")
+    report["serve_lanes_path"] = out
     return (launches["k1"], k1p), (launches["k2"], k2p), k3
 
 

@@ -277,11 +277,15 @@ class Polisher:
         self.n_targets = 0
         self.n_dropped = 0
         #: a server's job identity, read by its window batcher and by
-        #: the server (serve/): the job id, the tenant, the job's absolute
-        #: perf_counter deadline, the batcher's iteration accounting of
-        #: the last batched pass (_Ticket.batch_info) and its window
-        #: cache's hits and misses there (None: no cache consulted)
+        #: the server (serve/): the job id, the client's trace id, the
+        #: tenant, the job's absolute perf_counter deadline, the batcher's
+        #: iteration accounting of the last batched pass
+        #: (_Ticket.batch_info), its window cache's hits and misses there
+        #: (None: no cache consulted), and the K1 / K3 launches the
+        #: identity audit made on the job's own thread (not the job's)
         self.serve_job_id: str | None = None
+        self.serve_trace_id: str | None = None
+        self.serve_audit_launches = [0, 0]
         self.serve_tenant: str | None = None
         self.serve_deadline: float | None = None
         self.serve_batch: dict | None = None

@@ -23,17 +23,38 @@ compares the bytes:
     window is REPAIRED with the oracle bytes; and the alert fires until
     `ack()`.
 
+In a server (serve/batcher.py) the batcher calls `audit_windows` after
+each iteration, shared or solo, once the lane's lock is released and
+before the windows are delivered, with the lane and the iteration; the
+consequences of a mismatch there go further:
+
+  - the labeled counter carries the `lane`; one `audit.shadow`
+    observation per pass lands in `hists`, its bucket's exemplar naming
+    the dual-stream artifact when the pass caught a mismatch; a typed
+    `audit-mismatch` line lands in `journal` (an obs/journal.Journal);
+  - unless `demote=False`, the demotion is followed by
+    `batcher.flush_lane_engines()`, so every lane rebuilds its engines
+    against the demoted table (and the window cache is invalidated);
+  - unless `quarantine=False`, `batcher.quarantine_lane(lane)` takes the
+    lane out of service until a re-probe with the latest mismatched
+    window (`probe()`) reproduces the oracle bytes on it (`lane_event`
+    journals each transition as `audit-lane`);
+  - for a window answered by the window cache (`wincache` and
+    `cache_keys`, id(window) -> cache key), the entry takes the blame:
+    it is evicted and its key quarantined, the lane is labeled `cache`,
+    and no engine is demoted and no lane quarantined.
+
 Drive it from Python after a run: keep the windows `Polisher.initialize`
 made (`pol.windows` before `pol.polish()`), polish, then
 `WindowAuditor(rate, device=pol.device).audit_windows([(w, pol) for w in
 windows])`. A repair changes the windows, not FASTA already written.
+Called so, without a lane, the labels carry no `lane` and a mismatch
+demotes and repairs only.
 
-Left for the serve slice, where their callers are: the batcher hooks
-(lane quarantine and re-probe, `flush_lane_engines`, `lane_event`, and
-the lane and iteration a mismatch is labeled with), the window cache
-(`wincache`, `cache_keys`), the journal, the histograms with their
-exemplar, the switch that turns demotion off, and the process-wide
-environment knobs. A mismatch here always demotes.
+The port reads no environment: the JAX package's RACON_TPU_AUDIT_RATE,
+RACON_TPU_AUDIT_DEMOTE and RACON_TPU_LANE_QUARANTINE are the constructor's
+`rate`, `demote` and `quarantine` (and the server's `audit_rate`,
+`audit_demote`, `lane_quarantine`).
 """
 
 from __future__ import annotations
@@ -81,10 +102,14 @@ _DEMOTE_ENGINES = {"session": ("session",),
 
 #: the polisher attributes the oracle needs to rebuild a window, kept by
 #: the probe instead of the polisher itself (and with it its data)
+#: (the batcher's engine-key fields, so a lane re-probe can build the
+#: engine the mismatched window ran on; the autotuner is a reference)
 _PARAM_FIELDS = ("match", "mismatch", "gap", "window_length", "trim",
                  "num_threads", "cuda_poa_batches",
                  "cuda_banded_alignment", "cuda_aligner_band_width",
-                 "cuda_engine", "fused_fallback", "pipeline_depth")
+                 "cuda_engine", "cuda_fused", "fused_fallback",
+                 "score_dtype", "pack_bases", "pipeline_depth", "device",
+                 "autotuner")
 
 
 def _slim_params(p):
@@ -104,8 +129,8 @@ def _plane(p) -> str:
 class AuditMismatch:
     """One confirmed silent-corruption event (diagnostics record)."""
 
-    __slots__ = ("window_id", "rank", "labels", "flight", "demoted",
-                 "t")
+    __slots__ = ("job", "trace", "lane", "iteration", "window_id",
+                 "rank", "labels", "flight", "demoted", "t")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -119,13 +144,22 @@ class WindowAuditor:
     """The sampling auditor (module docstring). `device` is where the
     oracle runs; `autotuner` is the table a mismatch demotes (None: the
     audited polisher's `autotuner`); `on_alert(state, detail)` is called
-    on each alert transition."""
+    on each alert transition. `demote` and `quarantine` switch those
+    consequences; `hists` (an obs.hist.HistogramSet) receives the
+    `audit.shadow` observations and `journal` (an obs.journal.Journal)
+    the `audit-mismatch` and `audit-lane` lines."""
 
     def __init__(self, rate: float, flight_dir: str | None = None,
-                 on_alert=None, device="cuda", autotuner=None):
+                 on_alert=None, device="cuda", autotuner=None,
+                 demote: bool = True, quarantine: bool = True, hists=None,
+                 journal=None):
         from ..ops.oracle import OracleExecutor
 
         self.rate = min(1.0, max(0.0, float(rate)))
+        self.demote_enabled = bool(demote)
+        self.quarantine_enabled = bool(quarantine)
+        self.hists = hists
+        self.journal = journal
         self.flight_dir = flight_dir
         self.on_alert = on_alert
         self.autotuner = autotuner
@@ -134,8 +168,8 @@ class WindowAuditor:
         self.counters = {"windows": 0, "sampled": 0, "audited": 0,
                          "clean": 0, "mismatches": 0, "repaired": 0,
                          "demotions": 0, "shadow_s": 0.0}
-        #: labeled mismatch series: (engine, kernel, dtype, bucket) ->
-        #: count
+        #: labeled mismatch series: (engine, kernel, dtype, bucket[,
+        #: lane]) -> count
         self.mismatch_series: dict[tuple, int] = {}
         self.recent: list[AuditMismatch] = []
         #: the latest mismatched window's content with its oracle bytes
@@ -157,12 +191,17 @@ class WindowAuditor:
         return window_sample_fraction(w) < self.rate
 
     # ------------------------------------------------------------- audit
-    def audit_windows(self, pairs) -> int:
+    def audit_windows(self, pairs, lane_index: int = -1,
+                      iteration: int = -1, batcher=None, wincache=None,
+                      cache_keys=None) -> int:
         """Audit finished windows: `pairs` is [(window, polisher)].
         Samples by content hash, re-executes the sample at the oracle
         posture (one pass per polisher), compares the bytes and fires the
         mismatch consequences (module docstring), the repair included.
-        Returns the number of mismatches."""
+        `lane_index` and `iteration` label an iteration of `batcher`'s
+        (-1: none); `wincache` with `cache_keys` (id(window) -> cache
+        key) marks the windows as cache hits. Returns the number of
+        mismatches."""
         from ..ops.oracle import snapshot_window
 
         rate = self.rate
@@ -174,6 +213,7 @@ class WindowAuditor:
         if not chosen:
             return 0
         mismatches = 0
+        exemplar = None
         t0 = time.perf_counter()
         by_polisher: dict[int, tuple] = {}
         for w, p in chosen:
@@ -190,20 +230,44 @@ class WindowAuditor:
                         self.counters["clean"] += 1
                 if not ok:
                     mismatches += 1
-                    self._on_mismatch(w, snap, clone, p)
+                    ck = (cache_keys.get(id(w)) if cache_keys is not None
+                          else None)
+                    exemplar = self._on_mismatch(
+                        w, snap, clone, p, lane_index, iteration, batcher,
+                        wincache=wincache, cache_key=ck)
+        shadow_s = time.perf_counter() - t0
         with self._lock:
-            self.counters["shadow_s"] += time.perf_counter() - t0
+            self.counters["shadow_s"] += shadow_s
+        if self.hists is not None:
+            # one observation per pass; a mismatching pass's bucket
+            # carries the exemplar naming its dual-stream artifact
+            self.hists.observe("audit.shadow", shadow_s, exemplar=exemplar)
         return mismatches
 
-    def _on_mismatch(self, w, snap, clone, p) -> None:
-        """The consequences of one confirmed mismatch."""
+    def _on_mismatch(self, w, snap, clone, p, lane_index: int = -1,
+                     iteration: int = -1, batcher=None, wincache=None,
+                     cache_key=None) -> dict | None:
+        """The consequences of one confirmed mismatch; returns the
+        exemplar of this pass's `audit.shadow` observation. A
+        `cache_key` puts the blame on the cache entry, not on the
+        device."""
+        from_cache = cache_key is not None
         engine = _engine_label(p)
         labels = {"engine": engine,
                   "kernel": _plane(p),
                   "dtype": getattr(p, "score_dtype", "auto"),
                   "bucket": f"{len(w.sequences)}x{len(w.sequences[0])}"}
-        flight = self._dump_streams(w, clone, labels)
-        demoted = self._demote(engine, p)
+        if from_cache or lane_index >= 0:
+            labels["lane"] = "cache" if from_cache else str(lane_index)
+        job = getattr(p, "serve_job_id", None)
+        trace = getattr(p, "serve_trace_id", None)
+        flight = self._dump_streams(w, clone, labels, job, iteration)
+        demoted = (self._demote(engine, p)
+                   if self.demote_enabled and not from_cache else [])
+        if from_cache and wincache is not None:
+            # evict the poisoned bytes and refuse the key for good: the
+            # same content dispatches again
+            wincache.quarantine(cache_key)
         with self._lock:
             self.counters["mismatches"] += 1
             key = tuple(sorted(labels.items()))
@@ -213,14 +277,28 @@ class WindowAuditor:
             self._probe = (_slim_params(p), snap, clone.consensus,
                            clone.polished)
             self.recent.append(AuditMismatch(
+                job=job, trace=trace, lane=lane_index, iteration=iteration,
                 window_id=w.id, rank=w.rank, labels=labels, flight=flight,
                 demoted=demoted, t=round(time.time(), 6)))
             del self.recent[:-16]
-        log_info(f"[racon_tpu_torch::audit] MISMATCH window "
+        if self.journal is not None:
+            fields = dict(labels)
+            fields.update(iteration=iteration, window=f"{w.id}:{w.rank}",
+                          flight=flight, demoted=demoted or None,
+                          cache=("entry-quarantined" if from_cache
+                                 else None))
+            self.journal.record("audit-mismatch", job=job, trace=trace,
+                                **fields)
+        where = ("cache entry " if from_cache
+                 else f"lane {lane_index} iteration {iteration} "
+                 if lane_index >= 0 else "")
+        log_info(f"[racon_tpu_torch::audit] MISMATCH {where}window "
                  f"{w.id}:{w.rank} "
                  f"({labels['engine']}/{labels['kernel']}/"
                  f"{labels['dtype']} {labels['bucket']}): production "
                  f"bytes diverge from the oracle"
+                 + ("; entry evicted and key quarantined"
+                    if from_cache else "")
                  + (f"; demoted {len(demoted)} winner entr"
                     f"{'y' if len(demoted) == 1 else 'ies'}"
                     if demoted else "")
@@ -231,6 +309,14 @@ class WindowAuditor:
         with self._lock:
             self.counters["repaired"] += 1
         self._update_alert()
+        if demoted and batcher is not None:
+            # every lane's engines cached plans from the demoted table
+            batcher.flush_lane_engines()
+        if (self.quarantine_enabled and batcher is not None
+                and not from_cache and lane_index >= 0):
+            batcher.quarantine_lane(lane_index)
+        return {k: v for k, v in (("trace_id", trace or job), ("job", job),
+                                  ("flight", flight)) if v} or None
 
     def _demote(self, engine: str, p) -> list[str]:
         """Demote the implicated engines' entries on the backend that
@@ -250,7 +336,8 @@ class WindowAuditor:
                      f"demotion failed ({type(exc).__name__}: {exc})")
         return demoted
 
-    def _dump_streams(self, w, clone, labels: dict) -> str | None:
+    def _dump_streams(self, w, clone, labels: dict, job=None,
+                      iteration: int = -1) -> str | None:
         """The dual-stream flight artifact: a Chrome-trace-shaped JSON
         whose `flight` object carries both byte streams. Best effort: a
         full disk loses the artifact, never the verdict."""
@@ -261,12 +348,14 @@ class WindowAuditor:
             with self._lock:
                 self._flight_seq += 1
                 seq = self._flight_seq
-            path = os.path.join(self.flight_dir,
-                                f"flight_audit_audit-mismatch_{seq}.json")
+            path = os.path.join(
+                self.flight_dir,
+                f"flight_{job or 'audit'}_audit-mismatch_{seq}.json")
             doc = {"traceEvents": [],
                    "displayTimeUnit": "ms",
                    "flight": {
                        "reason": "audit-mismatch",
+                       "job_id": job, "iteration": iteration,
                        "window": {"id": w.id, "rank": w.rank},
                        "labels": labels,
                        "produced": w.consensus.decode("latin-1"),
@@ -286,6 +375,16 @@ class WindowAuditor:
         polished) of the latest mismatched window, or None before any."""
         with self._lock:
             return self._probe
+
+    def lane_event(self, lane_index: int, state: str, **fields) -> None:
+        """Journal and log one lane health transition (the batcher calls
+        it on quarantine, rejoin, failed re-probe and degraded rejoin)."""
+        if self.journal is not None:
+            self.journal.record("audit-lane", lane=lane_index, state=state,
+                                **fields)
+        log_info(f"[racon_tpu_torch::audit] lane {lane_index} {state}"
+                 + (f" ({', '.join(f'{k}={v}' for k, v in fields.items())})"
+                    if fields else ""))
 
     # ------------------------------------------------------------ alert
     def _update_alert(self) -> None:

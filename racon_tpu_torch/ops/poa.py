@@ -35,7 +35,9 @@ trims chunk k-1. The session engine keeps its own in-flight deque.
 
 Windows with fewer than 3 sequences keep their backbone (reference
 window.cpp:68-71); TGS windows are coverage-trimmed (window.cpp:118-139).
-A device failure raises; nothing re-runs the windows on the host.
+A device failure raises; nothing re-runs the windows on the host. When
+the pipeline carries a fault plan (resilience/faults.py), its `sdc`
+faults are consumed after the pass, whichever engine ran.
 """
 
 from __future__ import annotations
@@ -107,7 +109,16 @@ class BatchPOA:
         self.engine = None
 
     def generate_consensus(self, windows, trim: bool) -> None:
-        """Fill `window.consensus` / `window.polished` for every window."""
+        """Fill `window.consensus` / `window.polished` for every window,
+        whichever engine runs; then consume the pipeline's fault plan's
+        armed `sdc` faults against the finished windows
+        (resilience/faults.py). Without a plan that costs one check."""
+        self._generate_consensus(windows, trim)
+        plan = self.pipeline.faults if self.pipeline is not None else None
+        if plan is not None:
+            plan.corrupt_consensus(windows, stats=self.pipeline.stats)
+
+    def _generate_consensus(self, windows, trim: bool) -> None:
         todo = []
         for w in windows:
             if len(w.sequences) < 3:

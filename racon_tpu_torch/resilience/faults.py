@@ -4,7 +4,7 @@ A fault plan is a comma-separated list of armed faults:
 
     <stage>:chunk=<N>:<action>
     stage  ::= pack | device | unpack | fallback
-    action ::= raise | corrupt | hang=<seconds>
+    action ::= raise | corrupt | hang=<seconds> | sdc
 
 e.g. ``device:chunk=3:raise,unpack:chunk=2:corrupt`` arms a DeviceError
 on the 4th device dispatch and a ChunkCorrupt on the 3rd unpack. `chunk`
@@ -19,11 +19,17 @@ Actions: `raise` -> DeviceError, `corrupt` -> ChunkCorrupt, `hang=<s>`
 stalls the stage for <s> seconds and the run goes on. The port has no
 retry ladder, so a raised fault fails the run (in a server, the job).
 
+`sdc` models silent data corruption: wrong bytes and no error. A
+`<stage>:chunk=<N>:sdc` fault is never a stage hook (`fire` skips it);
+the consensus engine consumes it at the end of its pass
+(`corrupt_consensus`, from ops/poa.BatchPOA.generate_consensus) by
+flipping one base of the N-th polished window's consensus. Only the
+identity audit (obs/audit.py), which re-executes sampled windows through
+the oracle and compares the bytes, can catch it.
+
 A plan is an object handed to one polisher (`create_polisher(...,
 fault_plan=)`), whose pipelines share its one-shot faults; no
-environment variable arms one. The JAX package's `sdc` action (silent
-corruption of a finished consensus) feeds the serve layer's identity
-audit, which the port does not have yet, so `parse` refuses it.
+environment variable arms one.
 """
 
 from __future__ import annotations
@@ -34,7 +40,11 @@ import time
 from ..errors import ChunkCorrupt, DeviceError, RaconError
 
 STAGES = ("pack", "device", "unpack", "fallback")
-ACTIONS = ("raise", "corrupt", "hang")
+ACTIONS = ("raise", "corrupt", "hang", "sdc")
+
+#: the base an `sdc` flip writes: deterministic (the same plan flips the
+#: same bytes) and always a real base, so no format check can see it
+_SDC_FLIP = {65: 67, 67: 71, 71: 84, 84: 65}  # A->C->G->T->A
 
 
 class Fault:
@@ -94,12 +104,6 @@ class FaultPlan:
                     "resilience.FaultPlan",
                     f"invalid fault chunk index {chunk_s!r}!") from None
             action, _, arg = action_s.partition("=")
-            if action == "sdc":
-                raise RaconError(
-                    "resilience.FaultPlan",
-                    "the sdc action needs the serve layer's identity-audit "
-                    "hooks, which come with its lanes and QoS part and are "
-                    "not in this package yet!")
             if action not in ACTIONS:
                 raise RaconError(
                     "resilience.FaultPlan",
@@ -128,11 +132,13 @@ class FaultPlan:
     def fire(self, stage: str, chunk: int, stats=None) -> None:
         """Called by the pipeline as `stage` starts its `chunk`-th item:
         consumes and enacts the first matching unfired fault, counted as
-        `faults` in `stats` (a PipelineStats)."""
+        `faults` in `stats` (a PipelineStats). An `sdc` fault is not a
+        stage hook: `corrupt_consensus` consumes it."""
         with self._lock:
             fault = next((f for f in self._faults
                           if not f.fired and f.stage == stage
-                          and f.chunk == chunk), None)
+                          and f.chunk == chunk and f.action != "sdc"),
+                         None)
             if fault is None:
                 return
             fault.fired = True
@@ -145,6 +151,34 @@ class FaultPlan:
         raise exc_cls("resilience.FaultPlan",
                       f"injected {fault.action} fault at {stage} "
                       f"chunk {chunk}")
+
+    def corrupt_consensus(self, windows, stats=None) -> int:
+        """Consume the armed `sdc` faults against a finished consensus
+        pass: for each unfired `...:chunk=N:sdc`, flip the middle base of
+        the N-th polished window's consensus (in `windows` order), each
+        counted as `faults` in `stats`. A fault whose N lies beyond this
+        pass stays armed. Returns the windows corrupted."""
+        with self._lock:
+            armed = [f for f in self._faults
+                     if not f.fired and f.action == "sdc"]
+            if not armed:
+                return 0
+            polished = [w for w in windows if w.polished and w.consensus]
+            hit = 0
+            for fault in armed:
+                if fault.chunk >= len(polished):
+                    continue
+                fault.fired = True
+                w = polished[fault.chunk]
+                cons = bytearray(w.consensus)
+                i = len(cons) // 2
+                cons[i] = _SDC_FLIP.get(cons[i], 65)
+                w.consensus = bytes(cons)
+                hit += 1
+        if stats is not None:
+            for _ in range(hit):
+                stats.bump("faults")
+        return hit
 
     @property
     def unfired(self) -> list[Fault]:

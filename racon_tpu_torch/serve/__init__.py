@@ -4,7 +4,9 @@
                   FIFO within a priority, weighted fair order across
                   tenants, quotas, deadlines, cancel and drain
     batcher.py    WindowBatcher: concurrent jobs' windows merged into
-                  shared device iterations by one feeder thread
+                  shared device iterations by one feeder thread per
+                  worker lane, with lane quarantine and re-probes and
+                  the identity audit's hooks
     server.py     ServeConfig, PolishServer (warm-up, transport, workers,
                   rounds, range and fragment jobs, admit-time ingest,
                   preemption, cancel, drain), make_synth_dataset,

@@ -8,7 +8,16 @@ thread drains the pools in bounded, shape-homogeneous ITERATIONS, one
 engine pass each, so a job that arrives mid-flight joins the next
 dispatch. Each job's windows come back carrying the consensus a solo
 run would have given them (tests/test_torch_serve.py). The port of the
-JAX package's racon_tpu/serve/batcher.py with one worker lane.
+JAX package's racon_tpu/serve/batcher.py.
+
+Worker lanes (`worker_lanes`, default 1): the device list (`devices`,
+default the first job's polisher's lanes) is cut into contiguous lanes
+(parallel/mesh.partition_devices; the count clamps to the devices). Each
+lane has its own BatchRunner, feeder thread, lock, engines, scheduler
+with its occupancy counters, and PipelineStats, so iterations of two
+lanes (of one key or of two) run at once; one lane keeps the batcher's
+own scheduler and stats. A list may repeat a device: `[cuda:0, cuda:0]`
+gives two lanes on one card, and `[cpu] * 2` two on the CPU.
 
 Packing: the feeder always serves the key that holds the globally
 oldest pending window (no starvation), sorts that key's pool by window
@@ -24,24 +33,29 @@ windows to the job's own thread, which stitches them there (the
 polisher's ContigStreamer), so finished targets can stream before the
 job ends and no stitching runs on the feeder thread.
 
-The device: PyTorch's current device and stream are per thread. The
+The device: PyTorch's current device and stream are per thread. A
 feeder builds each key's engine and runs every iteration inside
-`torch.cuda.device` of the key's device and inside the engine's
-dispatch pipeline, and synchronizes the device before it delivers, as
-the polisher's own consensus pass does. Each key's (DispatchPipeline,
-BatchPOA) pair is built at the first iteration that needs it and kept
-(the persistent dispatch loop); its autotuner is the first job's, whose
-table path is part of the key. `host_s`, an iteration's wall minus its
-pipeline's device seconds, is summed in the counters, rides the
-`serve.iteration` span and fills the `serve.iteration_host` histogram.
-Each iteration's K1 and K3 launches (read on the feeder thread, which
-alone launches them outside isolation passes) are billed to every job
-with windows in it.
+`torch.cuda.device` of the key's device, on its lane's own CUDA stream
+(made at the lane's first iteration and kept), and inside the engine's
+dispatch pipeline, and synchronizes that stream before it delivers, so
+two lanes on one card neither share a stream nor wait for each other's
+work (the fused engine keeps its own streams per pass, and its pass
+waits for them). Each lane keeps one (DispatchPipeline, BatchPOA) pair
+per key, built at the lane's first iteration that needs it (the
+persistent dispatch loop) on the lane's runner; its autotuner is the
+first job's, whose table path is part of the key. `host_s`, an
+iteration's wall minus its pipeline's device seconds, is summed in the
+counters, rides the `serve.iteration` span and fills the
+`serve.iteration_host` histogram.
+Each iteration's K1 and K3 launches (read on its feeder thread under the
+lane lock, before the audit, the cache store and any re-probe launch
+there) are billed to every job with windows in it.
 
 Isolation: a job that carries its own fault plan never shares an
 iteration. It runs its polisher's own `_consensus_pass()` (its own
-pipeline and faults) alone under the feeder's execution lock, so its
-injected errors fail that job only. A failure inside a shared iteration
+pipeline and faults) alone on the least busy healthy lane, under that
+lane's lock and on its runner, so its injected errors fail that job
+only while the other lanes go on. A failure inside a shared iteration
 fails the jobs with windows in it (their other pooled windows are
 dropped); the feeder carries on.
 
@@ -50,8 +64,25 @@ Window cache (`wincache`, a serve/wincache.WindowCache, None = off):
 the engine key and the polisher's kernel posture; a hit gets the stored
 consensus and goes straight to the job's thread, never to an iteration
 (`polisher.serve_cache` counts the hits and misses). Each iteration's
-windows are stored once it ends. Isolation jobs neither consult nor
-store.
+windows are stored once it ends and its audit is done. Isolation jobs
+neither consult nor store. A demotion or a lane quarantine invalidates
+the whole cache.
+
+Identity audit (`auditor`, an obs/audit.WindowAuditor, None = off): each
+iteration's finished windows, shared or solo, are audited on the feeder
+(or the job's) thread after the lane lock is released and before
+delivery, so a caught corruption is repaired before any job stitches it;
+a job's cache hits are audited on its own thread before delivery, and a
+poisoned entry takes the blame. An audit failure is logged and never
+fails production; its wall is summed as `audit_s`. A mismatch demotes the
+winner table and calls `flush_lane_engines` (every lane rebuilds its
+engines at its next iteration) and `quarantine_lane`: the lane stops
+extracting, and its feeder re-probes it with the auditor's latest
+mismatched window (`probe()`) on rebuilt engines until the bytes equal
+the oracle's; then it rejoins at health 1.0. A lane whose probe fails
+stays quarantined while another lane serves; the last serving lane
+rejoins degraded at health 0.5. Nothing moves a lane to the CPU or to a
+plain kernel.
 
 QoS: `withdraw_job` parks a running job's pooled windows between
 iterations (the entries keep their arrival sequence; windows the job
@@ -72,9 +103,8 @@ next scan and the job's thread raises. `hold` / `release` pause the
 feeder before its next extraction (tests and the chip smoke use them to
 pool several jobs deterministically).
 
-Not ported here: more than one worker lane (with lane quarantine and
-re-probes, whose callers invalidate the window cache) and the
-identity-audit hooks.
+Lock order: a lane lock, then `_cond`; never the other way round.
+`close()` takes each lane lock with a timeout.
 """
 
 from __future__ import annotations
@@ -86,6 +116,7 @@ import time
 
 from ..errors import RaconError
 from ..obs import trace
+from ..utils.logger import log_info
 from .queue import DeadlineDoomed, DeliveryQueue, JobCancelledError
 
 
@@ -209,13 +240,57 @@ def _shape_key(window) -> tuple[int, int]:
     return (len(window.sequences), len(window.sequences[0]))
 
 
-def _on_device(dev):
-    """`torch.cuda.device(dev)` for a card, nothing for the CPU."""
+class _Lane:
+    """One worker lane: its runner, its lock (the feeder and any
+    isolation pass routed here serialize on it), its scheduler and
+    PipelineStats (per-iteration deltas stay exact beside other lanes),
+    its telemetry and health, its CUDA stream, and its engines (engine
+    key -> (DispatchPipeline, BatchPOA)). Counters and health are
+    guarded by the batcher's `_cond`; `engines` and `stream` by the lane
+    lock."""
+
+    __slots__ = ("index", "runner", "scheduler", "pipeline_stats", "lock",
+                 "busy", "iterations", "busy_s", "engines", "health",
+                 "quarantined", "reprobes", "flush_engines", "stream")
+
+    def __init__(self, index: int, runner, scheduler, pipeline_stats):
+        self.index = index
+        self.runner = runner
+        self.scheduler = scheduler
+        self.pipeline_stats = pipeline_stats
+        self.lock = threading.Lock()
+        self.busy = False
+        self.iterations = 0
+        self.busy_s = 0.0
+        self.engines: dict = {}
+        #: 1.0 healthy, 0.0 quarantined, 0.5 degraded (its re-probe
+        #: failed but it is the last serving lane)
+        self.health = 1.0
+        self.quarantined = False
+        self.reprobes = 0
+        #: set by a demotion or a quarantine: the lane's next iteration
+        #: (or re-probe) rebuilds its engines
+        self.flush_engines = False
+        self.stream = None
+
+
+@contextlib.contextmanager
+def _on_lane(lane: _Lane, dev):
+    """Run the body on `dev` and, for a card, on the lane's own CUDA
+    stream (made on the lane's device at first use, kept for the lane's
+    life); yields that stream, or None on the CPU. Caller holds the
+    lane lock."""
     if dev.type != "cuda":
-        return contextlib.nullcontext()
+        yield None
+        return
     import torch
 
-    return torch.cuda.device(dev)
+    if lane.stream is None:
+        home = lane.runner.devices[0]
+        lane.stream = torch.cuda.Stream(home if home.type == "cuda"
+                                        else dev)
+    with torch.cuda.stream(lane.stream), torch.cuda.device(dev):
+        yield lane.stream
 
 
 def _kernel_launches() -> tuple[int, int]:
@@ -226,15 +301,28 @@ def _kernel_launches() -> tuple[int, int]:
             poa_fused_kernels.counter.on_thread())
 
 
+def _book_audit_launches(polisher, before: tuple[int, int]) -> None:
+    """Book the K1 / K3 launches an audit made on a job's own thread
+    since `before` on its polisher (`serve_audit_launches`), which the
+    server takes out of the job's launches."""
+    now = _kernel_launches()
+    for i in range(2):
+        polisher.serve_audit_launches[i] += now[i] - before[i]
+
+
 class WindowBatcher:
-    """Continuous batching core with one worker lane (see the module
-    docstring). `iteration_windows` bounds an iteration's batch;
-    `max_wait_s` lets a sparse pool coalesce before a short iteration;
-    `scheduler` (a sched.BatchScheduler; default a non-adaptive one) is
-    the engines' scheduler and the lane's occupancy counters."""
+    """Continuous batching core (see the module docstring).
+    `iteration_windows` bounds an iteration's batch; `max_wait_s` lets a
+    sparse pool coalesce before a short iteration; `scheduler` (a
+    sched.BatchScheduler; default a non-adaptive one) is the engines'
+    scheduler and the occupancy counters of a single lane (several lanes
+    take its `adaptive` posture and keep their own counters);
+    `worker_lanes` and `devices` partition the device list into lanes
+    (None: the first job's polisher's lanes)."""
 
     def __init__(self, iteration_windows: int = 256,
-                 max_wait_s: float = 0.0, scheduler=None):
+                 max_wait_s: float = 0.0, scheduler=None,
+                 worker_lanes: int = 1, devices=None):
         from ..pipeline import PipelineStats
         from ..sched import BatchScheduler
 
@@ -243,20 +331,21 @@ class WindowBatcher:
         self.scheduler = (scheduler if scheduler is not None
                           else BatchScheduler())
         self.pipeline_stats = PipelineStats()
+        self.worker_lanes = max(1, int(worker_lanes))
+        self._devices = None if devices is None else list(devices)
+        #: built at the first consensus (`_lanes_locked`)
+        self._lanes: list[_Lane] | None = None
         #: optional obs.hist.HistogramSet (a server's lifetime set)
         self.hists = None
         self._cond = threading.Condition()
-        #: the execution lock: one iteration or isolation pass at a time
-        self._exec = threading.Lock()
-        #: engine key -> (DispatchPipeline, BatchPOA); touched only under
-        #: the execution lock
-        self._engines: dict = {}
         #: engine key -> pending pool of [arrival seq, arrival t, ticket,
         #: window]
         self._pools: dict[tuple, list] = {}
         self._entry_seq = itertools.count()
         self._iter_seq = itertools.count()
-        self._feeder: threading.Thread | None = None
+        #: one feeder thread per lane (None: not started yet; a dead one
+        #: is restarted at the next pooling)
+        self._feeders: list[threading.Thread | None] = []
         self._stop = False
         self._held = False
         #: serve job id -> its live tickets (cancel_job's handle)
@@ -269,17 +358,23 @@ class WindowBatcher:
         self.abort_margin: float | None = None
         #: the window cache (serve/wincache.WindowCache) or None
         self.wincache = None
+        #: the identity auditor (obs/audit.WindowAuditor) or None
+        self.auditor = None
         #: tenant -> prorated iteration seconds ("" = untenanted)
         self._tenant_device: dict[str, float] = {}
-        self._busy = False
-        self._busy_s = 0.0
         self.counters = {"iterations": 0, "solo_iterations": 0,
                          "shared_iterations": 0, "jobs": 0, "windows": 0,
                          "max_jobs_in_iteration": 0,
                          "max_windows_in_iteration": 0,
+                         #: the most lanes inside an iteration at once
+                         "max_concurrent_iterations": 0,
                          #: summed iteration wall minus device-stage
                          #: seconds; isolation passes are not included
-                         "host_s": 0.0}
+                         "host_s": 0.0,
+                         #: wall seconds spent auditing, and the lanes'
+                         #: health transitions
+                         "audit_s": 0.0, "lane_quarantines": 0,
+                         "lane_rejoins": 0, "lane_reprobes": 0}
 
     def _accrue_tenant_device(self, tenant: str | None,
                               share_s: float) -> None:
@@ -311,17 +406,23 @@ class WindowBatcher:
             # this job's thread and never into the pool
             posture = polisher.posture_key
             hits: list = []
+            hit_keys: dict[int, tuple] = {}
             pend = []
             for w in polisher.windows:
-                ent = cache.lookup(cache.key(w, ticket.key, posture))
+                ck = cache.key(w, ticket.key, posture)
+                ent = cache.lookup(ck)
                 if ent is None:
                     pend.append(w)
                 else:
                     w.consensus, w.polished = ent
                     hits.append(w)
+                    hit_keys[id(w)] = ck
             polisher.serve_cache = {"hits": len(hits),
                                     "misses": len(pend)}
             if hits:
+                # a poisoned entry is caught and repaired before this job
+                # stitches it
+                self._audit_cache_hits(polisher, hits, hit_keys)
                 ticket.done += len(hits)
                 ticket.remaining -= len(hits)
                 ticket.deliver(hits)
@@ -334,7 +435,7 @@ class WindowBatcher:
                 if self._stop:
                     raise RaconError("WindowBatcher",
                                      "batcher is closed (server draining)")
-                self._ensure_feeder_locked()
+                self._ensure_feeder_locked(polisher)
                 if job_id is not None:
                     self._job_tickets.setdefault(job_id, []).append(ticket)
                 entries = [[next(self._entry_seq), now, ticket, w]
@@ -348,7 +449,7 @@ class WindowBatcher:
                     self._pools.setdefault(ticket.key, []).extend(entries)
                 self._cond.notify_all()
         # deliveries are consumed on this thread: the stitch callback
-        # bills to this job, never to the feeder, and its exception fails
+        # bills to this job, never to a feeder, and its exception fails
         # this job
         deadline = polisher.serve_deadline
         t_run0 = time.perf_counter()
@@ -370,7 +471,7 @@ class WindowBatcher:
                     if on_windows is not None:
                         on_windows(ws)
             except BaseException as exc:
-                # a dead ticket's pooled windows are dropped at the
+                # a dead ticket's pooled windows are dropped at a
                 # feeder's next scan
                 with self._cond:
                     if ticket.error is None:
@@ -419,28 +520,42 @@ class WindowBatcher:
 
     def _isolated(self, polisher, on_windows) -> None:
         """A fault-plan job's consensus: its polisher's own pass, alone
-        under the execution lock (its launches are on this thread). The
-        pass counts as a solo iteration whether or not it raises."""
+        on the least busy healthy lane, under that lane's lock and on its
+        runner (its launches are on this thread), then audited. The pass
+        counts as a solo iteration whether or not it raises."""
+        with self._cond:
+            lanes = self._lanes_locked(polisher)
+            # a quarantined lane takes no new work while another serves
+            healthy = [ln for ln in lanes if not ln.quarantined]
+            lane = min(healthy or lanes, key=lambda ln: (ln.busy, ln.index))
         it = next(self._iter_seq)
-        with self._exec:
+        polisher.device_runner = lane.runner
+        with lane.lock:
             # the clock starts inside the lock: waiting behind a running
             # iteration is not this pass's busy time
             t0 = time.perf_counter()
-            self._set_busy(True)
+            self._lane_busy(lane, True)
             try:
-                polisher._consensus_pass()
+                with _on_lane(lane, polisher.device):
+                    polisher._consensus_pass()
             finally:
                 t1 = time.perf_counter()
-                self._set_busy(False, t1 - t0)
+                self._lane_busy(lane, False, t1 - t0)
                 tr = trace.get_tracer()
                 if tr is not None:
                     tr.complete("serve.iteration", t0, t1,
-                                {"iteration": it, "jobs": 1,
+                                {"iteration": it, "lane": lane.index,
+                                 "jobs": 1,
                                  "windows": len(polisher.windows),
                                  "solo": True, "host_s": 0.0})
                 if self.hists is not None:
                     self.hists.observe("serve.iteration", t1 - t0)
                 self._account(1, len(polisher.windows), solo=True)
+        # a fault plan is where injected silent corruption lives: a
+        # caught window is repaired before delivery
+        before = _kernel_launches()
+        self._audit([(w, polisher) for w in polisher.windows], lane, it)
+        _book_audit_launches(polisher, before)
         ticket = _Ticket(polisher, None)
         ticket.iterations = 1
         ticket.iteration_ids = [it]
@@ -451,49 +566,122 @@ class WindowBatcher:
         if on_windows is not None:
             on_windows(list(polisher.windows))
 
-    # ----------------------------------------------------------- feeder
-    def _set_busy(self, busy: bool, dt: float = 0.0) -> None:
-        with self._cond:
-            self._busy = busy
-            self._busy_s += dt
+    # ------------------------------------------------------------ lanes
+    def _lanes_locked(self, p0=None) -> list[_Lane]:
+        """The lanes, built at first use (caller holds `_cond`) over
+        `devices`, or `p0`'s polisher lanes when none were given: one lane
+        keeps the batcher's own scheduler and stats; several get one
+        runner over a contiguous slice of the list each, with their own
+        scheduler (the batcher's posture) and stats."""
+        if self._lanes is None:
+            from ..parallel.mesh import BatchRunner, partition_devices
+            from ..pipeline import PipelineStats
+            from ..sched import BatchScheduler, OccupancyStats
 
-    def _ensure_feeder_locked(self) -> None:
-        """Start the feeder thread, or restart it if it died (caller
-        holds `_cond` and checked `_stop`)."""
-        if self._feeder is not None and self._feeder.is_alive():
-            return
-        self._feeder = threading.Thread(target=self._feeder_loop,
-                                        name="racon-torch-serve-feeder",
-                                        daemon=True)
-        self._feeder.start()
+            devices = (self._devices if self._devices is not None
+                       else p0.device_runner.devices)
+            groups = partition_devices(devices, self.worker_lanes)
+            if len(groups) == 1:
+                self._lanes = [_Lane(0, BatchRunner(groups[0]),
+                                     self.scheduler, self.pipeline_stats)]
+            else:
+                lanes = []
+                for i, group in enumerate(groups):
+                    sched = BatchScheduler(adaptive=self.scheduler.adaptive,
+                                           stats=OccupancyStats())
+                    sched.stats.hists = self.scheduler.stats.hists
+                    lanes.append(_Lane(
+                        i, BatchRunner(group), sched,
+                        PipelineStats(hists=self.pipeline_stats.hists)))
+                self._lanes = lanes
+        return self._lanes
+
+    @property
+    def _engines(self) -> dict:
+        """Every lane's engines: (lane index, engine key) -> (pipeline,
+        engine)."""
+        with self._cond:
+            lanes = list(self._lanes or ())
+        return {(ln.index, k): v for ln in lanes
+                for k, v in ln.engines.items()}
+
+    def _lane_busy(self, lane: _Lane, busy: bool, dt: float = 0.0) -> None:
+        """Flip a lane's busy flag; on release, charge the pass to the
+        lane. Keeps the most lanes busy at once."""
+        with self._cond:
+            lane.busy = busy
+            if busy:
+                n = sum(1 for ln in (self._lanes or ()) if ln.busy)
+                self.counters["max_concurrent_iterations"] = max(
+                    self.counters["max_concurrent_iterations"], n)
+            else:
+                lane.iterations += 1
+                lane.busy_s += dt
+
+    # ----------------------------------------------------------- feeder
+    def _ensure_feeder_locked(self, p0) -> None:
+        """Start one feeder thread per lane, and restart any that died
+        (caller holds `_cond` and checked `_stop`)."""
+        lanes = self._lanes_locked(p0)
+        if len(self._feeders) < len(lanes):
+            self._feeders += [None] * (len(lanes) - len(self._feeders))
+        for lane in lanes:
+            t = self._feeders[lane.index]
+            if t is not None and t.is_alive():
+                continue
+            t = threading.Thread(target=self._feeder_loop, args=(lane,),
+                                 name=f"racon-torch-serve-feeder-"
+                                      f"{lane.index}",
+                                 daemon=True)
+            self._feeders[lane.index] = t
+            t.start()
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop the feeder once the pools are empty (pooled jobs finish;
+        """Stop the feeders once the pools are empty (pooled jobs finish;
         later consensus() calls are refused) and close the cached
-        pipelines. A feeder still inside an iteration after `timeout`
+        pipelines. A lane still inside an iteration after `timeout`
         keeps its pipelines."""
         with self._cond:
             self._stop = True
             self._held = False
             self._cond.notify_all()
-        feeder = self._feeder
-        if feeder is not None and feeder.is_alive() \
-                and feeder is not threading.current_thread():
-            feeder.join(timeout)
-        if not self._exec.acquire(timeout=timeout):
-            return
-        try:
-            pipelines = [p for p, _ in self._engines.values()]
-        finally:
-            self._exec.release()
-        for pipeline in pipelines:
-            pipeline.close()
+            feeders = list(self._feeders)
+            lanes = list(self._lanes or ())
+        for feeder in feeders:
+            if feeder is not None and feeder.is_alive() \
+                    and feeder is not threading.current_thread():
+                feeder.join(timeout)
+        for lane in lanes:
+            if not lane.lock.acquire(timeout=timeout):
+                continue
+            try:
+                pipelines = [p for p, _ in lane.engines.values()]
+            finally:
+                lane.lock.release()
+            for pipeline in pipelines:
+                pipeline.close()
 
-    def _feeder_loop(self) -> None:
+    def _feeder_loop(self, lane: _Lane) -> None:
         while True:
+            with self._cond:
+                quarantined = lane.quarantined
+                stop = self._stop
+            if quarantined:
+                # a suspect lane extracts nothing: it re-probes, and after
+                # a failed probe backs off while other lanes serve
+                if not self._reprobe_lane(lane):
+                    if stop:
+                        return
+                    with self._cond:
+                        if lane.quarantined:
+                            self._cond.wait(
+                                min(5.0, 0.25 * max(1, lane.reprobes)))
+                    continue
             batch = None
             with self._cond:
                 while True:
+                    if lane.quarantined:
+                        break
                     if self._held and not self._stop:
                         self._cond.wait(0.1)
                         continue
@@ -512,19 +700,19 @@ class WindowBatcher:
                             (k for k, p in self._pools.items()
                              if len(p) >= self.iteration_windows), None)
                         if full is not None:
-                            batch = self._extract_locked(full)
+                            batch = self._extract_locked(full, lane)
                             break
                         left = (min(e[1] for e in pool) + self.max_wait_s
                                 - time.monotonic())
                         if left > 0:
                             self._cond.wait(min(left, 0.5))
                             continue
-                    batch = self._extract_locked(key)
+                    batch = self._extract_locked(key, lane)
                     break
             if not batch:
                 continue
             try:
-                self._run_iteration(batch)
+                self._run_iteration(batch, lane)
             except BaseException as exc:  # noqa: BLE001 — the feeder
                 # outlives an iteration: fail its riders, keep feeding
                 self._fail_tickets({e[2] for e in batch}, exc)
@@ -543,18 +731,17 @@ class WindowBatcher:
                 best, best_seq = key, seq
         return best
 
-    def _extract_locked(self, key: tuple) -> list:
+    def _extract_locked(self, key: tuple, lane: _Lane) -> list:
         """One iteration's entries: the shape-sorted slab of at most
         `iteration_windows` that holds the oldest entry, rounded to the
-        key's lane count when the pool is deep enough."""
+        extracting lane's device count when the pool is deep enough."""
         from ..sched import pack_iteration
 
-        pool = self._pools[key]
         batch, rest = pack_iteration(
-            pool, self.iteration_windows,
+            self._pools[key], self.iteration_windows,
             shape_key=lambda e: _shape_key(e[3]),
             age_key=lambda e: e[0],
-            lane_multiple=pool[0][2].polisher.device_runner.n_devices)
+            lane_multiple=lane.runner.n_devices)
         if rest:
             self._pools[key] = rest
         else:
@@ -562,25 +749,57 @@ class WindowBatcher:
         return batch
 
     # -------------------------------------------------------- execution
-    def _compile_totals(self) -> tuple[int, float]:
-        """First dispatches of a launch shape (and their seconds) in the
-        lane's occupancy counters."""
-        snap = self.scheduler.stats.snapshot()
+    def _merged_stats(self):
+        """One OccupancyStats over the batcher's own and every lane's
+        (a scratch merge)."""
+        from ..sched import OccupancyStats
+
+        with self._cond:
+            lanes = list(self._lanes or ())
+        parts = [self.scheduler.stats] + [
+            ln.scheduler.stats for ln in lanes
+            if ln.scheduler is not self.scheduler]
+        if len(parts) == 1:
+            return self.scheduler.stats
+        merged = OccupancyStats()
+        for part in parts:
+            merged.merge_from(part)
+        return merged
+
+    def _merged_pipeline(self) -> dict:
+        """One PipelineStats snapshot summed over the batcher's own and
+        every lane's."""
+        with self._cond:
+            lanes = list(self._lanes or ())
+        snaps = [self.pipeline_stats.snapshot()] + [
+            ln.pipeline_stats.snapshot() for ln in lanes
+            if ln.pipeline_stats is not self.pipeline_stats]
+        out = snaps[0]
+        for snap in snaps[1:]:
+            for k, v in snap.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def _compile_totals(self, stats=None) -> tuple[int, float]:
+        """First dispatches of a launch shape, and their seconds, in
+        `stats` (one lane's, for an iteration's delta) or in the merged
+        view."""
+        snap = (stats if stats is not None
+                else self._merged_stats()).snapshot()
         return (sum(e.get("compiles", 0) for e in snap.values()),
                 sum(e.get("compile_s", 0.0) for e in snap.values()))
 
-    def _engine(self, key: tuple, p0):
-        """The persistent (pipeline, engine) pair of `key`, built from the
-        first job's polisher (caller holds the execution lock and is on
-        the key's device)."""
+    def _lane_engine(self, lane: _Lane, key: tuple, p0):
+        """The lane's persistent (pipeline, engine) pair of `key`, built
+        from the first job's polisher on the lane's runner, scheduler and
+        stats (caller holds the lane lock and is on the key's device)."""
         from ..ops.poa import BatchPOA
-        from ..parallel.mesh import BatchRunner
         from ..pipeline import DispatchPipeline
 
-        ent = self._engines.get(key)
+        ent = lane.engines.get(key)
         if ent is None:
             pipeline = DispatchPipeline(
-                depth=p0.pipeline_depth, stats=self.pipeline_stats,
+                depth=p0.pipeline_depth, stats=lane.pipeline_stats,
                 fallback_workers=max(1, min(4, p0.num_threads)))
             engine = BatchPOA(
                 p0.match, p0.mismatch, p0.gap, p0.window_length,
@@ -590,13 +809,12 @@ class WindowBatcher:
                 score_dtype=p0.score_dtype, pack_bases=p0.pack_bases,
                 pipeline=pipeline, engine=p0.cuda_engine,
                 fused=p0.cuda_fused, fused_fallback=p0.fused_fallback,
-                scheduler=self.scheduler,
-                runner=BatchRunner(p0.device_runner.devices),
+                scheduler=lane.scheduler, runner=lane.runner,
                 autotuner=p0.autotuner)
-            ent = self._engines[key] = (pipeline, engine)
+            ent = lane.engines[key] = (pipeline, engine)
         return ent
 
-    def _run_iteration(self, batch: list) -> None:
+    def _run_iteration(self, batch: list, lane: _Lane) -> None:
         windows = [e[3] for e in batch]
         per_ticket: dict = {}
         for e in batch:
@@ -606,42 +824,50 @@ class WindowBatcher:
         it = next(self._iter_seq)
         progress = _IterProgress(
             [(t, len(ws)) for t, ws in per_ticket.items()], it)
-        with self._exec:
-            self._set_busy(True)
-            pre_c, pre_s = self._compile_totals()
-            pre_dev = self.pipeline_stats.snapshot()["device_s"]
+        with lane.lock:
+            self._lane_busy(lane, True)
+            # a demotion flagged the lane's engines stale: the demoted
+            # table takes effect from this iteration on
+            self._fresh_engines_locked(lane)
+            pre_c, pre_s = self._compile_totals(lane.scheduler.stats)
+            pre_dev = lane.pipeline_stats.snapshot()["device_s"]
             pre_k1, pre_k3 = _kernel_launches()
             t0 = time.perf_counter()
             try:
-                with _on_device(p0.device):
-                    pipeline, engine = self._engine(tickets[0].key, p0)
+                with _on_lane(lane, p0.device) as stream:
+                    pipeline, engine = self._lane_engine(
+                        lane, tickets[0].key, p0)
                     # only the logger varies per iteration; the key pins
                     # the rest of the engine
                     engine.logger = progress if progress.active else None
                     with pipeline:
                         engine.generate_consensus(windows, p0.trim)
-                    if p0.device.type == "cuda":
-                        import torch
-
-                        torch.cuda.synchronize(p0.device)
+                    if stream is not None:
+                        stream.synchronize()
             finally:
                 t1 = time.perf_counter()
-                self._set_busy(False, t1 - t0)
-            post_c, post_s = self._compile_totals()
-            post_dev = self.pipeline_stats.snapshot()["device_s"]
+                self._lane_busy(lane, False, t1 - t0)
+            post_c, post_s = self._compile_totals(lane.scheduler.stats)
+            post_dev = lane.pipeline_stats.snapshot()["device_s"]
             post_k1, post_k3 = _kernel_launches()
         host_s = max(0.0, (t1 - t0) - (post_dev - pre_dev))
         tr = trace.get_tracer()
         if tr is not None:
             tr.complete("serve.iteration", t0, t1,
-                        {"iteration": it, "jobs": len(tickets),
-                         "windows": len(windows),
+                        {"iteration": it, "lane": lane.index,
+                         "jobs": len(tickets), "windows": len(windows),
                          "host_s": round(host_s, 4)})
         if self.hists is not None:
             self.hists.observe("serve.iteration", t1 - t0)
             self.hists.observe("serve.iteration_host", host_s)
         self._account(len(tickets), len(windows), solo=False,
                       host_s=host_s)
+        # off the lane lock and before delivery: a caught corruption is
+        # repaired before any job stitches it
+        self._audit([(w, t.polisher) for t, ws in per_ticket.items()
+                     for w in ws], lane, it)
+        # stored after the audit, so the cache never holds a caught
+        # corruption
         cache = self.wincache
         if cache is not None:
             for t, ws in per_ticket.items():
@@ -702,6 +928,154 @@ class WindowBatcher:
             c["max_windows_in_iteration"] = max(
                 c["max_windows_in_iteration"], windows)
 
+    # ------------------------------------------------------------ audit
+    def _audit(self, pairs, lane: _Lane, iteration: int) -> None:
+        """The armed auditor over one iteration's finished windows. An
+        audit failure is logged; the delivery goes on."""
+        auditor = self.auditor
+        if auditor is None or not auditor.armed or not pairs:
+            return
+        t0 = time.perf_counter()
+        try:
+            auditor.audit_windows(pairs, lane_index=lane.index,
+                                  iteration=iteration, batcher=self)
+        except Exception as exc:  # noqa: BLE001 — see docstring
+            log_info(f"[racon_tpu_torch::audit] warning: audit pass "
+                     f"failed ({type(exc).__name__}: {exc})")
+        with self._cond:
+            self.counters["audit_s"] += time.perf_counter() - t0
+
+    def _audit_cache_hits(self, polisher, windows: list,
+                          hit_keys: dict) -> None:
+        """The armed auditor over one job's cache hits, on the job's
+        thread: a mismatch blames the entry (evicted, its key
+        quarantined), not a lane or an engine. Never fails the job."""
+        auditor = self.auditor
+        if auditor is None or not auditor.armed or not windows:
+            return
+        t0 = time.perf_counter()
+        before = _kernel_launches()
+        try:
+            auditor.audit_windows([(w, polisher) for w in windows],
+                                  lane_index=-1, iteration=-1,
+                                  batcher=self, wincache=self.wincache,
+                                  cache_keys=hit_keys)
+        except Exception as exc:  # noqa: BLE001 — see _audit
+            log_info(f"[racon_tpu_torch::audit] warning: cache-hit audit "
+                     f"pass failed ({type(exc).__name__}: {exc})")
+        _book_audit_launches(polisher, before)
+        with self._cond:
+            self.counters["audit_s"] += time.perf_counter() - t0
+
+    def flush_lane_engines(self) -> None:
+        """Flag every lane's engines stale (each lane rebuilds them at
+        its next iteration or re-probe) and invalidate the window cache:
+        the auditor calls this after a demotion, since the engines cached
+        plans from the old table and the cache holds its bytes."""
+        with self._cond:
+            for lane in (self._lanes or ()):
+                lane.flush_engines = True
+        if self.wincache is not None:
+            self.wincache.invalidate_all("winner-table demotion")
+
+    def _fresh_engines_locked(self, lane: _Lane) -> None:
+        """Drop the lane's engines if flagged stale (caller holds the
+        lane lock)."""
+        with self._cond:
+            flush, lane.flush_engines = lane.flush_engines, False
+        if flush:
+            for pipeline, _ in lane.engines.values():
+                pipeline.close()
+            lane.engines.clear()
+
+    def quarantine_lane(self, index: int) -> None:
+        """Take a lane out of service (the auditor calls this on a
+        mismatch): health 0, no more extractions, engines flagged stale,
+        the window cache invalidated (the lane may have stored windows
+        nobody sampled); its feeder re-probes it (`_reprobe_lane`)."""
+        with self._cond:
+            lanes = self._lanes or []
+            if not 0 <= index < len(lanes):
+                return
+            lane = lanes[index]
+            if lane.quarantined:
+                return
+            lane.quarantined = True
+            lane.health = 0.0
+            lane.flush_engines = True
+            self.counters["lane_quarantines"] += 1
+            if not self._stop:
+                # an isolation pass may have built the lanes before any
+                # feeder started: the re-probe needs this lane's
+                self._ensure_feeder_locked(None)
+            self._cond.notify_all()
+        if self.wincache is not None:
+            self.wincache.invalidate_all(f"lane {index} quarantined")
+        if self.auditor is not None:
+            self.auditor.lane_event(index, "quarantined")
+
+    def _reprobe_lane(self, lane: _Lane) -> bool:
+        """One re-probe of a quarantined lane: the auditor's latest
+        mismatched window through the lane's rebuilt engine, its bytes
+        compared with the oracle's. True when the lane rejoined (a clean
+        probe, or the last serving lane rejoining degraded), False when it
+        stays quarantined."""
+        from ..ops.oracle import rebuild_window
+
+        auditor = self.auditor
+        probe = auditor.probe() if auditor is not None else None
+        ok = None
+        if probe is not None:
+            p0, snap, expect_cons, expect_pol = probe
+            try:
+                w = rebuild_window(snap)
+                with lane.lock:
+                    self._fresh_engines_locked(lane)
+                    with _on_lane(lane, p0.device) as stream:
+                        pipeline, engine = self._lane_engine(
+                            lane, _engine_key(p0), p0)
+                        engine.logger = None
+                        with pipeline:
+                            engine.generate_consensus([w], p0.trim)
+                        if stream is not None:
+                            stream.synchronize()
+                ok = w.consensus == expect_cons and w.polished == expect_pol
+            except Exception:  # noqa: BLE001 — a raising probe fails
+                ok = False
+        with self._cond:
+            lane.reprobes += 1
+            self.counters["lane_reprobes"] += 1
+            reprobes = lane.reprobes
+            if ok:
+                lane.quarantined = False
+                lane.health = 1.0
+                self.counters["lane_rejoins"] += 1
+            else:
+                # the last serving lane rejoins degraded rather than
+                # leaving the pools to nobody
+                alone = not any(ln is not lane and not ln.quarantined
+                                for ln in (self._lanes or ()))
+                if alone:
+                    lane.quarantined = False
+                    lane.health = 0.5
+            self._cond.notify_all()
+        if ok:
+            if auditor is not None:
+                auditor.lane_event(lane.index, "rejoined",
+                                   reprobes=reprobes)
+            return True
+        if alone:
+            if auditor is not None:
+                auditor.lane_event(
+                    lane.index, "degraded",
+                    reason=("re-probe failed with no healthy sibling"
+                            if ok is False else "no known-good probe"))
+            return True
+        if auditor is not None and ok is False:
+            auditor.lane_event(lane.index, "reprobe-failed",
+                               reprobes=reprobes)
+        return False
+
     # ------------------------------------------------------------ control
     def withdraw_job(self, job_id: str) -> int:
         """Preempt a running job: move its pooled windows (not yet in an
@@ -744,7 +1118,7 @@ class WindowBatcher:
 
     def cancel_job(self, job_id: str) -> bool:
         """Cancel a running job: its live tickets die with a typed
-        JobCancelledError, which its thread raises; the feeder drops
+        JobCancelledError, which its thread raises; the feeders drop
         their pooled windows. False when the job has no live ticket
         (an isolation pass never pools)."""
         with self._cond:
@@ -772,7 +1146,7 @@ class WindowBatcher:
                     for t, v in sorted(self._tenant_device.items())}
 
     def hold(self) -> None:
-        """Pause the feeder before its next extraction."""
+        """Pause the feeders before their next extraction."""
         with self._cond:
             self._held = True
 
@@ -785,8 +1159,19 @@ class WindowBatcher:
         with self._cond:
             out = dict(self.counters)
             out["host_s"] = round(out["host_s"], 4)
-            out["busy"] = self._busy
-            out["busy_s"] = round(self._busy_s, 4)
+            out["audit_s"] = round(out["audit_s"], 4)
+            lanes = list(self._lanes or ())
+            out["busy"] = any(ln.busy for ln in lanes)
+            out["busy_s"] = round(sum(ln.busy_s for ln in lanes), 4)
+            out["worker_lanes"] = (len(lanes) if self._lanes is not None
+                                   else self.worker_lanes)
+            out["lanes"] = [
+                {"lane": ln.index, "n_devices": ln.runner.n_devices,
+                 "iterations": ln.iterations, "busy": ln.busy,
+                 "busy_s": round(ln.busy_s, 4),
+                 "health": round(ln.health, 3),
+                 "quarantined": ln.quarantined, "reprobes": ln.reprobes}
+                for ln in lanes]
             out["pending_windows"] = sum(len(p) for p in
                                          self._pools.values())
             # shown only while a preemption holds windows
@@ -794,12 +1179,12 @@ class WindowBatcher:
                 out["withdrawn_jobs"] = len(self._withdrawn)
                 out["parked_windows"] = sum(len(v) for v in
                                             self._parked.values())
-
-        compiles, compile_s = self._compile_totals()
+        stats = self._merged_stats()
+        compiles, compile_s = self._compile_totals(stats)
         out["compiles"] = compiles
         out["compile_s"] = round(compile_s, 3)
-        out["occupancy"] = self.scheduler.stats.snapshot()
-        out["pipeline"] = self.pipeline_stats.snapshot()
+        out["occupancy"] = stats.snapshot()
+        out["pipeline"] = self._merged_pipeline()
         if self.wincache is not None:
             out["wincache"] = self.wincache.snapshot()
         return out

@@ -58,9 +58,23 @@ cache; with `preempt` a higher-priority job parks a lower one's pooled
 windows; with `abort_margin` a job that cannot meet its deadline fails
 typed `deadline-doomed`.
 
-Not ported here: the identity audit, worker lanes, the metrics HTTP port
-and `scrape`, the journal, the flight recorder, `trace_pull` / `debug`,
-per-job trace scoping and the SLO burn-rate tracker.
+Worker lanes and the identity audit: `worker_lanes` cuts the batcher's
+device list (`devices`, a library keyword with no flag; default the
+first job's polisher's lanes, one device for "cuda:N" or "cpu") into
+lanes, each with its own feeder (serve/batcher.py); `devices=["cuda:0",
+"cuda:0"]` gives two lanes on one card, `[cpu] * 2` two on the CPU.
+With `audit_rate` above 0 a WindowAuditor (obs/audit.py) on the
+server's device samples every iteration's finished windows and the
+window cache's hits; a mismatch is repaired, demotes the winner table
+(unless `audit_demote=False`), quarantines the lane that produced it
+until a re-probe brings it back (unless `lane_quarantine=False`), and
+writes its dual-stream dump into `flight_dir`. `stats_snapshot()` has
+the auditor's snapshot under `audit` (None when off).
+
+Not ported here: the metrics HTTP port and `scrape`, the journal (the
+auditor's `journal` is given only from Python), the flight recorder,
+`trace_pull` / `debug`, per-job trace scoping and the SLO burn-rate
+tracker.
 """
 
 from __future__ import annotations
@@ -235,6 +249,25 @@ class ServeConfig:
         margin = kw.pop("abort_margin", None)
         self.abort_margin = None if margin is None else max(0.0,
                                                             float(margin))
+        #: worker lanes over `devices` (None: the first job's polisher's
+        #: lanes); the count clamps to the devices
+        self.worker_lanes = max(1, int(kw.pop("worker_lanes", 1)))
+        devices = kw.pop("devices", None)
+        self.devices = None
+        if devices is not None:
+            import torch
+
+            self.devices = [torch.device(d) for d in devices]
+            if not self.devices:
+                raise RaconError("ServeConfig", "empty device list")
+        #: the identity audit (off at 0): the sampled fraction of finished
+        #: windows, whether a mismatch demotes the winner table and
+        #: quarantines its lane, and where its dual-stream dumps go
+        self.audit_rate = min(1.0, max(0.0, float(kw.pop("audit_rate",
+                                                         0.0))))
+        self.audit_demote = bool(kw.pop("audit_demote", True))
+        self.lane_quarantine = bool(kw.pop("lane_quarantine", True))
+        self.flight_dir = kw.pop("flight_dir", None)
         if kw:
             raise RaconError("ServeConfig",
                              f"unknown option(s): {', '.join(sorted(kw))}")
@@ -343,13 +376,16 @@ def _bad_bounds(lo, hi) -> bool:
                 for v in (lo, hi)) or lo < 0 or hi <= lo)
 
 
-def _job_launches() -> tuple[int, int, int]:
-    """K1's, K2's and K3's launches on the calling thread so far."""
+def _job_launches(polisher=None) -> tuple[int, int, int]:
+    """K1's, K2's and K3's launches on the calling thread so far, less
+    those the identity audit made there for `polisher`'s job."""
     from ..ops import align_kernels, poa_fused_kernels, poa_kernels
 
-    return (poa_kernels.counter.on_thread(),
+    a1, a3 = polisher.serve_audit_launches if polisher is not None \
+        else (0, 0)
+    return (poa_kernels.counter.on_thread() - a1,
             align_kernels.counter.on_thread(),
-            poa_fused_kernels.counter.on_thread())
+            poa_fused_kernels.counter.on_thread() - a3)
 
 
 class PolishServer:
@@ -371,7 +407,8 @@ class PolishServer:
         self.batcher = WindowBatcher(
             iteration_windows=cfg.iteration_windows,
             max_wait_s=cfg.max_wait_s,
-            scheduler=BatchScheduler(adaptive=cfg.adaptive_buckets))
+            scheduler=BatchScheduler(adaptive=cfg.adaptive_buckets),
+            worker_lanes=cfg.worker_lanes, devices=cfg.devices)
         self.batcher.abort_margin = cfg.abort_margin
         if cfg.wincache:
             from .wincache import WindowCache
@@ -381,6 +418,17 @@ class PolishServer:
         self.batcher.hists = self.hists
         self.batcher.pipeline_stats.hists = self.hists
         self.batcher.scheduler.stats.hists = self.hists
+        #: the identity auditor, built only when armed
+        self.auditor = None
+        if cfg.audit_rate > 0.0:
+            from ..obs.audit import WindowAuditor
+
+            self.auditor = WindowAuditor(
+                cfg.audit_rate, flight_dir=cfg.flight_dir or None,
+                on_alert=self._on_audit_alert, device=cfg.device,
+                demote=cfg.audit_demote, quarantine=cfg.lane_quarantine,
+                hists=self.hists)
+            self.batcher.auditor = self.auditor
         #: running jobs by id (the cancel RPC's lookup) and the lifetime
         #: count of cancelled jobs, under `_run_lock`
         self._run_lock = threading.Lock()
@@ -431,6 +479,8 @@ class PolishServer:
         cfg = self.config
         # a card that is not there fails the start, warm-up or not
         resolve(cfg.device)
+        for d in cfg.devices or ():
+            resolve(d)
         if cfg.warmup:
             self.warmup()
         if cfg.port is not None:
@@ -555,6 +605,8 @@ class PolishServer:
                 t.join(timeout=2.0)
         # no straggler iteration once the jobs are done (or over budget)
         self.batcher.close()
+        if self.auditor is not None:
+            self.auditor.close()
         with self._conn_lock:
             conns = list(self._conns)
         for c in conns:
@@ -1053,6 +1105,7 @@ class PolishServer:
             (job.sequences, job.overlaps, job.target), opts,
             fault_plan=job.fault_plan)
         polisher.serve_job_id = job.id
+        polisher.serve_trace_id = job.trace_id
         polisher.serve_tenant = job.tenant
         polisher.serve_deadline = job.deadline
         if job.want_progress:
@@ -1066,7 +1119,7 @@ class PolishServer:
         if job.frag_lo is not None:
             # a fragment shard: only the targets of index [lo, hi)
             polisher.target_range = (job.frag_lo, job.frag_hi)
-        mark = _job_launches()
+        mark = _job_launches(polisher)
         polisher.initialize()
         # each finished contig is a part; with `stream` the client gets
         # it as a result_part frame before the job ends, and the parts
@@ -1146,7 +1199,7 @@ class PolishServer:
                                 "sequences": len(polished)}
                         # the round's launches: K2 in the initialize()
                         # before it, K1 / K3 in its pass
-                        now = _job_launches()
+                        now = _job_launches(polisher)
                         info.update(
                             k1_launches=now[0] - mark[0] + ridden[-1][0],
                             k2_launches=now[1] - mark[1],
@@ -1174,7 +1227,8 @@ class PolishServer:
         # truncate the result
         fasta = b"".join(b">" + s.name.encode() + b"\n" + s.data + b"\n"
                          for s in polished)
-        k1, k2, k3 = (b - a for a, b in zip(launches0, _job_launches()))
+        k1, k2, k3 = (b - a for a, b in zip(launches0,
+                                            _job_launches(polisher)))
         batch = dict(polisher.serve_batch or {})
         # launches on this worker thread (K2 in each initialize(), K1 / K3
         # of a fault-plan job's own pass) plus those of the iterations
@@ -1227,6 +1281,8 @@ class PolishServer:
                "draining": self._draining.is_set(),
                "device": str(self.config.device), "cancelled": cancelled,
                "queue": q, "batcher": self.batcher.snapshot(),
+               "audit": (self.auditor.snapshot()
+                         if self.auditor is not None else None),
                "slo": {"deadline_hit": q["deadline_hit"],
                        "deadline_miss": q["deadline_miss"],
                        "expired": q["expired"],
@@ -1249,6 +1305,14 @@ class PolishServer:
             if self._rounds["jobs"]:
                 out["rounds"] = dict(self._rounds)
         return out
+
+    def _on_audit_alert(self, state: str, detail: dict) -> None:
+        """The auditor's alert sink: logged (the alert clears with
+        `auditor.ack()`)."""
+        log_info(f"[racon_tpu_torch::serve] audit alert "
+                 f"{'FIRING' if state == 'firing' else 'clear'}: "
+                 f"{detail.get('mismatches', 0)} identity mismatches, "
+                 f"{detail.get('acked', 0)} acknowledged")
 
     @property
     def address(self) -> str:
@@ -1350,6 +1414,22 @@ def serve_main(argv: list[str]) -> int:
                          "predicted finish lies past its deadline by more "
                          "than this many seconds, at admission and at "
                          "iteration boundaries (default: off)")
+    ap.add_argument("--worker-lanes", type=int, default=1,
+                    help="cut the device list into this many lanes, each "
+                         "with its own feeder (default 1; clamps to the "
+                         "devices: one for --device cpu or one card)")
+    ap.add_argument("--audit-rate", type=float, default=0.0,
+                    help="the fraction of finished windows re-executed "
+                         "through the oracle and compared byte for byte "
+                         "(default 0: off)")
+    ap.add_argument("--no-audit-demote", action="store_true",
+                    help="an audit mismatch does not demote the winner "
+                         "table")
+    ap.add_argument("--no-lane-quarantine", action="store_true",
+                    help="an audit mismatch does not quarantine its lane")
+    ap.add_argument("--flight-dir", default=None,
+                    help="where an audit mismatch writes its dual-stream "
+                         "dump (default: none written)")
     args = ap.parse_args(argv)
 
     kw = dict(socket_path=args.socket, port=args.port, workers=args.workers,
@@ -1377,7 +1457,11 @@ def serve_main(argv: list[str]) -> int:
               wincache=args.wincache,
               wincache_max_bytes=args.wincache_max_bytes,
               frag_group=args.frag_group, preempt=args.preempt,
-              abort_margin=args.abort_margin)
+              abort_margin=args.abort_margin,
+              worker_lanes=args.worker_lanes, audit_rate=args.audit_rate,
+              audit_demote=not args.no_audit_demote,
+              lane_quarantine=not args.no_lane_quarantine,
+              flight_dir=args.flight_dir)
     try:
         server = PolishServer(**kw).start()
     except (RaconError, OSError) as exc:

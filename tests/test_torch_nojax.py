@@ -25,7 +25,10 @@ what a job can ask for: rounds with the window cache armed and a
 resubmit answered from it, range shards, a fragment job and a fragment
 slice, admit-time ingest with subsample and normalize (the lazily
 imported rampler and preprocess), under preemption and the abort margin
-armed."""
+armed. A fifth serves on two worker lanes with the identity audit and
+the window cache armed: clean jobs, an `sdc` fault-plan job repaired to
+the clean bytes with the winner table demoted and the lane quarantined
+and rejoined, and the audit's journal lines."""
 
 import os
 import subprocess
@@ -358,6 +361,74 @@ def test_serve_kinds_run_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", SERVE_KINDS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+SERVE_LANES = r"""
+import json, os, sys, tempfile
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.core.polisher import PolisherType, create_polisher
+from racon_tpu_torch.obs.journal import Journal, read_journal
+from racon_tpu_torch.ops.poa_graph import BUCKETS
+from racon_tpu_torch.sched.autotune import Autotuner
+from racon_tpu_torch.serve import (PolishClient, PolishServer,
+                                   make_synth_dataset)
+
+d = tempfile.mkdtemp()
+paths = make_synth_dataset(d)
+pol = create_polisher(*paths, PolisherType.kC, 100, 10.0, 0.3, device="cpu",
+                      cuda_poa_batches=1)
+pol.initialize()
+want = b"".join(b">" + s.name.encode() + b"\n" + s.data + b"\n"
+                for s in pol.polish())
+table = os.path.join(d, "t.json")
+at = Autotuner(table)
+for nb, lb in BUCKETS:
+    at.record("session", (nb, lb), (3, -5, -4, 8),
+              {"kernel": "plain", "dtype": "int16", "ms": {},
+               "identical": True}, backend="cpu")
+at.save()
+cpu = torch.device("cpu")
+srv = PolishServer(socket_path=os.path.join(d, "s.sock"), device="cpu",
+                   workers=2, worker_lanes=2, devices=[cpu, cpu],
+                   audit_rate=1.0, wincache=True, cuda_poa_batches=1,
+                   window_length=100, autotune_table=table, warmup=False,
+                   flight_dir=os.path.join(d, "flight")).start()
+srv.auditor.journal = Journal(os.path.join(d, "j.jsonl"))
+try:
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=120)
+    assert cl.submit(*paths).fasta == want
+    assert cl.submit(*paths, stream=True).fasta == want
+    assert cl.submit(*paths, fault_plan="device:chunk=1:sdc").fasta == want
+    a = srv.stats_snapshot()["audit"]
+    assert (a["mismatches"], a["repaired"]) == (1, 1) and a["demotions"]
+    assert Autotuner(table).table  # demoted on disk
+    import time
+    deadline = time.monotonic() + 120
+    while srv.batcher.snapshot()["lane_rejoins"] < 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    assert cl.submit(*paths).fasta == want
+    events = {e["event"] for e in read_journal(os.path.join(d, "j.jsonl"))}
+    assert events == {"audit-mismatch", "audit-lane"}
+finally:
+    assert srv.drain(timeout=60)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_serve_lanes_and_audit_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", SERVE_LANES], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -17,8 +17,9 @@ What is held:
     iteration with a session job; jobs whose scores differ never merge;
     a job spread over several small iterations keeps its bytes;
   - fault plans: a poisoned job fails typed (`JobFailed`) beside a clean
-    job that keeps its bytes, the server goes on; `sdc` and malformed
-    plans are bad requests; each action fires once at its stage;
+    job that keeps its bytes, the server goes on; malformed plans (an
+    `sdc` with an argument among them) are bad requests; each action
+    fires once at its stage;
   - cancel of a queued and of a running job, drain, the typed errors,
     frames that do not parse, `device="cuda"` without a card;
   - the kernels' launch counters lose no count under concurrent threads.
@@ -450,7 +451,7 @@ def test_poisoned_job_fails_alone(client, host_server, sim3, jax_oneshot):
     assert client.ping()["type"] == "pong"
 
 
-@pytest.mark.parametrize("plan", ["device:chunk=0:sdc", "device:chunk=x:raise",
+@pytest.mark.parametrize("plan", ["device:chunk=0:sdc=1", "device:chunk=x:raise",
                                   "kernel:chunk=0:raise",
                                   "device:chunk=0:explode",
                                   "device:chunk=0:hang=-1"])

@@ -36,9 +36,11 @@ from racon_tpu_torch.serve import queue as port_queue
 
 WAIT = 120
 
-#: the keys a QoS-free server answered with before QoS was ported
+#: the keys a QoS-free server answered with before QoS was ported, with
+#: the audit's block (None when off) and the lanes' keys the batcher
+#: snapshot has had since the worker lanes were ported
 STATS_KEYS = {"uptime_s", "warm", "inflight", "draining", "device",
-              "cancelled", "queue", "batcher", "slo"}
+              "cancelled", "queue", "batcher", "slo", "audit"}
 RESULT_KEYS = {"type", "job_id", "sequences", "metrics", "serve", "fasta"}
 BATCH_KEYS = {"iterations", "iteration_ids", "shared_iterations", "windows",
               "solo", "compiles", "compile_s", "device_s", "host_s",
@@ -47,7 +49,9 @@ BATCHER_KEYS = {"iterations", "solo_iterations", "shared_iterations", "jobs",
                 "windows", "max_jobs_in_iteration",
                 "max_windows_in_iteration", "host_s", "busy", "busy_s",
                 "pending_windows", "compiles", "compile_s", "occupancy",
-                "pipeline"}
+                "pipeline", "max_concurrent_iterations", "audit_s",
+                "lane_quarantines", "lane_rejoins", "lane_reprobes",
+                "worker_lanes", "lanes"}
 
 
 @pytest.fixture(scope="module", autouse=True)
