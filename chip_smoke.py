@@ -186,13 +186,28 @@ mismatch or exception exits non-zero:
      demotion, no lane quarantined); `shutdown` draining cleanly; the
      fullest K1 batch of lane 1's iterations held against its plain
      version and timed against its bound.
+  16. the server's observability (serve_obs_path): one PolishServer as
+     in phase 13 with the metrics port, a journal, flight dumps and the
+     audit at rate 0.1 armed: a traced contig job through
+     `submit_traced` (FASTA equal to phase 5's, K1 and K2 launched, its
+     merged client and server trace holding the iteration spans tagged
+     with its id inside the client's request); an untraced job with a
+     trace id and its `trace_pull`; a `device:chunk=0:raise` job whose
+     flight dump exists when its error arrives, listed by `debug` and
+     named by a latency exemplar; a job released past its deadline
+     (journaled miss, its dump, the SLO burn alert); scrapes over the
+     socket and HTTP timed beside the iterations, parsed strictly, their
+     counters equal to `stats`; `shutdown` with a consistent journal and
+     no tracer left armed; the fullest K1 batch of the first two jobs held
+     against its plain version and timed against its bound.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
 10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
-phase 13 (path `serve`), of phase 14 (path `serve_kinds`) and of phase 15
-(path `serve_lanes`), in all, by path and by instantiation; K3: launches
+phase 13 (path `serve`), of phase 14 (path `serve_kinds`), of phase 15
+(path `serve_lanes`) and of phase 16 (path `serve_obs`), in all, by path
+and by instantiation; K3: launches
 on the four runs of phase 9, the fused runs of phases 10, 12, 13, 14 and
 15 and phase 11, and phase 14's held call), the card's name and power
 limit, and as the last line
@@ -368,14 +383,17 @@ def main() -> int:
                           truth, reads_t, workdir, report)
     k1l, k2l, k3l = phase("15 serve lanes", serve_lanes_path, dev, big,
                           workdir, report)
+    k1o, k2o = phase("16 serve obs", serve_obs_path, dev, big, workdir,
+                     report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
                          (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
-                         (k1k, k2k), (k1l, k2l)):
+                         (k1k, k2k), (k1l, k2l), (k1o, k2o)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
                             "adaptive", "autotune", "hooks", "serve",
-                            "serve_kinds", "serve_lanes"), paths))
+                            "serve_kinds", "serve_lanes", "serve_obs"),
+                           paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
@@ -393,6 +411,7 @@ def main() -> int:
     k3["held_serve_kinds"] = report["serve_kinds_path"]["k3_held"]
     kernels[0]["held_serve_lanes"] = report["serve_lanes_path"][
         "k1_fullest_lane1"]
+    kernels[0]["held_serve_obs"] = report["serve_obs_path"]["k1_fullest"]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -4431,6 +4450,382 @@ def serve_lanes_path(dev, paths, workdir, report):
         f"({held['bound_by']}); card {card}")
     report["serve_lanes_path"] = out
     return (launches["k1"], k1p), (launches["k2"], k2p), k3
+
+
+#: the flight ring's capacity in phase 16: one 200 kb job's spans, with
+#: room (printed after the phase)
+OBS_FLIGHT_EVENTS = 16384
+
+
+def serve_obs_path(dev, paths, workdir, report):
+    """Phase 16: one PolishServer on the card with its observability
+    armed (unix socket, 2 workers, `cuda_poa_batches=1`,
+    `cuda_aligner_batches=1`, pipeline depth 2, scores 5/-4/-8,
+    COLD_TABLE, warm-up on, `metrics_port=0`, a journal and a flight
+    directory in the workdir, a flight ring of OBS_FLIGHT_EVENTS spans,
+    `audit_rate=0.1`), driven through its client:
+
+      a. one traced contig-cell job through `submit_traced(trace_out=)`:
+         FASTA equal to phase 5's, K1 and K2 launched; the merged
+         document loads and holds the client's request spans, the
+         server's `serve.queue_wait` and `serve.job`, a `serve.iteration`
+         whose `trace_ids` holds the job's id and the pipeline's stage
+         spans, every server span inside the client's request on the
+         client's clock, give or take the handshake's round trip;
+      b. one untraced contig-cell job with a trace id, then `trace_pull`
+         of that id: its `serve.queue_wait`, `serve.job` and iteration
+         spans, nothing tagged with part a's id; FASTA equal to phase
+         5's; its wall beside part a's and phase 13's lone job;
+      c. a `device:chunk=0:raise` job on the warm-up dataset fails typed;
+         its `flight_<id>_job-failed.json` exists when the error arrives,
+         `debug` lists it and the scrape's `job.latency` exemplar names
+         it;
+      d. a job on the warm-up dataset (K1 launched) popped at once behind
+         the held feeder and released past its deadline: a miss, not an
+         expiry, journaled with its `deadline-miss` dump, and the SLO
+         burn alert at 1 with a journaled `alert` of kind `slo-burn`;
+      e. while parts a and b run, scrapes over the socket and over HTTP
+         `/metrics` in turns, each timed and marked by the lane's busy
+         gauge it rendered; every body parses strictly, at least one of
+         each kind ran beside an iteration, the audit's families and
+         `lane_health` render; after part d the scrape's counters equal
+         `stats`; one `/healthz`;
+      f. `shutdown` drains cleanly; the journal passes
+         `check_consistency`, every job has its `received` and one
+         terminal line; the ring's event count against its capacity; no
+         tracer armed after the drain;
+      g. the fullest K1 batch of parts a and b's iterations (PathCapture
+         on the lane's runner: not the audit oracle's) held against its
+         plain version and timed against its bound.
+
+    The launch counters are zeroed before the server starts and read
+    after the drain (part g's launches excluded). Returns (K1 launches,
+    by instantiation) and (K2 ...)."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.obs import prom, trace
+    from racon_tpu_torch.obs.journal import (RAN_EVENTS, TERMINAL_EVENTS,
+                                             check_consistency,
+                                             read_journal)
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.serve import (JobFailed, PolishClient,
+                                       PolishServer, make_synth_dataset)
+
+    card = card_info()
+    out: dict = {"jobs": {}}
+    contig = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                      for n, d in KEPT["contig"])
+    small_dir = os.path.join(workdir, "obs_small")
+    os.makedirs(small_dir)
+    small = make_synth_dataset(small_dir)
+    journal = os.path.join(workdir, "obs_journal.jsonl")
+    flight = os.path.join(workdir, "obs_flight")
+    trace_out = os.path.join(workdir, "obs_trace.json")
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = PolishServer(socket_path=os.path.join(workdir, "obs.sock"),
+                       workers=2, device="cuda", match=MATCH,
+                       mismatch=MISMATCH, gap=GAP,
+                       job_threads=os.cpu_count(), cuda_poa_batches=1,
+                       cuda_aligner_batches=1, pipeline_depth=2,
+                       autotune_table=COLD_TABLE, metrics_port=0,
+                       journal=journal, flight_dir=flight,
+                       flight_events=OBS_FLIGHT_EVENTS,
+                       audit_rate=0.1).start()
+    out["start_s"] = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{srv.config.metrics_port}"
+    log(f"[chip_smoke] serve obs path: server up in {out['start_s']:.3f} s "
+        f"(warm-up {srv._warm['warmup_s']:.3f} s), metrics on {url}, "
+        f"journal and flight dumps in the workdir, ring of "
+        f"{OBS_FLIGHT_EVENTS} spans, audit rate 0.1; card {card}")
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=900)
+    lane = srv.batcher._lanes[0]
+
+    def fail(part, msg):
+        raise SystemExit(f"serve obs path {part}: {msg}")
+
+    # ---- e. the scraper: both transports in turns while a and b run
+    scrapes: list = []
+    scraping = threading.Event()
+
+    def scraper():
+        kinds = ("rpc", "http")
+        n = 0
+        while scraping.is_set():
+            kind = kinds[n % 2]
+            n += 1
+            t = time.perf_counter()
+            if kind == "rpc":
+                text = cl.scrape()
+            else:
+                text = urllib.request.urlopen(f"{url}/metrics",
+                                              timeout=60).read().decode()
+            dt = time.perf_counter() - t
+            parsed = prom.parse(text)  # strict: raises on any bad line
+            busy = parsed.gauges.get("racon_tpu_serve_lane_0_busy", 0.0)
+            scrapes.append((kind, dt, bool(busy)))
+            time.sleep(0.1)
+
+    def served(name, r, wall):
+        nums = served_numbers(r, wall)
+        out["jobs"][name] = nums
+        log(f"[chip_smoke] serve obs path {name} job: queue wait "
+            f"{nums['queue_wait_s']:.3f} s, align {nums['align_s']:.3f} s, "
+            f"consensus {nums['consensus_s']:.3f} s, end to end "
+            f"{wall:.3f} s; {nums['iterations']} iterations; launches K1 "
+            f"{nums['k1_launches']} / K2 {nums['k2_launches']}")
+        return nums
+
+    scraping.set()
+    sc = threading.Thread(target=scraper, name="chip-smoke-scraper")
+    sc.start()
+    try:
+        with PathCapture(runner=lane.runner) as cap:
+            # ---- a. one traced contig job
+            t = time.perf_counter()
+            ra, doc = cl.submit_traced(*paths, trace_id="obs-a",
+                                       trace_out=trace_out)
+            wall_a = time.perf_counter() - t
+            # ---- b. one untraced contig job with a trace id
+            t = time.perf_counter()
+            rb = cl.submit(*paths, trace_id="obs-b")
+            wall_b = time.perf_counter() - t
+    finally:
+        scraping.clear()
+        sc.join(120)
+    na = served("a (traced)", ra, wall_a)
+    nb = served("b (untraced)", rb, wall_b)
+    if ra.fasta != contig or rb.fasta != contig:
+        fail("a/b", "a FASTA differs from phase 5's")
+    if min(na["k1_launches"], na["k2_launches"]) <= 0:
+        fail("a", f"K1 {na['k1_launches']} / K2 {na['k2_launches']}")
+    doc = json.load(open(trace_out))
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    client = [e for e in spans if e["pid"] == 1]
+    server = [e for e in spans if e["pid"] == 2]
+    names = {e["name"] for e in server}
+    iters = [e for e in server if e["name"] == "serve.iteration"
+             and "obs-a" in e["args"].get("trace_ids", ())]
+    want = {"serve.queue_wait", "serve.job", "pipeline.pack",
+            "pipeline.device", "pipeline.unpack"}
+    if not (want <= names and iters and {"client.submit", "client.receive"}
+            <= {e["name"] for e in client}):
+        fail("a", f"the merged document holds {sorted(names)}, "
+                  f"{len(iters)} iterations of obs-a")
+    rtt_us = doc["trace_context"]["clock_rtt_s"] * 1e6
+    lo = min(e["ts"] for e in client if e["name"] == "client.submit")
+    hi = max(e["ts"] + e["dur"] for e in client
+             if e["name"] == "client.receive")
+    outside = [e["name"] for e in server
+               if e["ts"] < lo - rtt_us or e["ts"] + e["dur"] > hi + rtt_us]
+    if outside:
+        fail("a", f"{len(outside)} server spans outside the request "
+                  f"({sorted(set(outside))})")
+    out["a"] = {"events": len(doc["traceEvents"]),
+                "server_spans": len(server), "iterations": len(iters),
+                "clock_offset_s": doc["trace_context"]["clock_offset_s"],
+                "clock_rtt_s": doc["trace_context"]["clock_rtt_s"]}
+    log(f"[chip_smoke] serve obs path a: the merged trace holds "
+        f"{len(client)} client and {len(server)} server spans, "
+        f"{len(iters)} iterations tagged obs-a, all inside the request "
+        f"(clock offset {out['a']['clock_offset_s']:.6f} s, rtt "
+        f"{out['a']['clock_rtt_s'] * 1e3:.3f} ms)")
+    pull = cl.trace_pull("obs-b")
+    pulled = [e for e in pull["events"] if e.get("ph") != "M"]
+    pnames = [e["name"] for e in pulled]
+    tagged_a = [e for e in pulled
+                if e["args"].get("trace_id") == "obs-a"
+                or "obs-a" in e["args"].get("trace_ids", ())]
+    if (pnames.count("serve.queue_wait") != 1
+            or pnames.count("serve.job") != 1
+            or "serve.iteration" not in pnames or tagged_a):
+        fail("b", f"trace_pull gave {sorted(set(pnames))}, "
+                  f"{len(tagged_a)} spans of obs-a")
+    lone = report["serve_path"]["jobs"]["alone"]["wall_s"]
+    out["b"] = {"pulled": len(pulled), "walls_s": {
+        "traced": wall_a, "untraced": wall_b, "phase13_alone": lone}}
+    log(f"[chip_smoke] serve obs path b: trace_pull(obs-b) gave "
+        f"{len(pulled)} spans ({pnames.count('serve.iteration')} "
+        f"iterations), none of obs-a; walls: traced {wall_a:.3f} s, "
+        f"untraced {wall_b:.3f} s, phase 13's lone job {lone:.3f} s; card "
+        f"{card}")
+
+    # ---- e. the scrapes of parts a and b
+    for kind in ("rpc", "http"):
+        busy = [dt for k, dt, b in scrapes if k == kind and b]
+        idle = [dt for k, dt, b in scrapes if k == kind and not b]
+        if not busy:
+            fail("e", f"no {kind} scrape ran beside an iteration "
+                      f"({len(idle)} idle)")
+        out.setdefault("e", {})[kind] = {
+            "busy_ms": sorted(round(x * 1e3, 3) for x in busy),
+            "idle_ms": sorted(round(x * 1e3, 3) for x in idle)}
+        mid = sorted(busy)[len(busy) // 2]
+        log(f"[chip_smoke] serve obs path e: {kind} scrapes beside an "
+            f"iteration {len(busy)}, median {mid * 1e3:.3f} ms, max "
+            f"{max(busy) * 1e3:.3f} ms; idle {len(idle)}"
+            + (f", median {sorted(idle)[len(idle) // 2] * 1e3:.3f} ms"
+               if idle else ""))
+        for label in ("busy", "idle"):
+            log(f"[chip_smoke] serve obs path e: {kind} {label} ms "
+                f"{out['e'][kind][label + '_ms']}")
+
+    # ---- c. a poisoned job: its dump before its error
+    dump_c = None
+    try:
+        cl.submit(*small, fault_plan="device:chunk=0:raise")
+        fail("c", "the poisoned job did not fail")
+    except JobFailed as exc:
+        job_c = exc.response["job_id"]
+        dump_c = os.path.join(flight, f"flight_{job_c}_job-failed.json")
+        there = os.path.isfile(dump_c)
+        if exc.error_type != "DeviceError" or not there:
+            fail("c", f"{exc.error_type}, dump there: {there}")
+    dumps = cl.debug(max_events=10)["dumps"]
+    hist = prom.parse(cl.scrape()).histogram(
+        "racon_tpu_job_latency_seconds")
+    ex = [e for e in hist.bucket_exemplars().values()
+          if e.get("flight") == dump_c]
+    if dump_c not in dumps or not ex:
+        fail("c", f"debug lists {dumps}, {len(ex)} exemplars name the dump")
+    log(f"[chip_smoke] serve obs path c: the poisoned job failed typed "
+        f"(DeviceError), {os.path.basename(dump_c)} written before its "
+        f"error, listed by debug and named by a job.latency exemplar")
+
+    # ---- d. a job popped at once and released past its deadline
+    res: dict = {}
+
+    def late():
+        try:
+            res["d"] = cl.submit(*small, deadline_s=1.0, trace_id="obs-d")
+        except Exception as exc:  # noqa: BLE001 — checked below
+            res["d"] = exc
+
+    srv.batcher.hold()
+    try:
+        td = threading.Thread(target=late)
+        td.start()
+        deadline = time.monotonic() + 300
+        while not srv.batcher._job_tickets:
+            if time.monotonic() > deadline:
+                fail("d", "the job never pooled")
+            time.sleep(0.01)
+        time.sleep(1.2)
+    finally:
+        srv.batcher.release()
+    td.join(900)
+    rd = res["d"]
+    if isinstance(rd, Exception) or rd.serve["batch"]["k1_launches"] <= 0:
+        fail("d", f"the late job gave {rd!r}")
+    stats = cl.stats()
+    s = prom.parse(cl.scrape())
+    dump_d = os.path.join(flight, f"flight_{rd.job_id}_deadline-miss.json")
+    if (stats["slo"]["deadline_miss"] != 1 or stats["queue"]["expired"]
+            or s.gauges["racon_tpu_slo_burn_alert"] != 1
+            or not os.path.isfile(dump_d)):
+        fail("d", f"slo {stats['slo']}, dump there: "
+                  f"{os.path.isfile(dump_d)}")
+    log(f"[chip_smoke] serve obs path d: the late job (K1 "
+        f"{rd.serve['batch']['k1_launches']} launches) missed its "
+        f"deadline, {os.path.basename(dump_d)} written, burn rate "
+        f"{stats['slo']['burn']['fast']:g}x, alert firing")
+
+    # ---- e. the scrape's counters against stats, /healthz
+    q, b = stats["queue"], stats["batcher"]
+    pairs = [(f"racon_tpu_serve_jobs_{k}_total", q[k]) for k in (
+        "submitted", "admitted", "rejected_full", "expired", "completed",
+        "failed", "deadline_hit", "deadline_miss")]
+    pairs += [("racon_tpu_serve_batch_iterations_total", b["iterations"]),
+              ("racon_tpu_serve_batch_shared_iterations_total",
+               b["shared_iterations"]),
+              ("racon_tpu_serve_batch_windows_total", b["windows"]),
+              ("racon_tpu_audit_windows_total", stats["audit"]["windows"]),
+              ("racon_tpu_audit_sampled_total", stats["audit"]["sampled"])]
+    wrong = [(n, s.counters.get(n), v) for n, v in pairs
+             if s.counters.get(n) != v]
+    if wrong or "racon_tpu_lane_health" not in s.gauge_series:
+        fail("e", f"scrape against stats: {wrong}")
+    health = json.loads(urllib.request.urlopen(f"{url}/healthz",
+                                               timeout=60).read())
+    if health.get("ok") is not True:
+        fail("e", f"/healthz {health}")
+    n_scrapes = s.counters["racon_tpu_serve_scrapes_total"]
+    per = s.counters["racon_tpu_serve_scrape_seconds_total"] / n_scrapes
+    out["e"]["render_s_per_scrape"] = per
+    out["e"]["scrapes"] = n_scrapes
+    log(f"[chip_smoke] serve obs path e: {len(pairs)} counters equal "
+        f"stats; {int(n_scrapes)} scrapes rendered at {per * 1e3:.3f} ms "
+        f"each (serve.scrape_seconds / serve.scrapes); /healthz ok; "
+        f"audit {stats['audit']['sampled']} of "
+        f"{stats['audit']['windows']} windows sampled, "
+        f"{stats['audit']['mismatches']} mismatches; card {card}")
+
+    # ---- f. shut down, read the journal
+    ring = srv._flight
+    cl.shutdown()
+    if not srv.wait_stopped(600) or not srv._drained_clean:
+        fail("f", "the drain did not end cleanly")
+    held = len(ring.events())
+    entries = read_journal(journal)
+    faults = check_consistency(entries)
+    by_job: dict = {}
+    for e in entries:
+        if e.get("job"):
+            by_job.setdefault(e["job"], []).append(e["event"])
+    bad = {j: evs for j, evs in by_job.items()
+           if evs[0] != "received"
+           or sum(ev in TERMINAL_EVENTS for ev in evs) != 1}
+    if faults or bad or trace.get_tracer() is not None:
+        fail("f", f"journal faults {faults}, jobs {bad}, tracer "
+                  f"{trace.get_tracer()}")
+    misses = [e for e in entries if e["event"] == "deadline-miss"]
+    alerts = [(e["kind"], e["state"]) for e in entries
+              if e["event"] == "alert"]
+    if len(misses) != 1 or ("slo-burn", "firing") not in alerts:
+        fail("f", f"{len(misses)} deadline-miss lines, alerts {alerts}")
+    ran = sum(any(ev in RAN_EVENTS for ev in evs)
+              for evs in by_job.values())
+    out["f"] = {"journal_lines": len(entries), "jobs": len(by_job),
+                "ran": ran, "ring_events": held,
+                "ring_capacity": ring.capacity, "alerts": alerts}
+    log(f"[chip_smoke] serve obs path f: drained cleanly; journal "
+        f"{len(entries)} lines over {len(by_job)} jobs, consistent; the "
+        f"ring holds {held} events of {ring.capacity}; no tracer armed")
+    q = srv.queue.counters
+    out["queue"] = dict(q)
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    out["launches"] = launches
+    log(f"[chip_smoke] serve obs path f: {q['admitted']} admitted = "
+        f"{q['completed']} completed + {q['failed']} failed; launches over "
+        f"the phase {launches}")
+
+    # ---- g. the fullest K1 batch of parts a and b's iterations
+    if not cap.k1:
+        fail("g", "the lane launched no K1 batch")
+    (nbk, lbk), (n, plan, args) = max(cap.k1.items(),
+                                      key=lambda kv: kv[1][0])
+    torch.cuda.synchronize()
+    held_k1 = hold_k1(args, nbk, lbk, f"the serve obs path's fullest "
+                      f"{(nbk, lbk)} batch", widths=(plan[0],))[plan]
+    out["k1_fullest"] = {"shape": [nbk, lbk], "jobs": n,
+                         "plan": plan_name(*plan), **held_k1}
+    log(f"[chip_smoke] serve obs path g: the fullest K1 batch of parts a "
+        f"and b, {(nbk, lbk)} {plan_name(*plan)} with {n} jobs, identical "
+        f"to the plain version; kernel {held_k1['ms']:.3f} ms, plain "
+        f"{held_k1['plain_ms']:.1f} ms, bound {held_k1['bound_ms']:.4f} ms "
+        f"({held_k1['bound_by']}); card {card}")
+    report["serve_obs_path"] = out
+    return (launches["k1"], k1p), (launches["k2"], k2p)
 
 
 if __name__ == "__main__":

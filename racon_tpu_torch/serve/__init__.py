@@ -9,9 +9,13 @@
                   the identity audit's hooks
     server.py     ServeConfig, PolishServer (warm-up, transport, workers,
                   rounds, range and fragment jobs, admit-time ingest,
-                  preemption, cancel, drain), make_synth_dataset,
-                  make_fragment_dataset and `serve`
-    client.py     PolishClient, its typed errors, `submit` and `cancel`
+                  preemption, cancel, drain; the scrape and metrics
+                  port, the journal, the flight ring with `debug` and
+                  `trace_pull`, per-job traces, the SLO burn rate),
+                  make_synth_dataset, make_fragment_dataset and `serve`
+    client.py     PolishClient, its typed errors, `clock_sync`,
+                  `submit_traced` and `merge_trace`, `submit` and
+                  `cancel`
     protocol.py   length-prefixed JSON frames, the typed frame errors and
                   `error_response`
     wincache.py   the content-addressed window consensus cache, keyed on

@@ -240,6 +240,15 @@ def _shape_key(window) -> tuple[int, int]:
     return (len(window.sequences), len(window.sequences[0]))
 
 
+def _trace_ids(tickets) -> list[str]:
+    """The client-minted trace ids of an iteration's jobs (the server
+    sets `serve_trace_id` on each job's polisher), tagged onto the
+    iteration's span so a merged client and server trace, or a trace
+    pull, can attribute a shared iteration."""
+    return [tid for tid in (t.polisher.serve_trace_id for t in tickets)
+            if tid]
+
+
 class _Lane:
     """One worker lane: its runner, its lock (the feeder and any
     isolation pass routed here serialize on it), its scheduler and
@@ -543,11 +552,13 @@ class WindowBatcher:
                 self._lane_busy(lane, False, t1 - t0)
                 tr = trace.get_tracer()
                 if tr is not None:
+                    tid = polisher.serve_trace_id
                     tr.complete("serve.iteration", t0, t1,
                                 {"iteration": it, "lane": lane.index,
                                  "jobs": 1,
                                  "windows": len(polisher.windows),
-                                 "solo": True, "host_s": 0.0})
+                                 "solo": True, "host_s": 0.0,
+                                 "trace_ids": [tid] if tid else []})
                 if self.hists is not None:
                     self.hists.observe("serve.iteration", t1 - t0)
                 self._account(1, len(polisher.windows), solo=True)
@@ -856,7 +867,8 @@ class WindowBatcher:
             tr.complete("serve.iteration", t0, t1,
                         {"iteration": it, "lane": lane.index,
                          "jobs": len(tickets), "windows": len(windows),
-                         "host_s": round(host_s, 4)})
+                         "host_s": round(host_s, 4),
+                         "trace_ids": _trace_ids(tickets)})
         if self.hists is not None:
             self.hists.observe("serve.iteration", t1 - t0)
             self.hists.observe("serve.iteration_host", host_s)

@@ -29,10 +29,28 @@ server, `fragment=True` / `-f` corrects reads (optionally a `frag_lo` /
 `frag_hi` target slice), `ingest` / `subsample` / `normalize` have the
 server check or rewrite the inputs on admit, and `request()` sends any
 frame, such as a `range_lo` / `range_hi` shard.
+
+The server's observability from the client side:
+
+  - `--trace-out t.json` / `submit_traced(...)`: the client mints a
+    `trace_id`, estimates the server's perf_counter offset from
+    round-trip-bracketed pings (`clock_sync`), records its own spans
+    (connect, submit, wait, receive, and an instant per interleaved
+    frame), has the server return the job's own trace, and merges both
+    (`merge_trace`) into one Chrome trace: two Perfetto process tracks
+    on one timeline;
+  - `scrape()` (Prometheus text), `debug()` (the flight ring's recent
+    spans and the dumps written), `audit_ack()` (clears the audit
+    alert) and `trace_pull(trace_id)` (one trace id's spans from the
+    ring).
+
+Not here: the router's fan-out and its per-replica traces
+(`PolishResult.trace_replicas` stays None), which come with the fleet.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import socket
@@ -115,7 +133,8 @@ _ERROR_TYPES = {"queue-full": QueueFull, "draining": ServerDraining,
 
 class PolishResult:
     __slots__ = ("job_id", "fasta", "metrics", "serve", "streamed",
-                 "parts", "rounds")
+                 "parts", "rounds", "trace", "trace_base_mono",
+                 "trace_replicas")
 
     def __init__(self, resp: dict):
         self.job_id = resp.get("job_id")
@@ -136,6 +155,13 @@ class PolishResult:
         #: a rounds job's accounting (requested, completed, per_round
         #: walls and cache counts, cache totals); {} for a single pass
         self.rounds = resp.get("rounds") or {}
+        #: a traced job's server-side events, and the server recorder's
+        #: time zero on the server's perf_counter (merge_trace rebases
+        #: the events with it); None for an untraced job
+        self.trace = resp.get("trace")
+        self.trace_base_mono = resp.get("trace_base_mono")
+        #: a routed job's per-replica traces: None (no router yet)
+        self.trace_replicas = resp.get("trace_replicas")
 
 
 class PolishClient:
@@ -158,30 +184,65 @@ class PolishClient:
             raise
         return sock
 
-    def request(self, obj: dict, on_progress=None, on_part=None) -> dict:
+    def request(self, obj: dict, on_progress=None, on_part=None,
+                recorder=None) -> dict:
         """One round trip; raises the ServeError types on a typed error
         response. Interleaved `progress` frames go to `on_progress` and
         `result_part` frames to `on_part` as they arrive; the method
         returns on the first frame that is neither, with the parts
-        attached as `_parts` for PolishResult."""
+        attached as `_parts` for PolishResult. `recorder` (an
+        obs.trace.TraceRecorder) records the client's spans (connect,
+        submit, wait, receive) and an instant per interleaved frame; it
+        is given per call, so a client shared by threads keeps each
+        traced request's spans apart."""
+        rec = recorder
+        t0 = time.perf_counter()
         sock = self._connect()
+        if rec is not None:
+            rec.complete("client.connect", t0, time.perf_counter())
+        frames = 0
         parts: list[dict] = []
         try:
+            t_send = time.perf_counter()
             send_frame(sock, obj)
+            t_wait = time.perf_counter()
+            if rec is not None:
+                rec.complete("client.submit", t_send, t_wait,
+                             {"type": obj.get("type")})
             while True:
                 # results come from a trusted server: accept up to the
                 # wire limit, not the server's request ceiling
                 resp = recv_frame(sock, max_frame=WIRE_LIMIT)
+                # stamped after the receive: the blocking time belongs
+                # to client.wait
+                t_frame = time.perf_counter()
                 rtype = resp.get("type") if resp is not None else None
                 if rtype == "result_part":
                     parts.append(resp)
+                    if rec is not None:
+                        rec.instant("client.result_part",
+                                    {k: resp[k] for k in
+                                     ("part", "name", "job_id")
+                                     if k in resp})
                     if on_part is not None:
                         on_part(resp)
                     continue
                 if rtype != "progress":
                     break
+                frames += 1
+                if rec is not None:
+                    rec.instant("client.progress",
+                                {k: resp[k] for k in
+                                 ("phase", "done", "total", "position",
+                                  "job_id") if k in resp})
                 if on_progress is not None:
                     on_progress(resp)
+            if rec is not None:
+                now = time.perf_counter()
+                rec.complete("client.wait", t_wait, t_frame,
+                             {"progress_frames": frames,
+                              "result_parts": len(parts)})
+                rec.complete("client.receive", t_frame, now)
         finally:
             sock.close()
         if resp is None:
@@ -194,23 +255,49 @@ class PolishClient:
             resp["_parts"] = parts
         return resp
 
+    def clock_sync(self, samples: int = 3) -> dict:
+        """The server's perf_counter offset from round-trip-bracketed
+        pings: each sample's offset is the server's `mono_s` less the
+        midpoint of the client's round trip, and the sample with the
+        shortest round trip wins. Returns {"offset_s", "rtt_s"};
+        merge_trace puts server spans on the client's clock with it, to
+        within rtt / 2."""
+        best = None
+        for _ in range(max(1, samples)):
+            t0 = time.perf_counter()
+            pong = self.request({"type": "ping"})
+            t1 = time.perf_counter()
+            mono = pong.get("mono_s")
+            if mono is None:
+                raise ServeError("bad-response", "the server's pong "
+                                 "carries no mono_s clock sample", pong)
+            cand = {"offset_s": float(mono) - (t0 + t1) / 2.0,
+                    "rtt_s": t1 - t0}
+            if best is None or cand["rtt_s"] < best["rtt_s"]:
+                best = cand
+        return best
+
     def submit(self, sequences: str, overlaps: str, target: str, *,
                options: dict | None = None, priority: int = 0,
                deadline_s: float | None = None,
                fault_plan: str | None = None, tenant: str | None = None,
-               trace_id: str | None = None, rounds: int | None = None,
+               trace: bool = False, trace_id: str | None = None,
+               rounds: int | None = None,
                fragment: bool = False, frag_lo: int | None = None,
                frag_hi: int | None = None, ingest: bool = False,
                subsample: dict | None = None, normalize: bool = False,
                on_progress=None, on_part=None, stream: bool = False,
-               retries: int = 0,
+               recorder=None, retries: int = 0,
                cancel_on_timeout: bool = False) -> PolishResult:
         """Polish one input triple on the server. Paths are made absolute
         before they cross the wire (the server's working directory is not
         the client's). `options` overrides the server's polish defaults
         (serve.server.ALLOWED_OPTIONS); `fault_plan` arms injected faults
         for this job only; `tenant` names its fair-scheduling bucket;
-        `trace_id` names the job so another client can cancel it.
+        `trace_id` names the job so another client can cancel it, and
+        tags its journal lines and server spans; `trace` has the server
+        return the job's own trace (PolishResult.trace), and `recorder`
+        records this client's spans (see submit_traced).
         `rounds=N` polishes N rounds in the server (PolishResult.rounds
         has their accounting); `fragment` corrects reads instead of
         polishing contigs (mode "fragment"), `frag_lo` / `frag_hi`
@@ -242,6 +329,8 @@ class PolishClient:
             req["fault_plan"] = fault_plan
         if tenant:
             req["tenant"] = str(tenant)
+        if trace:
+            req["trace"] = True
         if trace_id:
             req["trace_id"] = str(trace_id)
         if rounds is not None:
@@ -267,7 +356,8 @@ class PolishClient:
         while True:
             try:
                 return PolishResult(self.request(
-                    req, on_progress=on_progress, on_part=on_part))
+                    req, on_progress=on_progress, on_part=on_part,
+                    recorder=recorder))
             except QueueFull as exc:
                 if attempt >= retries:
                     raise
@@ -289,6 +379,28 @@ class PolishClient:
                     "cancelled", f"client timeout after {self.timeout}s: "
                                  f"sent cancel for trace {trace_id}",
                     {"trace_id": trace_id}) from None
+
+    def submit_traced(self, sequences: str, overlaps: str, target: str,
+                      *, trace_out: str | None = None,
+                      **kw) -> tuple[PolishResult, dict]:
+        """One traced submit end to end: mint a trace id (unless `kw`
+        names one), take the clock handshake, record the client's spans,
+        have the server return the job's trace, and merge both into one
+        Chrome trace document (written to `trace_out` when given).
+        Returns (result, document)."""
+        from ..obs.trace import TraceRecorder
+
+        kw.pop("trace", None)
+        trace_id = kw.pop("trace_id", None) or uuid.uuid4().hex[:16]
+        clock = self.clock_sync()
+        rec = TraceRecorder(None)
+        result = self.submit(sequences, overlaps, target, trace=True,
+                             trace_id=trace_id, recorder=rec, **kw)
+        doc = merge_trace(result, rec, clock, trace_id=trace_id)
+        if trace_out:
+            with open(trace_out, "w") as fh:
+                json.dump(doc, fh)
+        return result, doc
 
     def cancel(self, job_id: str | None = None,
                trace_id: str | None = None) -> dict:
@@ -314,8 +426,70 @@ class PolishClient:
         false once the server drains."""
         return self.request({"type": "healthz"})
 
+    def scrape(self) -> str:
+        """The server's Prometheus text: the body `--metrics-port` serves
+        as /metrics, read at call time."""
+        return self.request({"type": "scrape"})["text"]
+
+    def debug(self, max_events: int = 5000) -> dict:
+        """The flight ring's most recent events and the dumps written so
+        far; with the auditor armed, its snapshot under `audit`."""
+        return self.request({"type": "debug", "max_events": max_events})
+
+    def audit_ack(self) -> dict:
+        """Acknowledge the identity audit's alert: it clears (gauge and
+        journal) until the next mismatch. Returns the debug body, with
+        the ack's result under `audit_ack` and the audit's snapshot."""
+        return self.request({"type": "debug", "audit_ack": True,
+                             "max_events": 0})
+
+    def trace_pull(self, trace_id: str,
+                   max_events: int | None = None) -> dict:
+        """One trace id's spans from the server's flight ring (an exact
+        or a dotted-child match), with the ring's base and a clock
+        sample: {trace_id, events, base_mono, mono_s}."""
+        req = {"type": "trace_pull", "trace_id": trace_id}
+        if max_events is not None:
+            req["max_events"] = max_events
+        return self.request(req)
+
     def shutdown(self) -> dict:
         return self.request({"type": "shutdown"})
+
+
+def merge_trace(result: PolishResult, client_rec, clock: dict,
+                trace_id: str | None = None) -> dict:
+    """Merge the server's per-job trace (`result.trace`, on the server
+    recorder's timeline) with the client recorder's events into one
+    Chrome trace document on the client's clock: client spans on pid 1,
+    server spans on pid 2, each labelled by a process_name event. A
+    server event at ts (microseconds past `result.trace_base_mono`) lands
+    at that server time less the handshake's offset on the client's
+    perf_counter, then moves onto the client recorder's zero; good to the
+    handshake's rtt / 2. `trace_context` carries the clock and the job's
+    `serve` block, what a reader checks span sums against."""
+    from ..obs.trace import rebase_events
+
+    events = rebase_events(client_rec.events(), pid=1,
+                           name="racon_tpu_torch client")
+    if result.trace and result.trace_base_mono is not None:
+        shift_us = ((result.trace_base_mono - clock["offset_s"])
+                    - client_rec._base) * 1e6
+        events += rebase_events(result.trace, pid=2, shift_us=shift_us,
+                                name="racon_tpu_torch server")
+    events.sort(key=lambda e: (e.get("ph") != "M", e.get("ts", 0.0)))
+    ctx = {"trace_id": trace_id, "job_id": result.job_id,
+           "clock_offset_s": round(clock["offset_s"], 6),
+           "clock_rtt_s": round(clock["rtt_s"], 6)}
+    stats: dict = {}
+    if result.serve:
+        stats["serve"] = result.serve
+    if result.rounds:
+        stats["rounds"] = result.rounds
+    if stats:
+        ctx["stats"] = stats
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "trace_context": ctx}
 
 
 class _ProgressPrinter:
@@ -391,7 +565,13 @@ def submit_main(argv: list[str]) -> int:
                          "[A-Za-z0-9._-])")
     ap.add_argument("--trace-id", default=None,
                     help="name this job, so `cancel --trace-id ID` from "
-                         "another terminal reaches it")
+                         "another terminal reaches it (also its key in "
+                         "the journal and the flight dumps)")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="record the client's spans, fetch the job's "
+                         "server-side spans, and write one merged Chrome "
+                         "trace (open in Perfetto) with both on one "
+                         "handshake-aligned timeline")
     ap.add_argument("--fault-plan", default=None,
                     help="inject faults into this job's pipelines, e.g. "
                          "device:chunk=0:raise (testing)")
@@ -474,17 +654,25 @@ def submit_main(argv: list[str]) -> int:
                      "coverage": args.subsample[1]}
         if args.subsample_seed is not None:
             subsample["seed"] = args.subsample_seed
+    common = dict(options=options, priority=args.priority,
+                  deadline_s=args.deadline, fault_plan=args.fault_plan,
+                  tenant=args.tenant, trace_id=args.trace_id,
+                  rounds=args.rounds, fragment=args.fragment,
+                  frag_lo=args.frag_lo, frag_hi=args.frag_hi,
+                  ingest=args.ingest, subsample=subsample,
+                  normalize=args.normalize, on_progress=on_progress,
+                  on_part=on_part, retries=args.retries,
+                  cancel_on_timeout=args.cancel_on_timeout)
+    trace_doc = None
     try:
-        result = client.submit(
-            args.sequences, args.overlaps, args.target, options=options,
-            priority=args.priority, deadline_s=args.deadline,
-            fault_plan=args.fault_plan, tenant=args.tenant,
-            trace_id=args.trace_id, rounds=args.rounds,
-            fragment=args.fragment,
-            frag_lo=args.frag_lo, frag_hi=args.frag_hi, ingest=args.ingest,
-            subsample=subsample, normalize=args.normalize,
-            on_progress=on_progress, on_part=on_part, retries=args.retries,
-            cancel_on_timeout=args.cancel_on_timeout)
+        if args.trace_out:
+            # the document is written below, after the FASTA reached
+            # stdout: an unwritable trace path must not lose the polish
+            result, trace_doc = client.submit_traced(
+                args.sequences, args.overlaps, args.target, **common)
+        else:
+            result = client.submit(args.sequences, args.overlaps,
+                                   args.target, **common)
     except (ServeError, OSError) as exc:
         if on_progress is not None:
             on_progress.close()
@@ -510,6 +698,16 @@ def submit_main(argv: list[str]) -> int:
               f"{result.rounds.get('completed')}/"
               f"{result.rounds.get('requested')}: {walls}{tail}",
               file=sys.stderr)
+    if trace_doc is not None:
+        try:
+            with open(args.trace_out, "w") as fh:
+                json.dump(trace_doc, fh)
+            print(f"[racon_tpu_torch::serve] merged client and server "
+                  f"trace written to {args.trace_out}", file=sys.stderr)
+        except OSError as exc:
+            print(f"[racon_tpu_torch::serve] warning: could not write the "
+                  f"trace to {args.trace_out} ({exc}); the FASTA is "
+                  "unaffected", file=sys.stderr)
     return 0
 
 

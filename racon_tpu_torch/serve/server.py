@@ -71,16 +71,52 @@ until a re-probe brings it back (unless `lane_quarantine=False`), and
 writes its dual-stream dump into `flight_dir`. `stats_snapshot()` has
 the auditor's snapshot under `audit` (None when off).
 
-Not ported here: the metrics HTTP port and `scrape`, the journal (the
-auditor's `journal` is given only from Python), the flight recorder,
-`trace_pull` / `debug`, per-job trace scoping and the SLO burn-rate
-tracker.
+Observability (each a keyword and a `serve` flag):
+
+  - `scrape` answers Prometheus text (obs/prom.py) over the socket, and
+    `metrics_port` (0: ephemeral, published back) serves the same body
+    on 127.0.0.1 HTTP as `/metrics`, with `/healthz` (503 while
+    draining) beside it;
+  - `journal` writes one JSONL line per job transition (obs/journal.py,
+    rotated at `journal_max_bytes`); the auditor's lines land in it too;
+  - a bounded flight ring (obs/flight.py, `flight_events` spans) is the
+    process tracer while the server runs; every failed job and every job
+    that misses its deadline gets the ring, windowed to it, dumped into
+    `flight_dir` before its waiter wakes, and `debug` lists the dumps
+    (with the audit's snapshot and `audit_ack` when the auditor is
+    armed); `trace_pull` returns one trace id's spans (at most
+    `trace_pull_events`);
+  - a job submitted with `trace: true` runs under its own recorder
+    (obs/trace.scoped, one such job at a time) and gets its spans back
+    with the recorder's base, which the client maps onto its clock
+    through `ping`'s `mono_s`;
+  - the SLO burn-rate tracker (obs/fleet.py, `slo_*`) journals an
+    `alert` line on each change of state, and the job-latency histogram
+    carries exemplars (`exemplars=False` drops them);
+  - `trace_path` / `metrics_path` write the armed recorder and the stats
+    snapshot at drain (the one-shot CLI's `--cuda-trace` /
+    `--cuda-metrics`).
+
+The scrape keeps the JAX server's family names. Where the port has no
+counterpart of what a family counts, it renders its own: `serve.compiles`
+and the occupancy `compiles` count first dispatches of a launch shape
+(nothing is compiled per shape); `audit.shadow_compiles` is the oracle's
+first dispatches; `serve.aborted_doomed` sums the port's
+`doomed_at_admission` and `doomed_mid_run`; `serve.cancelled` is the
+server's cancel count; `sched.autotune.consults` carries the port's
+kernel plane names. `stats_snapshot()` shows `journal` only when the
+journal is armed and `flight` only once a dump was written, the port's
+armed-only rule for its blocks.
+
+Not here: the router, the autoscaler and the fleet aggregator (the
+fleet's slice), and the tools that read these artifacts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gzip
+import json
 import os
 import random
 import socket
@@ -88,9 +124,16 @@ import sys
 import tempfile
 import threading
 import time
+from collections import deque
 
 from ..errors import RaconError
+from ..obs import fleet as obs_fleet
+from ..obs import flight as obs_flight
+from ..obs import prom as obs_prom
+from ..obs import trace as obs_trace
 from ..obs.hist import HistogramSet
+from ..obs.journal import DEFAULT_MAX_BYTES as JOURNAL_MAX_BYTES
+from ..obs.journal import Journal
 from ..utils.logger import log_info
 from .batcher import WindowBatcher
 from .protocol import (DEFAULT_MAX_FRAME, ProtocolError, error_response,
@@ -137,6 +180,12 @@ def default_socket() -> str:
     """The unix socket path a server binds and a client dials when none
     is named: in the temporary directory (TMPDIR)."""
     return os.path.join(tempfile.gettempdir(), "racon_tpu_torch_serve.sock")
+
+
+def default_flight_dir() -> str:
+    """Where a server writes its flight dumps when no directory is named:
+    in the temporary directory (TMPDIR), used best-effort."""
+    return os.path.join(tempfile.gettempdir(), "racon_tpu_torch_flight")
 
 
 def _parse_tenant_weights(raw) -> dict:
@@ -267,7 +316,49 @@ class ServeConfig:
                                                          0.0))))
         self.audit_demote = bool(kw.pop("audit_demote", True))
         self.lane_quarantine = bool(kw.pop("lane_quarantine", True))
-        self.flight_dir = kw.pop("flight_dir", None)
+        #: the metrics HTTP port: None serves none (the scrape RPC always
+        #: answers), an int (0: ephemeral, the real port published back
+        #: here) serves Prometheus text on 127.0.0.1
+        metrics_port = kw.pop("metrics_port", None)
+        self.metrics_port = (None if metrics_port is None
+                             else int(metrics_port))
+        if self.metrics_port is not None and self.metrics_port < 0:
+            raise RaconError("ServeConfig",
+                             f"invalid metrics port {self.metrics_port} "
+                             "(expected >= 0; 0 = ephemeral)")
+        #: where failed and late jobs' flight dumps (and the audit's
+        #: dual-stream dumps) go; "" or None writes none (the ring stays
+        #: on). Only a directory the caller chose is checked strictly at
+        #: start(): the default is used best-effort, dump by dump
+        self.flight_dir_explicit = "flight_dir" in kw
+        self.flight_dir = kw.pop("flight_dir", default_flight_dir())
+        #: the flight ring's capacity (spans) and the most spans one
+        #: trace_pull returns
+        self.flight_events = int(kw.pop("flight_events",
+                                        obs_flight.DEFAULT_CAPACITY))
+        self.trace_pull_events = int(kw.pop("trace_pull_events",
+                                            obs_flight.DEFAULT_PULL_EVENTS))
+        #: the JSONL lifecycle journal (None: off), rotated past
+        #: `journal_max_bytes`; an unwritable path fails start()
+        self.journal_path = kw.pop("journal", None) or None
+        self.journal_max_bytes = int(kw.pop("journal_max_bytes",
+                                            JOURNAL_MAX_BYTES))
+        #: job-latency exemplars (trace id, flight dump) in the scrape
+        self.exemplars = bool(kw.pop("exemplars", True))
+        #: the SLO burn-rate tracker: allowed deadline-miss rate, the
+        #: fast and slow windows in seconds, the burn multiple that fires
+        self.slo_budget = float(kw.pop("slo_budget",
+                                       obs_fleet.DEFAULT_BUDGET))
+        self.slo_burn_fast_s = float(kw.pop("slo_burn_fast_s",
+                                            obs_fleet.DEFAULT_FAST_S))
+        self.slo_burn_slow_s = float(kw.pop("slo_burn_slow_s",
+                                            obs_fleet.DEFAULT_SLOW_S))
+        self.slo_burn_threshold = float(kw.pop(
+            "slo_burn_threshold", obs_fleet.DEFAULT_THRESHOLD))
+        #: written at drain: the armed recorder's Chrome trace (the ring
+        #: is then a full recorder) and the stats snapshot as JSON
+        self.trace_path = kw.pop("trace_path", None) or None
+        self.metrics_path = kw.pop("metrics_path", None) or None
         if kw:
             raise RaconError("ServeConfig",
                              f"unknown option(s): {', '.join(sorted(kw))}")
@@ -369,6 +460,13 @@ def make_fragment_dataset(dirname: str, seed: int = 13,
     return reads_path, ovl_path, reads_path
 
 
+def _good_id(val) -> bool:
+    """Whether a client id (trace id, tenant) is 1-64 chars of the
+    boring charset."""
+    return (isinstance(val, str) and 0 < len(val) <= 64
+            and set(val) <= _ID_OK)
+
+
 def _bad_bounds(lo, hi) -> bool:
     """Whether a request's [lo, hi) is not two integers (booleans
     refused) with 0 <= lo < hi."""
@@ -460,7 +558,31 @@ class PolishServer:
         self._stopped = threading.Event()
         self._drained_clean = False
         self._t_start = time.perf_counter()
+        #: wall-clock start: the scrape's start_time gauge tells a
+        #: restarted server from a quiet one
+        self._t_wall_start = time.time()
         self._warm: dict | None = None
+        #: the lifecycle journal, opened by start() when configured
+        self.journal: Journal | None = None
+        #: the flight source: the ring start() installs (or the full
+        #: recorder of `trace_path`), the dumps written so far
+        self._flight: obs_trace.TraceRecorder | None = None
+        self._flight_installed = False
+        self._dumps: deque = deque(maxlen=8)
+        self._http = None
+        #: the SLO burn-rate tracker, sampled on every deadline-carrying
+        #: job; this process's counters are born with it (seed_zero)
+        self.burn = obs_fleet.BurnRateTracker(
+            budget=cfg.slo_budget, fast_s=cfg.slo_burn_fast_s,
+            slow_s=cfg.slo_burn_slow_s, threshold=cfg.slo_burn_threshold,
+            seed_zero=True)
+        self.queue.on_slo = self._on_slo
+        self.queue.on_event = self._on_queue_event
+        #: the scrape's self-metered cost: bodies rendered and the
+        #: seconds spent rendering them
+        self._scrape_count = 0
+        self._scrape_render_s = 0.0
+        self._scrape_lock = threading.Lock()
 
     def _ingest_workdir(self) -> str:
         with self._ingest_lock:
@@ -477,12 +599,80 @@ class PolishServer:
         from ..device import resolve
 
         cfg = self.config
-        # a card that is not there fails the start, warm-up or not
+        # a card that is not there fails the start, warm-up or not, before
+        # anything below is armed
         resolve(cfg.device)
         for d in cfg.devices or ():
             resolve(d)
+        # an operator who chose a dump directory or a journal learns now
+        # that the path is unusable, not at the first failed job
+        if cfg.flight_dir and cfg.flight_dir_explicit:
+            try:
+                os.makedirs(cfg.flight_dir, exist_ok=True)
+                probe = os.path.join(cfg.flight_dir,
+                                     f".probe_{os.getpid()}")
+                with open(probe, "w"):
+                    pass
+                os.unlink(probe)
+            except OSError as exc:
+                raise RaconError(
+                    "PolishServer.start",
+                    f"flight dump directory {cfg.flight_dir!r} is not "
+                    f"writable ({exc}); point --flight-dir at a writable "
+                    "directory, or '' to write no dumps") from None
+        if cfg.journal_path:
+            try:
+                self.journal = Journal(cfg.journal_path,
+                                       max_bytes=cfg.journal_max_bytes)
+            except OSError as exc:
+                raise RaconError(
+                    "PolishServer.start",
+                    f"cannot open serve journal {cfg.journal_path!r} "
+                    f"({exc}); point --journal at a writable path") \
+                    from None
+        if self.auditor is not None:
+            # the auditor's mismatch, lane and alert lines join the
+            # server's journal, keyed by the owning job
+            self.auditor.journal = self.journal
+        # the flight ring is the process tracer while the server runs, so
+        # every span hook feeds it; with `trace_path` a full recorder
+        # takes its place and doubles as the flight source
+        if cfg.trace_path:
+            self._flight = obs_trace.configure(cfg.trace_path)
+        else:
+            self._flight = obs_trace.install(
+                obs_flight.FlightRecorder(cfg.flight_events))
+            self._flight_installed = True
+        try:
+            self._bind_and_serve()
+        except BaseException:
+            self._disarm_observability()
+            if self.journal is not None:
+                self.journal.close()
+            raise
+        if self.journal is not None:
+            self.journal.record("serve-start", address=cfg.address,
+                                pid=os.getpid(), workers=cfg.workers,
+                                queue_depth=cfg.queue_depth)
+        log_info(f"[racon_tpu_torch::serve] listening on {cfg.address} "
+                 f"({cfg.workers} workers, queue depth {cfg.queue_depth}, "
+                 f"device {cfg.device}"
+                 + (f", warm in {self._warm['warmup_s']:.2f}s"
+                    if self._warm else "")
+                 + (f", metrics on 127.0.0.1:{cfg.metrics_port}"
+                    if self._http is not None else "")
+                 + (f", journal {cfg.journal_path}"
+                    if self.journal is not None else "") + ")")
+        return self
+
+    def _bind_and_serve(self) -> None:
+        """start()'s second half: warm up, open the metrics port, bind the
+        transport, start the workers and the accept loop."""
+        cfg = self.config
         if cfg.warmup:
             self.warmup()
+        if cfg.metrics_port is not None:
+            self._start_metrics_http()
         if cfg.port is not None:
             lst = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             lst.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -507,12 +697,110 @@ class PolishServer:
                              name="racon-torch-serve-accept", daemon=True)
         t.start()
         self._threads.append(t)
-        log_info(f"[racon_tpu_torch::serve] listening on {cfg.address} "
-                 f"({cfg.workers} workers, queue depth {cfg.queue_depth}, "
-                 f"device {cfg.device}"
-                 + (f", warm in {self._warm['warmup_s']:.2f}s"
-                    if self._warm else "") + ")")
-        return self
+
+    def _disarm_observability(self) -> None:
+        """Close the metrics port and uninstall the recorder start()
+        armed (only if it is still the process tracer): a later server or
+        one-shot run in this process finds no tracer armed."""
+        if self._http is not None:
+            with contextlib.suppress(Exception):
+                self._http.shutdown()
+                self._http.server_close()
+            self._http = None
+        if (self._flight is not None
+                and obs_trace.get_tracer() is self._flight):
+            obs_trace.reset()
+
+    def _on_queue_event(self, event: str, job: Job, **fields) -> None:
+        """The queue's on_event sink: journal the transition. `admitted`,
+        `expired` and `cancelled` arrive under the queue mutex, so they
+        are staged (kept in memory, in order) rather than written: a slow
+        disk must not serialize every submit behind it; the handler
+        flushes them once its job resolves."""
+        if self.journal is None:
+            return
+        if event == "cancelled":
+            # a queued job cancelled never started: it leaves as an
+            # expiry with the reason pinned, after the typed annotation
+            self.journal.stage(event, job=job.id, trace=job.trace_id,
+                               **fields)
+            self.journal.stage("expired", job=job.id, trace=job.trace_id,
+                               reason="cancelled")
+        elif event in ("admitted", "expired"):
+            self.journal.stage(event, job=job.id, trace=job.trace_id,
+                               **fields)
+        else:
+            self.journal.record(event, job=job.id, trace=job.trace_id,
+                                **fields)
+
+    def _on_slo(self, job: Job, hit: int, miss: int) -> None:
+        """The queue's on_slo sink: sample the burn-rate tracker with the
+        cumulative deadline counters; a change of state journals a typed
+        `alert` line naming the job that tripped or cleared it."""
+        res = self.burn.sample(hit, miss)
+        if not res["changed"]:
+            return
+        if self.journal is not None:
+            self.journal.record(
+                "alert", job=job.id, trace=job.trace_id, kind="slo-burn",
+                state="firing" if res["firing"] else "clear",
+                burn_fast=res["fast"], burn_slow=res["slow"],
+                threshold=res["threshold"], deadline_hit=hit,
+                deadline_miss=miss)
+        log_info(f"[racon_tpu_torch::serve] SLO burn alert "
+                 f"{'FIRING' if res['firing'] else 'clear'}: fast "
+                 f"{res['fast']:g}x / slow {res['slow']:g}x of budget "
+                 f"(threshold {res['threshold']:g}x, {miss} deadline "
+                 f"misses)")
+
+    def _start_metrics_http(self) -> None:
+        """Serve Prometheus text and the health body on 127.0.0.1 HTTP
+        (standard library only). A port that cannot be bound fails
+        start(); once up, a handler error answers 500 and never reaches
+        the server."""
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        polish_server = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                try:
+                    path = self.path.split("?", 1)[0]
+                    if path in ("/metrics", "/"):
+                        body = polish_server.prometheus_text().encode()
+                        code, ctype = 200, obs_prom.CONTENT_TYPE
+                    elif path == "/healthz":
+                        # a draining server answers 503 so a balancer
+                        # stops routing to it; the body says why
+                        doc = polish_server.healthz_snapshot()
+                        body = (json.dumps(doc, sort_keys=True)
+                                + "\n").encode()
+                        code = 200 if doc["ok"] else 503
+                        ctype = "application/json"
+                    else:
+                        self.send_error(404)
+                        return
+                    self.send_response(code)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                except Exception as exc:  # noqa: BLE001 — see docstring
+                    with contextlib.suppress(Exception):
+                        self.send_error(500,
+                                        f"{type(exc).__name__}: {exc}")
+
+            def log_message(self, *args):  # scrapes do not log
+                pass
+
+        httpd = ThreadingHTTPServer(("127.0.0.1", self.config.metrics_port),
+                                    _Handler)
+        httpd.daemon_threads = True
+        self.config.metrics_port = httpd.server_address[1]
+        self._http = httpd
+        threading.Thread(target=httpd.serve_forever,
+                         name="racon-torch-serve-metrics-http",
+                         daemon=True).start()
 
     def _polisher(self, paths, opts: dict, fault_plan=None):
         """A job's polisher: the request's options over the server's
@@ -583,6 +871,10 @@ class PolishServer:
         self._draining.set()
         budget = (timeout if timeout is not None
                   else self.config.drain_timeout_s)
+        if self.journal is not None:
+            self.journal.record("drain", queued=len(self.queue),
+                                inflight=self._inflight_count(),
+                                budget_s=round(budget, 1))
         log_info(f"[racon_tpu_torch::serve] draining: {len(self.queue)} "
                  f"queued, {self._inflight_count()} in flight (budget "
                  f"{budget:.0f}s)")
@@ -607,6 +899,10 @@ class PolishServer:
         self.batcher.close()
         if self.auditor is not None:
             self.auditor.close()
+        # the trace and metrics artifacts are written before the
+        # connections drop, then the port closes and the ring goes
+        self._flush_observability()
+        self._disarm_observability()
         with self._conn_lock:
             conns = list(self._conns)
         for c in conns:
@@ -631,9 +927,37 @@ class PolishServer:
                  f"{q['expired']}, full-queue rejects {q['rejected_full']}; "
                  f"device iterations {b['iterations']} (shared "
                  f"{b['shared_iterations']})")
+        if self.journal is not None:
+            self.journal.record("serve-stop", clean=clean,
+                                completed=q["completed"], failed=q["failed"])
+            self.journal.close()
         self._drained_clean = clean
         self._stopped.set()
         return clean
+
+    def _flush_observability(self) -> None:
+        """Write `metrics_path` (the stats snapshot) and `trace_path` (the
+        armed recorder) when configured. An unwritable path loses the
+        artifact, not the drain."""
+        cfg = self.config
+        if cfg.metrics_path:
+            try:
+                with open(cfg.metrics_path, "w") as fh:
+                    json.dump(self.stats_snapshot(), fh, indent=2,
+                              sort_keys=True)
+                log_info(f"[racon_tpu_torch::serve] metrics written to "
+                         f"{cfg.metrics_path}")
+            except OSError as exc:
+                log_info(f"[racon_tpu_torch::serve] warning: could not "
+                         f"write metrics ({exc})")
+        if cfg.trace_path and self._flight is not None:
+            try:
+                self._flight.save(cfg.trace_path)
+                log_info(f"[racon_tpu_torch::serve] trace written to "
+                         f"{cfg.trace_path}")
+            except OSError as exc:
+                log_info(f"[racon_tpu_torch::serve] warning: could not "
+                         f"write trace ({exc})")
 
     # ----------------------------------------------------------- serving
     def _accept_loop(self) -> None:
@@ -690,13 +1014,36 @@ class PolishServer:
         if rtype == "submit":
             return self._submit(req, conn)
         if rtype == "ping":
+            # mono_s is the clock handshake's sample: a tracing client
+            # brackets it by the round trip to estimate this process's
+            # perf_counter offset (client.clock_sync)
             return {"type": "pong", "warm": self._warm is not None,
                     "uptime_s": round(
-                        time.perf_counter() - self._t_start, 3)}
+                        time.perf_counter() - self._t_start, 3),
+                    "mono_s": time.perf_counter()}
         if rtype == "stats":
             return dict(self.stats_snapshot(), type="stats")
         if rtype == "healthz":
             return dict(self.healthz_snapshot(), type="healthz")
+        if rtype == "scrape":
+            return {"type": "metrics", "content_type": obs_prom.CONTENT_TYPE,
+                    "text": self.prometheus_text()}
+        if rtype == "debug":
+            max_events = req.get("max_events", 5000)
+            if isinstance(max_events, bool) or not isinstance(max_events,
+                                                              int):
+                return error_response("bad-request",
+                                      "max_events must be an integer")
+            resp = self.debug_snapshot(max_events)
+            if self.auditor is not None:
+                # the operator's acknowledgement clears the audit alert
+                # (gauge and journal) until the next mismatch
+                if req.get("audit_ack"):
+                    resp["audit_ack"] = self.auditor.ack()
+                resp["audit"] = self.auditor.snapshot()
+            return resp
+        if rtype == "trace_pull":
+            return self._trace_pull(req)
         if rtype == "cancel":
             return self._cancel(req)
         if rtype == "shutdown":
@@ -743,9 +1090,7 @@ class PolishServer:
         # id); the tenant names its fair-scheduling bucket
         for key in ("trace_id", "tenant"):
             val = req.get(key)
-            if val is not None and (not isinstance(val, str)
-                                    or not 0 < len(val) <= 64
-                                    or not set(val) <= _ID_OK):
+            if val is not None and not _good_id(val):
                 return error_response(
                     "bad-request", f"{key} must be 1-64 chars of "
                                    "[A-Za-z0-9._-]")
@@ -847,11 +1192,22 @@ class PolishServer:
         job = Job(job_id, req["sequences"], req["overlaps"], req["target"],
                   options, priority=priority, deadline_s=deadline_s,
                   fault_plan=fault_plan, trace_id=req.get("trace_id"),
+                  want_trace=bool(req.get("trace")),
                   want_progress=bool(req.get("progress")),
                   want_stream=bool(req.get("stream")),
                   tenant=req.get("tenant") or "", rounds=rounds,
                   range_lo=range_lo, range_hi=range_hi, fragment=fragment,
                   frag_lo=frag_lo, frag_hi=frag_hi)
+        journal = self.journal
+        trace_id = job.trace_id
+        if journal is not None:
+            journal.record("received", job=job.id, trace=trace_id,
+                           priority=job.priority or None,
+                           tenant=job.tenant or None, deadline_s=deadline_s,
+                           rounds=job.rounds, range_lo=job.range_lo,
+                           range_hi=job.range_hi,
+                           mode="fragment" if job.fragment else None,
+                           frag_lo=job.frag_lo, frag_hi=job.frag_hi)
         if ingest_spec is not None:
             # a file that does not parse fails this job at the door,
             # typed, before it takes queue or device time
@@ -860,8 +1216,12 @@ class PolishServer:
             try:
                 done = prepare(job.sequences, job.overlaps, job.target,
                                ingest_spec, self._ingest_workdir(), job.id,
-                               trace_id=job.trace_id)
+                               trace_id=trace_id, journal=journal)
             except IngestError as exc:
+                if journal is not None:
+                    journal.record("rejected-ingest", job=job.id,
+                                   trace=trace_id, error=exc.stage,
+                                   detail=str(exc))
                 return error_response("bad-request", str(exc),
                                       job_id=job_id,
                                       terminal="rejected-ingest",
@@ -870,29 +1230,51 @@ class PolishServer:
         try:
             self.queue.submit(job)
         except TenantQuotaExceeded as exc:
+            if journal is not None:
+                journal.record("rejected-quota", job=job.id, trace=trace_id,
+                               tenant=job.tenant or None,
+                               retry_after=round(exc.retry_after, 3))
             return error_response("tenant-quota", str(exc),
                                   retry_after=round(exc.retry_after, 3),
                                   tenant=job.tenant, job_id=job_id)
         except QueueFull as exc:
+            if journal is not None:
+                journal.record("rejected-full", job=job.id, trace=trace_id,
+                               retry_after=round(exc.retry_after, 3))
             return error_response("queue-full", str(exc),
                                   retry_after=round(exc.retry_after, 3),
                                   job_id=job_id)
         except DeadlineDoomed as exc:
             # the service-time estimate says the job cannot meet its
-            # deadline: it fails before it costs queue or device time
+            # deadline: it fails before it costs queue or device time,
+            # and leaves the journal as an expiry with the reason pinned
             with self._run_lock:
                 self.qos["doomed_at_admission"] += 1
+            if journal is not None:
+                journal.record("deadline-doomed", job=job.id,
+                               trace=trace_id, phase="admission",
+                               predicted_s=round(exc.predicted_s, 3),
+                               remaining_s=round(exc.remaining_s, 3))
+                journal.record("expired", job=job.id, trace=trace_id,
+                               reason="deadline-doomed")
             return error_response(
                 "deadline-doomed", str(exc), job_id=job_id,
                 predicted_s=round(exc.predicted_s, 3),
                 remaining_s=round(exc.remaining_s, 3))
         except Draining as exc:
+            if journal is not None:
+                journal.record("rejected-draining", job=job.id,
+                               trace=trace_id)
             return error_response("draining", str(exc), job_id=job_id)
         self._maybe_preempt(job)
         if job.relaying:
             self._stream_frames(job, conn)
         else:
             job.event.wait()
+        # the `admitted` (and an in-queue expiry's) lines were staged
+        # under the queue mutex; they reach the disk here
+        if journal is not None:
+            journal.flush_staged()
         return job.response
 
     def _stream_frames(self, job: Job, conn: socket.socket) -> None:
@@ -965,10 +1347,14 @@ class PolishServer:
                                                        4)})
         t0 = time.perf_counter()
         ok = False
+        journal = self.journal
         try:
             resp = self._run_job(job)
             ok = True
         except JobCancelledError as exc:
+            if journal is not None:
+                journal.record("cancelled", job=job.id, trace=job.trace_id,
+                               state="running")
             resp = error_response("cancelled", str(exc), job_id=job.id,
                                   error_type=type(exc).__name__,
                                   queue_wait_s=round(job.queue_wait_s, 4))
@@ -976,6 +1362,11 @@ class PolishServer:
             # the iteration-boundary estimate gave the deadline up
             with self._run_lock:
                 self.qos["doomed_mid_run"] += 1
+            if journal is not None:
+                journal.record("deadline-doomed", job=job.id,
+                               trace=job.trace_id, phase=exc.phase,
+                               predicted_s=round(exc.predicted_s, 3),
+                               remaining_s=round(exc.remaining_s, 3))
             resp = error_response("deadline-doomed", str(exc),
                                   job_id=job.id,
                                   error_type=type(exc).__name__,
@@ -989,13 +1380,60 @@ class PolishServer:
                                   queue_wait_s=round(job.queue_wait_s, 4))
         job.response = resp
         try:
-            self.queue.task_done(job, ok, time.perf_counter() - t0)
+            self._account_job(job, ok, resp, time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — telemetry never kills
+            # the worker nor strands the waiter on job.event
+            log_info(f"[racon_tpu_torch::serve] warning: post-job "
+                     f"telemetry failed ({type(exc).__name__}: {exc})")
         finally:
             job.finish()
             self._qos_job_done(job)
             with self._idle:
                 self._inflight -= 1
                 self._idle.notify_all()
+
+    def _account_job(self, job: Job, ok: bool, resp: dict,
+                     service_s: float) -> None:
+        """A finished job's accounting, before its waiter wakes: its own
+        histograms merge into the server's (a failed job's too: the
+        pathological jobs are the ones the tails must not drop), the
+        queue counts it with its latency exemplar, the journal gets its
+        iterations, a deadline miss and its terminal line, and a failed
+        or late job its flight dump, so a client reacting to the error
+        finds the dump already listed by `debug`."""
+        if job.stats_ref is not None and job.stats_ref.hists is not None:
+            self.hists.merge(job.stats_ref.hists)
+        exemplar = None
+        if self.config.exemplars:
+            # the job-latency bucket this job lands in names it, and a
+            # failed or late job's flight dump (its path is the one
+            # _flight_dump writes below)
+            exemplar = {"trace_id": job.trace_id or job.id, "job": job.id}
+            late = (job.deadline is not None
+                    and time.perf_counter() > job.deadline)
+            if (not ok or late) and self.config.flight_dir:
+                exemplar["flight"] = self._dump_path(
+                    job, "job-failed" if not ok else "deadline-miss")
+        missed = self.queue.task_done(job, ok, service_s, exemplar=exemplar)
+        journal = self.journal
+        if journal is not None:
+            batch = ((resp.get("serve") or {}).get("batch")
+                     if ok else None) or {}
+            if batch:
+                journal.record("iterations", job=job.id, trace=job.trace_id,
+                               iterations=batch.get("iterations"),
+                               shared=batch.get("shared_iterations"),
+                               windows=batch.get("windows"))
+            if missed:
+                journal.record("deadline-miss", job=job.id,
+                               trace=job.trace_id)
+            journal.record("finished" if ok else "failed", job=job.id,
+                           trace=job.trace_id, service_s=round(service_s, 4),
+                           sequences=resp.get("sequences"),
+                           error_type=resp.get("error_type"))
+        if not ok or missed:
+            self._flight_dump(job, "job-failed" if not ok
+                              else "deadline-miss", resp)
 
     # ---------------------------------------------------------------- qos
     def _surge_worker(self) -> None:
@@ -1017,6 +1455,9 @@ class PolishServer:
             was_parked = self._preempted.pop(job.id, None) is not None
         if was_parked:
             self.batcher.resume_job(job.id)
+            if self.journal is not None:
+                self.journal.record("resumed", job=job.id,
+                                    trace=job.trace_id, reason="terminal")
         self._maybe_resume()
 
     def _maybe_preempt(self, job: Job) -> None:
@@ -1040,6 +1481,11 @@ class PolishServer:
             self._preempted[victim.id] = victim
             self.qos["preemptions"] += 1
         parked = self.batcher.withdraw_job(victim.id)
+        if self.journal is not None:
+            self.journal.record("preempted", job=victim.id,
+                                trace=victim.trace_id, by=job.id,
+                                priority=victim.priority,
+                                by_priority=job.priority, windows=parked)
         log_info(f"[racon_tpu_torch::serve] preempted job {victim.id} "
                  f"(priority {victim.priority}) for {job.id} (priority "
                  f"{job.priority}): {parked} windows parked")
@@ -1063,6 +1509,9 @@ class PolishServer:
             del self._preempted[cand.id]
             self.qos["resumes"] += 1
         n = self.batcher.resume_job(cand.id)
+        if self.journal is not None:
+            self.journal.record("resumed", job=cand.id, trace=cand.trace_id,
+                                windows=n)
         log_info(f"[racon_tpu_torch::serve] resumed job {cand.id}: {n} "
                  f"windows back in the pool")
 
@@ -1080,6 +1529,8 @@ class PolishServer:
         if job is not None:
             with self._run_lock:
                 self.cancelled += 1
+            if self.journal is not None:
+                self.journal.flush_staged()
             return {"type": "ok", "cancelled": "queued", "job_id": job.id}
         with self._run_lock:
             running = self._running.get(job_id or "")
@@ -1098,12 +1549,44 @@ class PolishServer:
                 "pooled": pooled}
 
     def _run_job(self, job: Job) -> dict:
-        opts = job.options
+        """Run one job. A job submitted with `trace: true` runs under its
+        own recorder (obs/trace.scoped: one such job at a time, and it
+        sees every thread's spans while it runs), rebased to the job's
+        enqueue so its queue wait keeps its offset; the response carries
+        its events and the recorder's base. Any other job leaves the same
+        two spans, `serve.queue_wait` and `serve.job`, in the flight
+        ring, tagged with its trace id, for `trace_pull`."""
         t0 = time.perf_counter()
+        tags = {"job": job.id, "trace_id": job.trace_id}
+        with (obs_trace.scoped() if job.want_trace
+              else contextlib.nullcontext()) as rec:
+            sink = rec if job.want_trace else self._flight
+            if job.want_trace:
+                rec.rebase(job.enqueued_t)
+            if sink is not None:
+                sink.complete("serve.queue_wait", job.enqueued_t,
+                              job.started_t or t0, tags)
+            resp = self._run_passes(job, t0)
+        if sink is not None:
+            sink.complete("serve.job", t0, time.perf_counter(), tags)
+        if job.want_trace:
+            resp["trace"] = rec.events()
+            # the recorder's time zero on this process's perf_counter:
+            # with the ping handshake's offset the client maps every
+            # server span onto its own clock (client.merge_trace)
+            resp["trace_base_mono"] = rec._base
+        return resp
+
+    def _run_passes(self, job: Job, t0: float) -> dict:
+        opts = job.options
+        journal = self.journal
         launches0 = _job_launches()
         polisher = self._polisher(
             (job.sequences, job.overlaps, job.target), opts,
             fault_plan=job.fault_plan)
+        # the flight dump of a job that dies mid-phase carries its stage
+        # counters so far
+        job.stats_ref = polisher.pipeline_stats
         polisher.serve_job_id = job.id
         polisher.serve_trace_id = job.trace_id
         polisher.serve_tenant = job.tenant
@@ -1129,6 +1612,11 @@ class PolishServer:
         def on_part(seq) -> None:
             part = b">" + seq.name.encode() + b"\n" + seq.data + b"\n"
             parts.append(part)
+            if journal is not None:
+                journal.record("part-streamed", job=job.id,
+                               trace=job.trace_id,
+                               contig=seq.name.split(" ", 1)[0],
+                               part=len(parts), bytes=len(part))
             frame = {"type": "result_part", "job_id": job.id,
                      "part": len(parts), "name": seq.name,
                      "fasta": part.decode("latin-1")}
@@ -1147,6 +1635,10 @@ class PolishServer:
             body = b"".join(b">" + s.name.encode() + b"\n" + s.data
                             + b"\n" for s in seqs)
             parts.append(body)
+            if journal is not None:
+                journal.record("part-streamed", job=job.id,
+                               trace=job.trace_id, part=len(parts),
+                               bytes=len(body), reads=len(seqs))
             base = job.frag_lo or 0
             job.notify_part({"type": "result_part", "job_id": job.id,
                              "part": len(parts), "reads": len(seqs),
@@ -1188,6 +1680,10 @@ class PolishServer:
                         final = rnd == job.rounds
                         if job.cancelled:
                             raise JobCancelledError("running")
+                        if journal is not None:
+                            journal.record("round-started", job=job.id,
+                                           trace=job.trace_id, round=rnd,
+                                           of=job.rounds)
                         rt0 = time.perf_counter()
                         polished = one_pass(final)
                         wall = time.perf_counter() - rt0
@@ -1209,12 +1705,24 @@ class PolishServer:
                             info["cache"] = dict(polisher.serve_cache)
                         per_round.append(info)
                         self.hists.observe(f"serve.round_{rnd}", wall)
+                        if journal is not None:
+                            journal.record(
+                                "round-finished", job=job.id,
+                                trace=job.trace_id, round=rnd,
+                                of=job.rounds, wall_s=round(wall, 4),
+                                sequences=len(polished),
+                                cache_hits=(polisher.serve_cache
+                                            or {}).get("hits"))
                         with self._rounds_lock:
                             self._rounds["completed"] += 1
                         if not final:
+                            # the next round starts fresh counters: this
+                            # round's histograms join the server's now
+                            self.hists.merge(polisher.hists)
                             polisher.redraft(polished, workdir,
                                              tag=f"r{rnd}")
                             polisher.initialize()
+                            job.stats_ref = polisher.pipeline_stats
             finally:
                 with self._rounds_lock:
                     self._rounds["inflight"] -= 1
@@ -1263,6 +1771,281 @@ class PolishServer:
             resp["fasta"] = fasta.decode("latin-1")
         return resp
 
+    # -------------------------------------------------- flight recorder
+    def _dump_path(self, job: Job, reason: str) -> str:
+        return os.path.join(self.config.flight_dir,
+                            f"flight_{job.id}_{reason}.json")
+
+    def _flight_dump(self, job: Job, reason: str,
+                     resp: dict | None) -> None:
+        """Write the flight ring, windowed to `job`, as a Chrome trace
+        named for the job, with its identity, error and stage counters.
+        Best-effort: a full disk or an unwritable directory loses the
+        artifact, never the job's response or the server."""
+        if not self.config.flight_dir or self._flight is None:
+            return
+        try:
+            os.makedirs(self.config.flight_dir, exist_ok=True)
+            path = self._dump_path(job, reason)
+            info = {"job_id": job.id, "reason": reason,
+                    "queue_wait_s": round(job.queue_wait_s, 4),
+                    "error_type": (resp or {}).get("error_type"),
+                    "message": (resp or {}).get("message"),
+                    "stage_stats": (job.stats_ref.snapshot()
+                                    if job.stats_ref is not None else None)}
+            obs_flight.dump(self._flight, path, since=job.started_t,
+                            flight=info)
+            self._dumps.append(path)
+            log_info(f"[racon_tpu_torch::serve] flight recorder dumped to "
+                     f"{path} ({reason})")
+        except Exception as exc:  # noqa: BLE001 — see docstring
+            log_info(f"[racon_tpu_torch::serve] warning: could not write "
+                     f"flight dump ({type(exc).__name__}: {exc})")
+
+    def debug_snapshot(self, max_events: int = 5000) -> dict:
+        """The `debug` body: the flight ring's most recent events (at most
+        `max_events` spans, thread names kept; 0 or less: all) and the
+        dumps written so far."""
+        events: list = []
+        if self._flight is not None:
+            events = obs_flight.window_events(self._flight)
+            if max_events > 0 and len(events) > max_events:
+                meta = [e for e in events if e.get("ph") == "M"]
+                rest = [e for e in events if e.get("ph") != "M"]
+                events = meta + rest[-max_events:]
+        return {"type": "debug", "events": events,
+                "dumps": list(self._dumps),
+                "flight_installed": self._flight_installed}
+
+    def _trace_pull(self, req: dict) -> dict:
+        """The `trace_pull` body: the flight ring windowed to one trace id
+        (an exact or a dotted `<id>.<child>` match; obs/flight.
+        trace_events) or, with `trace_ids`, to the union of those, with
+        the recorder's base and a fresh clock sample so the caller can
+        rebase the events onto its own timeline. It reads the ring that
+        is already recording: a pull costs the server its reply."""
+        trace_id = req.get("trace_id")
+        if not _good_id(trace_id):
+            return error_response("bad-request",
+                                  "trace_pull needs a trace_id of "
+                                  "[A-Za-z0-9._-], at most 64 chars")
+        want = trace_id
+        tids = req.get("trace_ids")
+        if tids is not None:
+            if (not isinstance(tids, list) or not tids
+                    or not all(_good_id(t) for t in tids)):
+                return error_response("bad-request",
+                                      "trace_pull trace_ids must be a "
+                                      "non-empty list of [A-Za-z0-9._-] "
+                                      "ids")
+            want = tids
+        cap = req.get("max_events", self.config.trace_pull_events)
+        if isinstance(cap, bool) or not isinstance(cap, int):
+            return error_response("bad-request",
+                                  "max_events must be an integer")
+        events: list = []
+        base = None
+        if self._flight is not None:
+            events = obs_flight.trace_events(self._flight, want,
+                                             max_events=cap)
+            base = self._flight._base
+        return {"type": "trace", "trace_id": trace_id, "events": events,
+                "base_mono": base, "mono_s": time.perf_counter()}
+
+    # --------------------------------------------------------- exposition
+    def prometheus_text(self) -> str:
+        """One Prometheus scrape body (obs/prom.py): lifetime counters,
+        live gauges and every latency histogram, read at call time. It
+        takes only the queue's, the batcher's pool and the counters'
+        short locks, never a lane's, so a scrape does not wait on a
+        running iteration; safe at any point of the server's life."""
+        from ..sched.autotune import get_autotuner
+
+        t_render = time.perf_counter()
+        cfg = self.config
+        q = self.queue.snapshot()
+        b = self.batcher.snapshot()
+        counters: dict = {f"serve.jobs.{k}": q[k] for k in (
+            "submitted", "admitted", "rejected_full", "rejected_draining",
+            "rejected_quota", "expired", "completed", "failed",
+            "deadline_hit", "deadline_miss")}
+        counters["serve.batch.iterations"] = b["iterations"]
+        counters["serve.batch.shared_iterations"] = b["shared_iterations"]
+        counters["serve.batch.windows"] = b["windows"]
+        counters["serve.batch.host_seconds"] = round(b.get("host_s", 0.0),
+                                                     4)
+        counters["serve.compiles"] = b["compiles"]
+        for lane in b.get("lanes") or ():
+            counters[f"serve.lane.{lane['lane']}.iterations"] = \
+                lane["iterations"]
+        # tenant ids that name a series unchanged by sanitization only:
+        # 'team.a' and 'team-a' would collide into one series
+        for tenant, tc in (q.get("tenants") or {}).items():
+            if tenant and all(c.isalnum() or c == "_" for c in tenant):
+                counters[f"serve.tenant.{tenant}.admitted"] = \
+                    tc["admitted"]
+                counters[f"serve.tenant.{tenant}.completed"] = \
+                    tc["completed"]
+        if self.journal is not None:
+            counters["serve.journal.events"] = self.journal.events
+            counters["serve.journal.dropped"] = self.journal.dropped
+        consults = get_autotuner(cfg.autotune_table).consult_counts()
+        if consults:
+            counters["sched.autotune.consults"] = obs_prom.Labeled(
+                consults, "winner-table consults by decision (decision "
+                "'none' = cold bucket, the engine's default)")
+        gauges: dict = {
+            "serve.uptime_seconds": (
+                round(time.perf_counter() - self._t_start, 3),
+                "seconds since this server process started serving"),
+            "serve.start_time_seconds": (
+                round(self._t_wall_start, 3),
+                "unix time the server started (a counter reset with an "
+                "unchanged start time is a bug, with a changed one a "
+                "restart)"),
+            "serve.queue_depth": q["depth"],
+            "serve.queue_capacity": q["maxsize"],
+            "serve.queue_oldest_wait_seconds": q.get("oldest_wait_s", 0.0),
+            "serve.inflight": self._inflight_count(),
+            "serve.draining": self._draining.is_set(),
+            "serve.service_time_ema_seconds": q["ema_service_s"],
+            "serve.worker_lanes": b.get("worker_lanes", 1),
+        }
+        for lane in b.get("lanes") or ():
+            gauges[f"serve.lane.{lane['lane']}.busy"] = (
+                lane["busy"], "1 while this worker lane runs a device "
+                "iteration")
+        for engine, e in (b.get("occupancy") or {}).items():
+            if "occupancy_pct" in e:
+                gauges[f"sched.{engine}.occupancy_pct"] = e["occupancy_pct"]
+        tenants = q.get("tenants") or {}
+        if tenants:
+            gauges["serve.tenant_queue_depth"] = obs_prom.Labeled(
+                [({"tenant": t}, tc.get("queued", 0))
+                 for t, tc in sorted(tenants.items())],
+                "live queued jobs per tenant")
+            gauges["serve.tenant_credit"] = obs_prom.Labeled(
+                [({"tenant": t}, tc.get("credit", 0.0))
+                 for t, tc in sorted(tenants.items())],
+                "accrued fair-order credit per tenant (one spent a pop)")
+        tdev = self.batcher.tenant_device_seconds()
+        if tdev:
+            counters["serve.tenant_device_seconds"] = obs_prom.Labeled(
+                [({"tenant": t}, v) for t, v in sorted(tdev.items())],
+                "device seconds charged per tenant (lane iteration wall "
+                "prorated by window share; empty tenant label = "
+                "untenanted traffic)")
+        # the audit's families only with the auditor armed
+        if self.auditor is not None:
+            a = self.auditor.snapshot()
+            counters["audit.windows"] = (
+                a["windows"], "windows that passed through audited "
+                "iterations (the sampling denominator)")
+            counters["audit.sampled"] = (
+                a["sampled"], "windows selected by the content-keyed "
+                "sample at the armed rate")
+            counters["audit.shadow_seconds"] = round(a["shadow_s"], 4)
+            counters["audit.repaired"] = a["repaired"]
+            counters["audit.demotions"] = (
+                a["demotions"], "winner-table entries demoted to the "
+                "oracle candidate after a mismatch")
+            counters["audit.shadow_launches"] = a["shadow"]["launches"]
+            counters["audit.shadow_compiles"] = a["shadow"]["compiles"]
+            mism = self.auditor.mismatch_samples()
+            if mism:
+                counters["audit.mismatches"] = obs_prom.Labeled(
+                    mism, "confirmed silent-data-corruption events by "
+                    "(engine, kernel, dtype, bucket, lane)")
+            gauges["audit.rate"] = (
+                a["rate"], "content-keyed sample fraction the auditor "
+                "audits at")
+            gauges["audit.alert"] = (
+                a["alert_firing"], "1 while unacknowledged identity "
+                "mismatches exist (clear with the debug RPC's audit_ack)")
+            lane_rows = b.get("lanes") or ()
+            if lane_rows:
+                gauges["lane_health"] = obs_prom.Labeled(
+                    [({"lane": str(ln["lane"])}, ln["health"])
+                     for ln in lane_rows],
+                    "lane health: 1 healthy, 0 quarantined, 0.5 degraded "
+                    "(failed re-probe, last serving lane)")
+        # the window cache's families only with the cache armed
+        wc = self.batcher.wincache
+        if wc is not None:
+            c = wc.snapshot()
+            counters["serve.wincache.ops"] = obs_prom.Labeled(
+                [({"op": "eviction"}, c["evictions"]),
+                 ({"op": "hit"}, c["hits"]),
+                 ({"op": "invalidation"}, c["invalidations"]),
+                 ({"op": "miss"}, c["misses"]),
+                 ({"op": "put"}, c["puts"]),
+                 ({"op": "quarantined"}, c["quarantined"])],
+                "window consensus cache operations by outcome (a hit "
+                "skips the device)")
+            counters["serve.wincache.hit_bytes"] = (
+                c["hit_bytes"], "consensus bytes served from the cache "
+                "instead of a device iteration")
+            gauges["serve.wincache.bytes"] = (
+                c["bytes"], "resident cache payload bytes (LRU-bounded by "
+                "max_bytes)")
+            gauges["serve.wincache.entries"] = c["entries"]
+            gauges["serve.wincache.max_bytes"] = c["max_bytes"]
+        # the rounds families once a rounds job has been seen
+        with self._rounds_lock:
+            r = dict(self._rounds)
+        if r["jobs"]:
+            counters["serve.rounds_jobs"] = (
+                r["jobs"], "jobs that asked for polishing rounds (rounds=N "
+                "on the submit frame)")
+            counters["serve.rounds_completed"] = (
+                r["completed"], "polishing rounds completed across all "
+                "rounds jobs")
+            gauges["serve.rounds_inflight"] = (
+                r["inflight"], "rounds jobs running now")
+        # the QoS families when armed or once one of them counted
+        with self._run_lock:
+            qos = dict(self.qos)
+            cancelled = self.cancelled
+            preempted_now = len(self._preempted)
+        doomed = qos["doomed_at_admission"] + qos["doomed_mid_run"]
+        if (cfg.preempt or cfg.abort_margin is not None
+                or cfg.tenant_burst > 0 or any(qos.values())
+                or cancelled):
+            counters["serve.preemptions"] = (
+                qos["preemptions"], "running jobs preempted by a higher "
+                "priority (windows parked, resumed with the same bytes)")
+            counters["serve.aborted_doomed"] = (
+                doomed, "jobs failed with deadline-doomed (predicted "
+                "finish past the deadline by more than the abort margin)")
+            counters["serve.cancelled"] = (
+                cancelled, "jobs cancelled through the cancel RPC (queued "
+                "or running)")
+            gauges["serve.preempted_inflight"] = (
+                preempted_now, "jobs parked by preemption now (their "
+                "finished windows are kept)")
+            if cfg.tenant_burst > 0:
+                counters["serve.burst_admits"] = (
+                    q.get("burst_admits", 0), "admissions over the tenant "
+                    "quota paid for by burst tokens")
+        burn = self.burn.state()
+        gauges["slo.burn_rate"] = (
+            burn["fast"], "fast-window SLO burn rate: the deadline-miss "
+            "rate over the window as a multiple of the error budget")
+        gauges["slo.burn_rate_slow"] = burn["slow"]
+        gauges["slo.burn_alert"] = (
+            burn["firing"], "1 while both burn windows exceed the "
+            "threshold")
+        # the scrape's own cost: the renders before this one
+        with self._scrape_lock:
+            counters["serve.scrapes"] = self._scrape_count
+            counters["serve.scrape_seconds"] = round(self._scrape_render_s,
+                                                     6)
+        body = obs_prom.render(counters, gauges, self.hists)
+        with self._scrape_lock:
+            self._scrape_count += 1
+            self._scrape_render_s += time.perf_counter() - t_render
+        return body
+
     # -------------------------------------------------------------- misc
     def _inflight_count(self) -> int:
         with self._idle:
@@ -1288,6 +2071,7 @@ class PolishServer:
                        "expired": q["expired"],
                        "miss_rate": (round(q["deadline_miss"] / deadlined,
                                            4) if deadlined else 0.0),
+                       "burn": self.burn.state(),
                        "recent": q.get("recent"),
                        "latency": (latency.snapshot()
                                    if latency is not None else None)}}
@@ -1304,11 +2088,23 @@ class PolishServer:
         with self._rounds_lock:
             if self._rounds["jobs"]:
                 out["rounds"] = dict(self._rounds)
+        if self._dumps:
+            out["flight"] = {"dumps": list(self._dumps),
+                             "installed": self._flight_installed}
+        if self.journal is not None:
+            out["journal"] = {"path": cfg.journal_path,
+                              "events": self.journal.events,
+                              "dropped": self.journal.dropped}
         return out
 
     def _on_audit_alert(self, state: str, detail: dict) -> None:
-        """The auditor's alert sink: logged (the alert clears with
-        `auditor.ack()`)."""
+        """The auditor's alert sink: a typed `alert` line in the journal
+        and a log line (the alert clears with the debug RPC's
+        `audit_ack`)."""
+        if self.journal is not None:
+            self.journal.record("alert", kind="audit-mismatch", state=state,
+                                mismatches=detail.get("mismatches"),
+                                acked=detail.get("acked"))
         log_info(f"[racon_tpu_torch::serve] audit alert "
                  f"{'FIRING' if state == 'firing' else 'clear'}: "
                  f"{detail.get('mismatches', 0)} identity mismatches, "
@@ -1324,6 +2120,22 @@ class PolishServer:
 
 
 # ------------------------------------------------------------------ CLI
+def _metrics_port(raw: str) -> int:
+    """argparse type of --metrics-port: an integer >= 0, refused at parse
+    time otherwise (a typo must not bind a port no scraper finds)."""
+    import argparse
+
+    try:
+        port = int(raw)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"invalid metrics port {raw!r} (expected an integer)") from None
+    if port < 0:
+        raise argparse.ArgumentTypeError(
+            f"invalid metrics port {port} (expected >= 0; 0 = ephemeral)")
+    return port
+
+
 def serve_main(argv: list[str]) -> int:
     """`python -m racon_tpu_torch serve`: run a PolishServer until
     SIGTERM / SIGINT or a `shutdown` request, then drain."""
@@ -1428,8 +2240,60 @@ def serve_main(argv: list[str]) -> int:
     ap.add_argument("--no-lane-quarantine", action="store_true",
                     help="an audit mismatch does not quarantine its lane")
     ap.add_argument("--flight-dir", default=None,
-                    help="where an audit mismatch writes its dual-stream "
-                         "dump (default: none written)")
+                    help="where a failed or late job's flight dump and an "
+                         "audit mismatch's dual-stream dump go (default "
+                         f"{default_flight_dir()}, used best-effort; '' "
+                         "writes none; a named directory that is not "
+                         "writable fails the start)")
+    ap.add_argument("--flight-events", type=int,
+                    default=obs_flight.DEFAULT_CAPACITY,
+                    help="the flight ring's capacity in spans (default "
+                         f"{obs_flight.DEFAULT_CAPACITY})")
+    ap.add_argument("--trace-pull-events", type=int,
+                    default=obs_flight.DEFAULT_PULL_EVENTS,
+                    help="the most spans one trace_pull returns (default "
+                         f"{obs_flight.DEFAULT_PULL_EVENTS})")
+    ap.add_argument("--metrics-port", type=_metrics_port, default=None,
+                    help="serve Prometheus text on this 127.0.0.1 HTTP "
+                         "port as /metrics, with /healthz (0: ephemeral; "
+                         "default: none; the scrape RPC answers "
+                         "regardless)")
+    ap.add_argument("--journal", default=None,
+                    help="JSONL journal of every job's lifecycle, keyed "
+                         "by job and trace id (default: off; an "
+                         "unwritable path fails the start)")
+    ap.add_argument("--journal-max-bytes", type=int,
+                    default=JOURNAL_MAX_BYTES,
+                    help="rotate the journal past this many bytes (one "
+                         f"older generation kept; default "
+                         f"{JOURNAL_MAX_BYTES})")
+    ap.add_argument("--no-exemplars", action="store_true",
+                    help="no trace-id or flight-dump exemplars on the "
+                         "job-latency histogram")
+    ap.add_argument("--slo-budget", type=float,
+                    default=obs_fleet.DEFAULT_BUDGET,
+                    help="the allowed deadline-miss rate the burn rate is "
+                         f"measured against (default "
+                         f"{obs_fleet.DEFAULT_BUDGET})")
+    ap.add_argument("--slo-burn-fast-s", type=float,
+                    default=obs_fleet.DEFAULT_FAST_S,
+                    help="the burn rate's fast window in seconds (default "
+                         f"{obs_fleet.DEFAULT_FAST_S:g})")
+    ap.add_argument("--slo-burn-slow-s", type=float,
+                    default=obs_fleet.DEFAULT_SLOW_S,
+                    help="the burn rate's slow window in seconds (default "
+                         f"{obs_fleet.DEFAULT_SLOW_S:g})")
+    ap.add_argument("--slo-burn-threshold", type=float,
+                    default=obs_fleet.DEFAULT_THRESHOLD,
+                    help="the burn multiple both windows must reach for "
+                         f"the alert to fire (default "
+                         f"{obs_fleet.DEFAULT_THRESHOLD:g})")
+    ap.add_argument("--cuda-trace", default=None, metavar="PATH",
+                    help="record every span (a full recorder in place of "
+                         "the flight ring) and write the Chrome trace here "
+                         "at drain")
+    ap.add_argument("--cuda-metrics", default=None, metavar="PATH",
+                    help="write the stats snapshot here as JSON at drain")
     args = ap.parse_args(argv)
 
     kw = dict(socket_path=args.socket, port=args.port, workers=args.workers,
@@ -1461,7 +2325,17 @@ def serve_main(argv: list[str]) -> int:
               worker_lanes=args.worker_lanes, audit_rate=args.audit_rate,
               audit_demote=not args.no_audit_demote,
               lane_quarantine=not args.no_lane_quarantine,
-              flight_dir=args.flight_dir)
+              flight_events=args.flight_events,
+              trace_pull_events=args.trace_pull_events,
+              metrics_port=args.metrics_port, journal=args.journal,
+              journal_max_bytes=args.journal_max_bytes,
+              exemplars=not args.no_exemplars, slo_budget=args.slo_budget,
+              slo_burn_fast_s=args.slo_burn_fast_s,
+              slo_burn_slow_s=args.slo_burn_slow_s,
+              slo_burn_threshold=args.slo_burn_threshold,
+              trace_path=args.cuda_trace, metrics_path=args.cuda_metrics)
+    if args.flight_dir is not None:
+        kw["flight_dir"] = args.flight_dir
     try:
         server = PolishServer(**kw).start()
     except (RaconError, OSError) as exc:

@@ -28,7 +28,10 @@ imported rampler and preprocess), under preemption and the abort margin
 armed. A fifth serves on two worker lanes with the identity audit and
 the window cache armed: clean jobs, an `sdc` fault-plan job repaired to
 the clean bytes with the winner table demoted and the lane quarantined
-and rejoined, and the audit's journal lines."""
+and rejoined, and the audit's journal lines. A sixth serves with the
+server's observability armed (the journal, the metrics port, the flight
+ring and its dumps, a traced job merged with the client's spans, a trace
+pull, obs/fleet.py's burn-rate tracker) and leaves no tracer armed."""
 
 import os
 import subprocess
@@ -429,6 +432,62 @@ def test_serve_lanes_and_audit_run_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", SERVE_LANES], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+SERVE_OBS = r"""
+import json, os, sys, tempfile, urllib.request
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.obs import prom, trace
+from racon_tpu_torch.obs.fleet import BurnRateTracker
+from racon_tpu_torch.obs.journal import check_consistency, read_journal
+from racon_tpu_torch.serve import (JobFailed, PolishClient, PolishServer,
+                                   make_synth_dataset)
+
+d = tempfile.mkdtemp()
+paths = make_synth_dataset(d)
+tr = BurnRateTracker(seed_zero=True)
+assert tr.sample(0, 1, t=1.0)["firing"]
+jp = os.path.join(d, "j.jsonl")
+srv = PolishServer(socket_path=os.path.join(d, "s.sock"), device="cpu",
+                   warmup=False, metrics_port=0, journal=jp,
+                   flight_dir=os.path.join(d, "flight")).start()
+try:
+    assert trace.get_tracer() is srv._flight
+    cl = PolishClient(socket_path=srv.config.socket_path, timeout=120)
+    result, doc = cl.submit_traced(*paths, trace_out=os.path.join(d, "t.json"))
+    assert result.fasta and json.load(open(os.path.join(d, "t.json")))
+    assert cl.submit(*paths, trace_id="pulled").fasta == result.fasta
+    assert cl.trace_pull("pulled")["events"]
+    try:
+        cl.submit(*paths, fault_plan="device:chunk=0:raise")
+        raise AssertionError("the fault-plan job did not fail")
+    except JobFailed:
+        pass
+    assert len(cl.debug()["dumps"]) == 1
+    url = f"http://127.0.0.1:{srv.config.metrics_port}/metrics"
+    body = urllib.request.urlopen(url, timeout=30).read().decode()
+    assert prom.parse(body).counters["racon_tpu_serve_jobs_failed_total"] == 1
+finally:
+    assert srv.drain(timeout=60)
+assert trace.get_tracer() is None
+assert check_consistency(read_journal(jp)) == []
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_serve_observability_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", SERVE_OBS], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
