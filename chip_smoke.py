@@ -42,7 +42,8 @@ mismatch or exception exits non-zero:
      per wavefront (kernel ms over the batch's largest m + n), the
      traceback's share (a no-traceback copy of the source, as for K1)
      and the plane's bytes;
-  4. golden: `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
+  4. golden (phases 4 and 4b: their six CLI processes run at once):
+     `python -m racon_tpu_torch -c 1` on the 50 kb, 20x, seed 42
      synthetic workload must reproduce tests/data/synth_50kb_golden.fasta
      byte for byte, at the default posture and dispatch pipeline depth
      (2), at `--cuda-pipeline-depth 0` and at `--cuda-dtype int32`;
@@ -96,10 +97,11 @@ mismatch or exception exits non-zero:
      chained call at 0; the windows built by K3 and those left to the
      session engine (K1) or the host are printed. Per instantiation, the
      deepest chunk's second chained call (layer base > 0) at full width
-     (128 rows) is held against the plain version on all 11 state
-     arrays and timed against its bound, and the whole fused launch of
-     the shallowest chunk that chains two calls or more, on a slice of
-     its first 8 rows, is held likewise; K3 is
+     (128 rows), its first 8 layers, is held against the plain version
+     on all 11 state arrays and timed against its bound, and the fused
+     launch of the shallowest chunk that chains two calls or more, on a
+     slice of its first 8 rows and one layer past its chain's first
+     call, is held likewise; K3 is
      timed per chunk at both postures (CUDA events) and by stage (sort,
      range subgraph, DP, traceback, scans, writes; rows swept a layer, ns
      a DP row) on the deepest chunk's fused launch and the held chained
@@ -169,8 +171,9 @@ mismatch or exception exits non-zero:
      refused typed `rejected-ingest`, a job after it; a contig job
      preempted by a higher-priority job and resumed (1 preemption, 1
      resume, the bytes of phase 5, device seconds for both tenants);
-     `shutdown` draining cleanly; the fullest K3 call of the rounds job
-     held against its plain version and timed against its bound.
+     `shutdown` draining cleanly; the fullest K3 call of the rounds job,
+     its first 8 layers, held against its plain version and timed
+     against its bound.
   15. worker lanes and the identity audit (serve_lanes_path): one
      PolishServer with two worker lanes over [cuda:0, cuda:0] (3
      workers, the window cache on, audit rate 1.0, a scratch winner
@@ -200,14 +203,25 @@ mismatch or exception exits non-zero:
      counters equal to `stats`; `shutdown` with a consistent journal and
      no tracer left armed; the fullest K1 batch of the first two jobs held
      against its plain version and timed against its bound.
+  17. the fleet's router (router_path): two PolishServers on the card
+     (one worker each, warm-up on, COLD_TABLE) behind a PolishRouter with
+     a journal and a metrics port: phase 5's one-contig triple as a
+     traced routed job, which two routable replicas run as two window
+     ranges (merged FASTA equal to phase 5's, every shard launching K1
+     and K2 from its own `serve.batch`, the merged trace holding the
+     router's and both replicas' tracks); its wall against phase 13's
+     lone job; the router's scrape (the replicas' families federated
+     beside its own) timed and parsed strictly; the journal consistent
+     after the drain; the fullest K1 batch of the first replica held
+     against its plain version and timed against its bound.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
 10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
 phase 13 (path `serve`), of phase 14 (path `serve_kinds`), of phase 15
-(path `serve_lanes`) and of phase 16 (path `serve_obs`), in all, by path
-and by instantiation; K3: launches
+(path `serve_lanes`), of phase 16 (path `serve_obs`) and of phase 17
+(path `router`), in all, by path and by instantiation; K3: launches
 on the four runs of phase 9, the fused runs of phases 10, 12, 13, 14 and
 15 and phase 11, and phase 14's held call), the card's name and power
 limit, and as the last line
@@ -361,8 +375,7 @@ def main() -> int:
     kernels.append(k1)
     kernels.append(phase("3 K2", check_wavefront, dev, draft, reads, paf,
                          report, notb2))
-    phase("4 golden", check_golden, workdir, report)
-    phase("4 fragment golden", check_fragment_golden, workdir, report)
+    phase("4 goldens", check_goldens, workdir, report)
     contig = phase("5 main path", main_path, dev, big, truth, draft, report)
     nbases = phase("5 N-base path", n_base_path, dev, workdir, report)
     phase("6 consensus profile", profile_consensus, dev, windows, report)
@@ -385,15 +398,17 @@ def main() -> int:
                           workdir, report)
     k1o, k2o = phase("16 serve obs", serve_obs_path, dev, big, workdir,
                      report)
+    k1r, k2r = phase("17 router", router_path, dev, big, workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
                          (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
-                         (k1k, k2k), (k1l, k2l), (k1o, k2o)):
+                         (k1k, k2k), (k1l, k2l), (k1o, k2o),
+                         (k1r, k2r)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
                             "adaptive", "autotune", "hooks", "serve",
-                            "serve_kinds", "serve_lanes", "serve_obs"),
-                           paths))
+                            "serve_kinds", "serve_lanes", "serve_obs",
+                            "router"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
@@ -412,6 +427,7 @@ def main() -> int:
     kernels[0]["held_serve_lanes"] = report["serve_lanes_path"][
         "k1_fullest_lane1"]
     kernels[0]["held_serve_obs"] = report["serve_obs_path"]["k1_fullest"]
+    kernels[0]["held_router"] = report["router_path"]["k1_fullest"]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -1160,69 +1176,119 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
                                for p in PLANS if p in inst]}
 
 
-def run_golden(flags, paths, golden: str) -> float:
-    """`python -m racon_tpu_torch` with `flags` on `paths` must write the
-    committed tests/data/`golden` byte for byte. Returns its seconds."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "racon_tpu_torch", *flags, "-m", "5", "-x",
-         "-4", "-g", "-8", "-t", str(os.cpu_count()),
-         "--cuda-autotune-table", COLD_TABLE, *paths],
-        cwd=HERE, capture_output=True, timeout=600)
-    if proc.returncode != 0:
-        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
-        raise SystemExit(f"golden run {flags} failed (rc {proc.returncode})")
-    with open(os.path.join(HERE, "tests", "data", golden), "rb") as fh:
-        if proc.stdout != fh.read():
-            raise SystemExit(f"golden: {flags} output differs from "
-                             f"tests/data/{golden}")
-    return time.perf_counter() - t0
+def start_cli(args, d: str, tag: str) -> dict:
+    """Starts `python -m racon_tpu_torch *args` (-m 5 -x -4 -g -8, all the
+    host's threads, COLD_TABLE) with its stdout and stderr in files of
+    `d`; returns the run's handle."""
+    out, err = (os.path.join(d, f"{tag}.{x}") for x in ("out", "err"))
+    with open(out, "wb") as fo, open(err, "wb") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "racon_tpu_torch", *args, "-m", "5",
+             "-x", "-4", "-g", "-8", "-t", str(os.cpu_count()),
+             "--cuda-autotune-table", COLD_TABLE],
+            cwd=HERE, stdout=fo, stderr=fe)
+    return {"proc": proc, "out": out, "err": err, "tag": tag,
+            "t0": time.perf_counter()}
 
 
+def finish_clis(runs: list, timeout: float = 600.0) -> None:
+    """Waits for every run (each given `timeout` seconds from its start),
+    stamping its wall (`s`), its stdout (`stdout`) and its exit code;
+    exits on a run that fails or overruns, after killing the others."""
+    try:
+        while any("s" not in r for r in runs):
+            for r in runs:
+                if "s" in r:
+                    continue
+                rc = r["proc"].poll()
+                wall = time.perf_counter() - r["t0"]
+                if rc is None and wall > timeout:
+                    raise SystemExit(f"{r['tag']} ran over {timeout:g} s")
+                if rc is None:
+                    continue
+                r["s"] = wall
+                if rc != 0:
+                    with open(r["err"], "rb") as fh:
+                        sys.stderr.write(fh.read().decode(
+                            errors="replace")[-4000:])
+                    raise SystemExit(f"{r['tag']} failed (rc {rc})")
+                with open(r["out"], "rb") as fh:
+                    r["stdout"] = fh.read()
+            time.sleep(0.05)
+    finally:
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait()
 
 
-def check_golden(workdir, report) -> None:
-    """Phase 4: the CLI at -c 1 (device POA, host aligner, -b off) must
-    reproduce the committed 50 kb golden byte for byte, at the default
+def check_goldens(workdir, report) -> None:
+    """Phases 4 and 4b, their six CLI processes started at once (they are
+    independent; one at a time they took 73 s on an H100 host, most of
+    it each process's start): the CLI at -c 1 (device POA, host aligner, -b off) must
+    reproduce the committed 50 kb golden byte for byte at the default
     posture and pipeline depth, at --cuda-pipeline-depth 0 and at
-    --cuda-dtype int32; then the traced run (check_trace_metrics)."""
-    from racon_tpu_torch.synth import simulate, write_dataset
+    --cuda-dtype int32, and the committed fragment golden at -f -c 1,
+    depth 2 and 0; and the traced run (check_trace_metrics). The walls
+    are each process's own, beside the five others."""
+    from racon_tpu_torch.synth import (ava_overlaps, simulate,
+                                       simulate_truth, write_dataset,
+                                       write_fragment_dataset)
 
-    rng = random.Random(42)
-    _, draft, reads, paf = simulate(rng, 50_000, 20, 8000, 0.12, 0.10)
+    _, draft, reads, paf = simulate(random.Random(42), 50_000, 20, 8000,
+                                    0.12, 0.10)
     d = os.path.join(workdir, "w50")
     os.makedirs(d)
     paths = write_dataset(d, draft, reads, paf)
-    report["golden_s"] = {}
-    for flags in (["-c", "1"], ["-c", "1", "--cuda-pipeline-depth", "0"],
-                  ["-c", "1", "--cuda-dtype", "int32"]):
-        s = run_golden(flags, paths, "synth_50kb_golden.fasta")
-        log(f"[chip_smoke] golden: 50 kb x 20x {' '.join(flags)} "
-            f"byte-identical to the committed golden ({s:.1f} s)")
-        report["golden_s"][" ".join(flags)] = s
-    check_trace_metrics(d, paths, report)
-
-
-def check_trace_metrics(d, paths, report) -> None:
-    """`python -m racon_tpu_torch -c 1 --cudaaligner-batches 1` with
-    --cuda-trace and --cuda-metrics on `paths`: the trace must load as
-    Chrome trace JSON holding the pipeline's pack / device / unpack spans
-    of the aligner loop and the session's spans, and the dump must hold
-    the pipeline namespace with the aligner's chunks and launches."""
+    _, _, freads, _ = simulate_truth(random.Random(42), 40_000, 10, 8000,
+                                     0.12, 0.10)
+    fd = os.path.join(workdir, "frag40")
+    os.makedirs(fd)
+    fpaths = write_fragment_dataset(fd, freads, ava_overlaps(freads))
+    jobs = [(flags, paths, "synth_50kb_golden.fasta") for flags in (
+        ["-c", "1"], ["-c", "1", "--cuda-pipeline-depth", "0"],
+        ["-c", "1", "--cuda-dtype", "int32"])]
+    jobs += [(flags, fpaths, "synth_frag_golden.fasta") for flags in (
+        ["-f", "-c", "1"], ["-f", "-c", "1", "--cuda-pipeline-depth", "0"])]
     trace_path = os.path.join(d, "trace.json")
     metrics_path = os.path.join(d, "metrics.json")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "racon_tpu_torch", "-c", "1",
-         "--cudaaligner-batches", "1", "-m", "5", "-x", "-4", "-g", "-8",
-         "-t", str(os.cpu_count()), "--cuda-trace", trace_path,
-         "--cuda-metrics", metrics_path, "--cuda-autotune-table",
-         COLD_TABLE, *paths],
-        cwd=HERE, capture_output=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or not proc.stdout.startswith(b">"):
-        sys.stderr.write(proc.stderr.decode(errors="replace")[-4000:])
-        raise SystemExit(f"traced CLI run failed (rc {proc.returncode})")
+    runs = [start_cli([*flags, *p], workdir, f"golden{i}")
+            for i, (flags, p, _) in enumerate(jobs)]
+    runs.append(start_cli(
+        ["-c", "1", "--cudaaligner-batches", "1", "--cuda-trace",
+         trace_path, "--cuda-metrics", metrics_path, *paths], workdir,
+        "traced"))
+    finish_clis(runs)
+    report["goldens_wall_s"] = time.perf_counter() - t0
+    report["golden_s"], report["fragment_golden_s"] = {}, {}
+    for (flags, _, golden), r in zip(jobs, runs):
+        with open(os.path.join(HERE, "tests", "data", golden), "rb") as fh:
+            if r["stdout"] != fh.read():
+                raise SystemExit(f"golden: {flags} output differs from "
+                                 f"tests/data/{golden}")
+        frag = golden == "synth_frag_golden.fasta"
+        what = (f"{len(freads)} reads of 8 kb" if frag else "50 kb x 20x")
+        log(f"[chip_smoke] {'fragment ' if frag else ''}golden: {what} "
+            f"{' '.join(flags)} byte-identical to the committed golden "
+            f"({r['s']:.1f} s)")
+        report["fragment_golden_s" if frag else "golden_s"][
+            " ".join(flags)] = r["s"]
+    check_trace_metrics(runs[-1], trace_path, metrics_path, report)
+    log(f"[chip_smoke] goldens: {len(runs)} CLI processes at once in "
+        f"{report['goldens_wall_s']:.1f} s")
+
+
+def check_trace_metrics(run: dict, trace_path: str, metrics_path: str,
+                        report) -> None:
+    """The run `python -m racon_tpu_torch -c 1 --cudaaligner-batches 1`
+    with --cuda-trace and --cuda-metrics on the 50 kb set: the trace must
+    load as Chrome trace JSON holding the pipeline's pack / device /
+    unpack spans of the aligner loop and the session's spans, and the
+    dump must hold the pipeline namespace with the aligner's chunks and
+    launches."""
+    if not run["stdout"].startswith(b">"):
+        raise SystemExit("traced CLI run wrote no FASTA")
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
     with open(metrics_path) as fh:
@@ -1240,36 +1306,12 @@ def check_trace_metrics(d, paths, report) -> None:
                          f"the trace, or no chunks / launches in the "
                          f"metrics' pipeline namespace ({pipe})")
     log(f"[chip_smoke] traced CLI run (50 kb, -c 1 --cudaaligner-batches 1, "
-        f"depth 2) in {wall:.1f} s: trace of {len(events)} events, spans "
-        f"{dict(sorted(spans.items()))}; metrics namespaces "
+        f"depth 2) in {run['s']:.1f} s: trace of {len(events)} events, "
+        f"spans {dict(sorted(spans.items()))}; metrics namespaces "
         f"{sorted(metrics)}, pipeline {pipe}")
-    report["traced_cli"] = {"wall_s": wall, "spans": spans,
+    report["traced_cli"] = {"wall_s": run["s"], "spans": spans,
                             "pipeline": pipe,
                             "namespaces": sorted(metrics)}
-
-
-def check_fragment_golden(workdir, report) -> None:
-    """Phase 4b: the CLI at -f -c 1 (device POA, host aligner, -b off)
-    must reproduce the committed fragment golden byte for byte: 50 reads
-    of 8 kb off a 40 kb genome at 10x, with their all-vs-all overlaps."""
-    from racon_tpu_torch.synth import (ava_overlaps, simulate_truth,
-                                       write_fragment_dataset)
-
-    _, _, reads, _ = simulate_truth(random.Random(42), 40_000, 10, 8000,
-                                    0.12, 0.10)
-    d = os.path.join(workdir, "frag40")
-    os.makedirs(d)
-    paths = write_fragment_dataset(d, reads, ava_overlaps(reads))
-    report["fragment_golden_s"] = {}
-    for flags in (["-f", "-c", "1"],
-                  ["-f", "-c", "1", "--cuda-pipeline-depth", "0"]):
-        s = run_golden(flags, paths, "synth_frag_golden.fasta")
-        log(f"[chip_smoke] fragment golden: {len(reads)} reads of 8 kb "
-            f"{' '.join(flags)} byte-identical to the committed golden "
-            f"({s:.1f} s)")
-        report["fragment_golden_s"][" ".join(flags)] = s
-
-
 
 
 class Tally:
@@ -2212,10 +2254,11 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
     closer to the truth than the draft; K3 must launch once a chunk at 1
     and at least once at 0, and its launched depths must cover each
     chunk's deepest window. Then, per instantiation,
-    the deepest chunk's second chained call at full width is held
-    against the plain version on all 11 state arrays (and timed, with
-    its bound), the whole fused launch of the shallowest chunk that
-    chains two calls or more on a slice of its first 8 rows likewise, K3
+    the deepest chunk's second chained call at full width, its first
+    DEPTH_BUCKETS[0] layers, is held against the plain version on all 11
+    state arrays (and timed, with its bound), the fused launch of the
+    shallowest chunk that chains two calls or more on a slice of its
+    first 8 rows, one layer past its chain's first call, likewise, K3
     is timed over every chunk at both postures
     (CUDA events) and by stage (`k3stg`: the diagnostic build started by
     build_k3_stages), and two fused consensus passes of one engine are
@@ -2227,7 +2270,8 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
     from racon_tpu_torch.device import card_info
     from racon_tpu_torch.native import edit_distance
     from racon_tpu_torch.ops import poa_fused_kernels as fk
-    from racon_tpu_torch.ops.poa_fused import STATE, FusedPOA, fused_raw
+    from racon_tpu_torch.ops.poa_fused import (DEPTH_BUCKETS, STATE,
+                                               FusedPOA, fused_raw)
     from racon_tpu_torch.pipeline import DispatchPipeline
 
     tal = Tally()
@@ -2344,19 +2388,23 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
         d1, ops1, done1 = calls[1]
         state0 = launch(to_dev(st), to_dev(ops0), 0, eng.B)
         ops = to_dev(ops1)
+        # held and timed: its first DEPTH_BUCKETS[0] layers (the whole
+        # call's 16 took the plain version 28-36 s a width on an H100)
+        dh = DEPTH_BUCKETS[0]
+        held_ops = cut_layers(ops, dh)
         k_state = [t.clone() for t in state0]
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        k_state = launch(k_state, ops, done1, eng.B)
+        k_state = launch(k_state, held_ops, done1, eng.B)
         b.record()
         torch.cuda.synchronize()
         k_ms = a.elapsed_time(b)
         t0 = time.perf_counter()
         lb = torch.full((eng.B,), done1, dtype=torch.int32, device=dev)
-        p_state = fused_raw(eng.N, eng.L, d1, eng.P, *scores,
-                            score_dtype=dtype)(*state0, *ops, lb)
+        p_state = fused_raw(eng.N, eng.L, dh, eng.P, *scores,
+                            score_dtype=dtype)(*state0, *held_ops, lb)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         for nm, x, y in zip(STATE, k_state, p_state):
@@ -2364,13 +2412,14 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
                 raise SystemExit(f"K3 {dtype}: {nm} differs from the plain "
                                  f"version on the deepest chunk's second "
                                  f"chained call")
-        bms, by = fused_bound(state0, ops, done1, scores, dtype)
-        held = [f"the deepest chunk's second chained call ({d1} layers "
-                f"from layer {done1} x {eng.B} rows)"]
-        # the whole fused launch of the shallowest chunk whose chain
-        # takes two calls or more, on a slice of its first 8 rows (all
-        # its rows would take the plain version many minutes; the deepest
-        # chunk's 48 layers took it a minute a width)
+        bms, by = fused_bound(state0, held_ops, done1, scores, dtype)
+        held = [f"the deepest chunk's second chained call, its first {dh} "
+                f"of {d1} layers from layer {done1} x {eng.B} rows"]
+        # the fused launch of the shallowest chunk whose chain takes two
+        # calls or more, on a slice of its first 8 rows (all its rows
+        # would take the plain version many minutes), cut one layer past
+        # its chain's first call (the whole launch's 24 layers took the
+        # plain version 30-35 s a width on an H100)
         plans = [eng._chain_plan(max(len(windows[i]) - 1 for i in c))
                  for c in chunks]
         ci = min((k for k, pl in enumerate(plans) if len(pl) >= 2),
@@ -2379,11 +2428,12 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
         rs = len(first)
         eng8 = FusedPOA(*scores, device=dev, batch_rows=rs, fused="1")
         Ds = sum(plans[ci])
+        Dc = plans[ci][0] + 1
         st8, ops8 = eng8._pack_chunk_fused(windows, first, Ds)
-        s8, o8 = to_dev(st8), to_dev(ops8)
+        s8, o8 = to_dev(st8), cut_layers(to_dev(ops8), Dc)
         k8 = launch([t.clone() for t in s8], o8, 0, rs)
         t0 = time.perf_counter()
-        p8 = fused_raw(eng.N, eng.L, Ds, eng.P, *scores, score_dtype=dtype,
+        p8 = fused_raw(eng.N, eng.L, Dc, eng.P, *scores, score_dtype=dtype,
                        device_slice=True)(
             *s8, *o8, torch.zeros(rs, dtype=torch.int32, device=dev))
         torch.cuda.synchronize()
@@ -2406,8 +2456,8 @@ def fused_path(dev, paths, truth, draft, windows, report, k3stg):
             log_stage_split(f"{dtype}, the deepest chunk's "
                             + ("fused launch" if what == "fused" else
                                "second chained call"), stages[what])
-        held.append(f"chunk {ci}'s fused launch ({Ds} layers x {rs} "
-                    f"rows)")
+        held.append(f"chunk {ci}'s fused launch, its first {Dc} of {Ds} "
+                    f"layers x {rs} rows")
         row = {"plan": dtype, "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": bms, "bound_by": by, "library_ms": None,
                "held": held, "plain_slice_ms": slice_ms, "stages": stages,
@@ -3675,6 +3725,23 @@ class K3Capture:
         return self.calls[k], rows[k]
 
 
+def cut_layers(ops, d: int) -> tuple:
+    """K3 layer inputs cut to their first `d` layers: every [B, D, ...]
+    tensor sliced on its layer axis, the [B] ones (a fused launch's
+    backbone lengths and offsets) kept. With the same state they make a
+    K3 call at depth `d`, which the plain version runs in about d / D of
+    the whole call's time (it loops over the layers)."""
+    return tuple(t[:, :d].contiguous() if t.dim() >= 2 else t for t in ops)
+
+
+def first_layers(call, d: int):
+    """A captured K3 call cut to its first `d` layers (cut_layers)."""
+    state, seqs, lens, wts, slicing, lbase, scores, kw = call
+    seqs, lens, wts = cut_layers((seqs, lens, wts), d)
+    return (state, seqs, lens, wts, cut_layers(slicing, d), lbase, scores,
+            kw)
+
+
 def hold_k3_call(call, what: str) -> dict:
     """One captured K3 call against its plain version (fused_raw at the
     call's shape, on the same tensors): all 11 state arrays must be
@@ -3775,8 +3842,9 @@ def serve_kinds_path(dev, paths, truth, reads, workdir, report):
          cached window answers them and their windows pool behind the
          held feeder (the depth changes no byte, phase 5);
       then `shutdown` drains cleanly; after it, the fullest K3 call of
-      part a (the most real rows, then the fewest layers) is held
-      against its plain version and timed against its bound.
+      part a (the most real rows, then the fewest layers), cut to its
+      first DEPTH_BUCKETS[0] layers, is held against its plain version
+      and timed against its bound.
 
     The launch counters are zeroed once the one-shot of part d is done,
     before the server starts, and read after the drain. Returns (K1
@@ -3791,6 +3859,7 @@ def serve_kinds_path(dev, paths, truth, reads, workdir, report):
     from racon_tpu_torch.native import edit_distance
     from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
     from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.ops.poa_fused import DEPTH_BUCKETS
     from racon_tpu_torch.serve import (PolishClient, PolishServer,
                                        ServeError, make_synth_dataset)
     from racon_tpu_torch.synth import truth_segment
@@ -4097,9 +4166,13 @@ def serve_kinds_path(dev, paths, truth, reads, workdir, report):
         f"{q['expired']} cancelled in queue; launches over the phase "
         f"{launches}")
 
-    # ---- the fullest K3 call of part a against its plain version
+    # ---- the fullest K3 call of part a, its first layers, against its
+    # plain version (the whole 32-layer call took the plain version
+    # 33-44 s on an H100)
     call, rows = k3cap.fullest()
-    what = f"the served rounds job's fullest K3 call ({rows} rows)"
+    call = first_layers(call, DEPTH_BUCKETS[0])
+    what = (f"the served rounds job's fullest K3 call ({rows} rows), its "
+            f"first {DEPTH_BUCKETS[0]} layers")
     held = hold_k3_call(call, what)
     held["real_rows"] = rows
     held["calls"] = len(k3cap.calls)
@@ -4825,6 +4898,188 @@ def serve_obs_path(dev, paths, workdir, report):
         f"{held_k1['plain_ms']:.1f} ms, bound {held_k1['bound_ms']:.4f} ms "
         f"({held_k1['bound_by']}); card {card}")
     report["serve_obs_path"] = out
+    return (launches["k1"], k1p), (launches["k2"], k2p)
+
+
+ROUTER_SCRAPES = 5
+
+
+def router_path(dev, paths, workdir, report):
+    """Phase 17: two PolishServers on the card (unix sockets, one worker
+    each, `cuda_poa_batches=1`, `cuda_aligner_batches=1`, pipeline depth
+    2, scores 5/-4/-8, COLD_TABLE, warm-up on, half the host's cores as
+    job threads each) behind a PolishRouter (a journal and a metrics port
+    in the workdir), driven through the router with the client:
+
+      a. phase 5's one-contig triple as one traced routed job
+         (`submit_traced`): two routable replicas and one contig make two
+         window-range shards; the merged FASTA equals phase 5's, the
+         `router` block shows 2 range shards, 2 segments, 1 part and no
+         requeue, each shard's `serve.batch` launched K1 and K2, and the
+         merged trace holds the client's, the router's and both
+         replicas' tracks; its wall beside phase 13's lone job;
+      b. ROUTER_SCRAPES times: a fleet poll (both replicas scraped,
+         parsed and merged: the federation's cost), then a scrape through
+         the router (the merged body beside the router's own families),
+         each timed and parsed strictly; /healthz over HTTP;
+      c. the router drained, then the replicas; the router's journal
+         passes `check_consistency` and holds the range plan, two
+         dispatched and two finished shards and two routed segments;
+      d. the fullest K1 batch of the first replica's lane held against
+         its plain version and timed against its bound.
+
+    The launch counters are zeroed before the servers start and read
+    after the drains (part d's launches excluded). Returns (K1 launches,
+    by instantiation) and (K2 ...)."""
+    import urllib.request
+
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.obs import prom
+    from racon_tpu_torch.obs.journal import check_consistency, read_journal
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.serve import (PolishClient, PolishRouter,
+                                       PolishServer)
+
+    card = card_info()
+    out: dict = {}
+    contig = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                      for n, d in KEPT["contig"])
+    journal = os.path.join(workdir, "router_journal.jsonl")
+
+    def fail(part, msg):
+        raise SystemExit(f"router path {part}: {msg}")
+
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    servers = [PolishServer(
+        socket_path=os.path.join(workdir, f"router_rep{i}.sock"),
+        workers=1, device="cuda", match=MATCH, mismatch=MISMATCH, gap=GAP,
+        job_threads=max(1, (os.cpu_count() or 2) // 2), cuda_poa_batches=1,
+        cuda_aligner_batches=1, pipeline_depth=2,
+        autotune_table=COLD_TABLE).start() for i in range(2)]
+    router = PolishRouter(
+        replicas=[s.config.socket_path for s in servers],
+        socket_path=os.path.join(workdir, "router.sock"), journal=journal,
+        metrics_port=0).start()
+    out["start_s"] = time.perf_counter() - t0
+    log(f"[chip_smoke] router path: 2 replicas (warm-up "
+        f"{[round(s._warm['warmup_s'], 3) for s in servers]} s) and the "
+        f"router up in {out['start_s']:.3f} s; card {card}")
+    cl = PolishClient(socket_path=router.config.socket_path, timeout=900)
+    try:
+        # ---- a. one traced routed job
+        with PathCapture(runner=servers[0].batcher._lanes[0].runner) as cap:
+            t = time.perf_counter()
+            res, doc = cl.submit_traced(*paths, trace_id="routed")
+            wall = time.perf_counter() - t
+        rb = res.router
+        if res.fasta != contig:
+            fail("a", "the routed FASTA differs from phase 5's")
+        if (not rb.get("range") or rb["range_shards"] != 2
+                or rb["segments"] != 2 or rb["parts"] != 1
+                or rb["requeues"]):
+            fail("a", f"router block {rb}")
+        shards = [d["batch"] for d in rb["shards_detail"]]
+        if any(b["k1_launches"] <= 0 or b["k2_launches"] <= 0
+               for b in shards):
+            fail("a", f"a shard launched no K1 or K2: {shards}")
+        pids = {e["args"]["name"] for e in doc["traceEvents"]
+                if e.get("ph") == "M" and e["name"] == "process_name"}
+        if len(pids) != 4 or len(res.trace_replicas or ()) != 2:
+            fail("a", f"the merged trace holds {sorted(pids)}")
+        lone = report["serve_path"]["jobs"]["alone"]["wall_s"]
+        out["a"] = {"wall_s": wall, "router": {
+            k: v for k, v in rb.items() if k != "shards_detail"},
+            "phase13_alone_s": lone,
+            "shards": [{"queue_wait_s": d["queue_wait_s"],
+                        "exec_s": d["exec_s"],
+                        "k1_launches": d["batch"]["k1_launches"],
+                        "k2_launches": d["batch"]["k2_launches"],
+                        "iterations": d["batch"]["iterations"]}
+                       for d in rb["shards_detail"]],
+            "trace_events": len(doc["traceEvents"])}
+        log(f"[chip_smoke] router path a: the routed job ran as "
+            f"{rb['range_shards']} range shards, FASTA equal to phase 5's; "
+            f"end to end {wall:.3f} s (router wall {rb['wall_s']:.3f} s, "
+            f"slowest shard exec {rb['shard_exec_max_s']:.3f} s) against "
+            f"phase 13's lone job {lone:.3f} s ({wall / lone:.2f}x); "
+            f"shards' K1 {[b['k1_launches'] for b in shards]} / K2 "
+            f"{[b['k2_launches'] for b in shards]} launches; router block "
+            f"{out['a']['router']}; card {card}")
+
+        # ---- b. fleet polls and scrapes through the router
+        polls, times = [], []
+        for _ in range(ROUTER_SCRAPES):
+            polls.append(router.fleet.poll().poll_s)
+            t = time.perf_counter()
+            text = cl.request({"type": "scrape"})["text"]
+            times.append(time.perf_counter() - t)
+            s = prom.parse(text)  # strict: raises on any bad line
+        if (s.counters.get("racon_tpu_router_jobs_completed_total") != 1
+                or s.gauges.get("racon_tpu_fleet_replicas") != 2
+                or s.counters.get("racon_tpu_serve_jobs_completed_total")
+                < 2):
+            fail("b", "the federated scrape lacks the router's or the "
+                      "replicas' counters")
+        url = f"http://127.0.0.1:{router.config.metrics_port}/healthz"
+        health = json.loads(urllib.request.urlopen(url, timeout=60).read())
+        if not health.get("ok") or health.get("routable") != 2:
+            fail("b", f"/healthz {health}")
+        out["b"] = {"poll_ms": [round(x * 1e3, 3) for x in polls],
+                    "scrape_ms": [round(x * 1e3, 3) for x in times],
+                    "families": len(s.counters) + len(s.gauges)
+                    + len(s.counter_series) + len(s.gauge_series)
+                    + len(s.hists)}
+        log(f"[chip_smoke] router path b: {ROUTER_SCRAPES} fleet polls "
+            f"(both replicas scraped, parsed and merged), ms "
+            f"{out['b']['poll_ms']}; router scrapes, ms "
+            f"{out['b']['scrape_ms']}; {out['b']['families']} families; "
+            f"/healthz ok, 2 routable")
+    finally:
+        clean = router.drain(timeout=120)
+        drained = [srv.drain(timeout=600) for srv in servers]
+    if not clean or not all(drained):
+        fail("c", "a drain did not end cleanly")
+
+    # ---- c. the journal
+    entries = read_journal(journal)
+    events = [e["event"] for e in entries]
+    faults = check_consistency(entries)
+    want = {"range-plan": 1, "shard-dispatched": 2, "shard-finished": 2,
+            "part-routed": 2, "finished": 1}
+    got = {ev: events.count(ev) for ev in want}
+    if faults or got != want:
+        fail("c", f"journal faults {faults}, events {got}")
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    out["launches"] = launches
+    log(f"[chip_smoke] router path c: drained cleanly; journal "
+        f"{len(entries)} lines, consistent; launches over the phase "
+        f"{launches}")
+
+    # ---- d. the fullest K1 batch of the first replica
+    if not cap.k1:
+        fail("d", "the first replica launched no K1 batch")
+    (nbk, lbk), (n, plan, args) = max(cap.k1.items(),
+                                      key=lambda kv: kv[1][0])
+    torch.cuda.synchronize()
+    held = hold_k1(args, nbk, lbk, f"the router path's fullest {(nbk, lbk)} "
+                   f"batch", widths=(plan[0],))[plan]
+    out["k1_fullest"] = {"shape": [nbk, lbk], "jobs": n,
+                         "plan": plan_name(*plan), **held}
+    log(f"[chip_smoke] router path d: the first replica's fullest K1 "
+        f"batch, {(nbk, lbk)} {plan_name(*plan)} with {n} jobs, identical "
+        f"to the plain version; kernel {held['ms']:.3f} ms, plain "
+        f"{held['plain_ms']:.1f} ms, bound {held['bound_ms']:.4f} ms "
+        f"({held['bound_by']}); card {card}")
+    report["router_path"] = out
     return (launches["k1"], k1p), (launches["k2"], k2p)
 
 

@@ -14,7 +14,9 @@ RACON_TPU_AUTOTUNE_CACHE. Polished FASTA goes to stdout; errors print as
 
 `python -m racon_tpu_torch serve|submit|cancel ...` runs the warm job
 server, sends it a job, or cancels one (serve/server.py,
-serve/client.py; `--help` on each).
+serve/client.py); `router` runs one service over several servers
+(serve/router.py) and `fleet` merges their metrics (obs/fleet.py);
+`--help` on each.
 """
 
 from __future__ import annotations
@@ -166,6 +168,13 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             and pair normalization
         cancel --job-id <id> | --trace-id <id>
             cancels a queued or running job
+        router --replicas <sock,...> [--socket <path> | --port <int>]
+               [--journal <path>] [--metrics-port <int>]
+            one service over N warm servers: contig, window-range and
+            read-range shards, requeue on a replica's loss, rolling
+            restarts, the replicas' metrics federated
+        fleet --endpoints <sock,...> [--json] [--port <int>]
+            merges N servers' metrics and health into one view
 """
 
 
@@ -362,7 +371,8 @@ def parse_args(argv: list[str]) -> dict | None:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # the serve subcommands: `serve` runs the warm job server, `submit`
-    # sends it one job, `cancel` cancels one
+    # sends it one job, `cancel` cancels one, `router` fans jobs out
+    # over several servers and `fleet` merges their metrics
     if argv and argv[0] == "serve":
         from .serve.server import serve_main
 
@@ -375,6 +385,14 @@ def main(argv: list[str] | None = None) -> int:
         from .serve.client import cancel_main
 
         return cancel_main(argv[1:])
+    if argv and argv[0] == "router":
+        from .serve.router import router_main
+
+        return router_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        from .obs.fleet import fleet_main
+
+        return fleet_main(argv[1:])
     opts = parse_args(argv)
     if opts is None:
         return 0

@@ -19,8 +19,9 @@ stay as they were:
 For a long-lived process: `obs.flight` (an always-on bounded ring of
 recent spans, dumped per job), `obs.journal` (a size-bounded JSONL
 lifecycle log), `obs.prom` (Prometheus text exposition and its strict
-parser) and `obs.fleet` (the SLO burn-rate tracker); the histograms
-carry exemplars and export for it.
+parser) and `obs.fleet` (the SLO burn-rate tracker, and the aggregator
+that merges several servers' scrapes and health); the histograms carry
+exemplars and export for it.
 
 `torch_profile(directory, phase)` is the deep-dive hook, the counterpart
 of the JAX package's `jax_profile`: a context manager that brackets one

@@ -16,6 +16,11 @@
     client.py     PolishClient, its typed errors, `clock_sync`,
                   `submit_traced` and `merge_trace`, `submit` and
                   `cancel`
+    router.py     PolishRouter, RouterConfig and `router`: one service
+                  over N warm replicas (contig, window-range and
+                  fragment read-range shards, the contig-order merge,
+                  journal-backed requeue on a replica's loss, rolling
+                  restarts, the federated scrape)
     protocol.py   length-prefixed JSON frames, the typed frame errors and
                   `error_response`
     wincache.py   the content-addressed window consensus cache, keyed on
@@ -33,6 +38,7 @@ from .protocol import (FrameGarbage, FrameTooLarge, FrameTruncated,
                        ProtocolError, error_response, recv_frame,
                        send_frame)
 from .queue import JobQueue
+from .router import PolishRouter, RouterConfig
 from .server import (PolishServer, ServeConfig, make_fragment_dataset,
                      make_synth_dataset)
 from .wincache import WindowCache, window_content_digest
@@ -40,7 +46,8 @@ from .wincache import WindowCache, window_content_digest
 __all__ = ["DeadlineDoomed", "FrameGarbage", "FrameTooLarge",
            "FrameTruncated", "IngestError", "IngestSpec", "JobCancelled",
            "JobFailed", "JobQueue", "PolishClient", "PolishResult",
-           "PolishServer", "ProtocolError", "QueueFull", "ServeConfig",
+           "PolishRouter", "PolishServer", "ProtocolError", "QueueFull",
+           "RouterConfig", "ServeConfig",
            "ServeError", "ServerDraining", "TenantQuota", "WindowBatcher",
            "WindowCache", "error_response", "make_fragment_dataset",
            "make_synth_dataset",

@@ -44,8 +44,11 @@ The server's observability from the client side:
     alert) and `trace_pull(trace_id)` (one trace id's spans from the
     ring).
 
-Not here: the router's fan-out and its per-replica traces
-(`PolishResult.trace_replicas` stays None), which come with the fleet.
+Pointed at a router (serve/router.py) the same calls work: the result
+carries the `router` block (shards, requeues, parts, walls), a traced
+job's per-replica traces (`trace_replicas`), which `merge_trace` lays
+out as one process track a replica, and `cancel` reaches every shard of
+the job.
 """
 
 from __future__ import annotations
@@ -134,7 +137,7 @@ _ERROR_TYPES = {"queue-full": QueueFull, "draining": ServerDraining,
 class PolishResult:
     __slots__ = ("job_id", "fasta", "metrics", "serve", "streamed",
                  "parts", "rounds", "trace", "trace_base_mono",
-                 "trace_replicas")
+                 "trace_replicas", "router")
 
     def __init__(self, resp: dict):
         self.job_id = resp.get("job_id")
@@ -160,8 +163,15 @@ class PolishResult:
         #: the events with it); None for an untraced job
         self.trace = resp.get("trace")
         self.trace_base_mono = resp.get("trace_base_mono")
-        #: a routed job's per-replica traces: None (no router yet)
+        #: a traced routed job's per-replica traces: one entry a replica
+        #: that finished a shard, {replica, events, base_mono, offset_s
+        #: (the replica's clock against the router's), rtt_s}; None
+        #: otherwise
         self.trace_replicas = resp.get("trace_replicas")
+        #: a routed job's `router` block (shards, replicas, requeues,
+        #: parts, wall_s, and range / fragment counts); {} for a job
+        #: submitted to a server directly
+        self.router = resp.get("router") or {}
 
 
 class PolishClient:
@@ -406,8 +416,10 @@ class PolishClient:
                trace_id: str | None = None) -> dict:
         """Cancel a queued or running job by id or trace id, on a fresh
         connection. Returns the server's ok body ({"cancelled": "queued"
-        | "running", "job_id"}); raises ServeError code `unknown-job`
-        when nothing matches (the job already finished, say)."""
+        | "running", "job_id"}; a router's adds `shards_cancelled`, the
+        shards it sent the cancel on to); raises ServeError code
+        `unknown-job` when nothing matches (the job already finished,
+        say)."""
         req: dict = {"type": "cancel"}
         if job_id:
             req["job_id"] = job_id
@@ -466,8 +478,16 @@ def merge_trace(result: PolishResult, client_rec, clock: dict,
     server event at ts (microseconds past `result.trace_base_mono`) lands
     at that server time less the handshake's offset on the client's
     perf_counter, then moves onto the client recorder's zero; good to the
-    handshake's rtt / 2. `trace_context` carries the clock and the job's
-    `serve` block, what a reader checks span sums against."""
+    handshake's rtt / 2.
+
+    A routed job: pid 2 is the router (its plan / dispatch / stream /
+    merge spans), and each entry of `result.trace_replicas` becomes its
+    own process track on pid 3 and up. A replica's clock chains two
+    handshakes, replica to router (`offset_s`, taken by the router) and
+    router to client (`clock`), so every track lands on the client's
+    clock and the hops' round trips add. `trace_context` carries the
+    clocks (each replica's too) and the job's `serve`, `router` and
+    `rounds` blocks, what a reader checks span sums against."""
     from ..obs.trace import rebase_events
 
     events = rebase_events(client_rec.events(), pid=1,
@@ -475,15 +495,37 @@ def merge_trace(result: PolishResult, client_rec, clock: dict,
     if result.trace and result.trace_base_mono is not None:
         shift_us = ((result.trace_base_mono - clock["offset_s"])
                     - client_rec._base) * 1e6
-        events += rebase_events(result.trace, pid=2, shift_us=shift_us,
-                                name="racon_tpu_torch server")
+        events += rebase_events(
+            result.trace, pid=2, shift_us=shift_us,
+            name="racon_tpu_torch router" if result.router
+            else "racon_tpu_torch server")
+    ctx_replicas = []
+    for i, rep in enumerate(result.trace_replicas or []):
+        base = rep.get("base_mono")
+        if base is None:
+            continue
+        off = float(rep.get("offset_s") or 0.0)
+        # replica clock -> router clock (- off) -> client clock (- the
+        # client's offset), then onto the client recorder's zero
+        shift_us = ((base - off - clock["offset_s"])
+                    - client_rec._base) * 1e6
+        events += rebase_events(
+            rep.get("events") or [], pid=3 + i, shift_us=shift_us,
+            name=f"racon_tpu_torch replica {rep.get('replica')}")
+        ctx_replicas.append({"replica": rep.get("replica"),
+                             "offset_s": rep.get("offset_s"),
+                             "rtt_s": rep.get("rtt_s")})
     events.sort(key=lambda e: (e.get("ph") != "M", e.get("ts", 0.0)))
     ctx = {"trace_id": trace_id, "job_id": result.job_id,
            "clock_offset_s": round(clock["offset_s"], 6),
            "clock_rtt_s": round(clock["rtt_s"], 6)}
+    if ctx_replicas:
+        ctx["replicas"] = ctx_replicas
     stats: dict = {}
     if result.serve:
         stats["serve"] = result.serve
+    if result.router:
+        stats["router"] = result.router
     if result.rounds:
         stats["rounds"] = result.rounds
     if stats:

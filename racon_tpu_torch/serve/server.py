@@ -108,8 +108,11 @@ kernel plane names. `stats_snapshot()` shows `journal` only when the
 journal is armed and `flight` only once a dump was written, the port's
 armed-only rule for its blocks.
 
-Not here: the router, the autoscaler and the fleet aggregator (the
-fleet's slice), and the tools that read these artifacts.
+A router's child jobs (serve/router.py) carry `parent` / `shard` /
+`shards`, journaled on their `received` line, and every progress and
+`result_part` frame of a job with a trace id carries that id.
+
+Not here: the autoscaler, and the tools that read these artifacts.
 """
 
 from __future__ import annotations
@@ -1198,13 +1201,23 @@ class PolishServer:
                   tenant=req.get("tenant") or "", rounds=rounds,
                   range_lo=range_lo, range_hi=range_hi, fragment=fragment,
                   frag_lo=frag_lo, frag_hi=frag_hi)
+        # a router's child job (serve/router.py): `parent` is the
+        # router's parent job id, `shard` / `shards` this child's slot in
+        # the fan-out. Journaled only, so the replica's lines correlate
+        # with the router's ledger; ignored when absent or malformed
+        parent = req.get("parent") if _good_id(req.get("parent")) else None
+        shard = req.get("shard") if isinstance(req.get("shard"), int) \
+            else None
+        shards = req.get("shards") if isinstance(req.get("shards"), int) \
+            else None
         journal = self.journal
         trace_id = job.trace_id
         if journal is not None:
             journal.record("received", job=job.id, trace=trace_id,
                            priority=job.priority or None,
                            tenant=job.tenant or None, deadline_s=deadline_s,
-                           rounds=job.rounds, range_lo=job.range_lo,
+                           rounds=job.rounds, parent=parent, shard=shard,
+                           shards=shards, range_lo=job.range_lo,
                            range_hi=job.range_hi,
                            mode="fragment" if job.fragment else None,
                            frag_lo=job.frag_lo, frag_hi=job.frag_hi)
@@ -1298,6 +1311,8 @@ class PolishServer:
                 seq += 1
                 frame = {"type": "progress", "job_id": job.id, "seq": seq}
                 frame.update(ev)
+            if job.trace_id:
+                frame.setdefault("trace_id", job.trace_id)
             try:
                 send_frame(conn, frame)
             except (OSError, ProtocolError):

@@ -31,8 +31,14 @@ the clean bytes with the winner table demoted and the lane quarantined
 and rejoined, and the audit's journal lines. A sixth serves with the
 server's observability armed (the journal, the metrics port, the flight
 ring and its dumps, a traced job merged with the client's spans, a trace
-pull, obs/fleet.py's burn-rate tracker) and leaves no tracer armed."""
+pull, obs/fleet.py's burn-rate tracker) and leaves no tracer armed. A
+seventh routes jobs over two servers (a contig job, a streamed job and a
+fragment job through serve/router.py, with its journal and metrics port)
+and polls them with obs/fleet.py's aggregator and `fleet --json`.
+Besides, no module of the port, nor `chip_smoke.py`, names `jax`,
+`jaxlib` or `racon_tpu` in an import statement."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -492,3 +498,100 @@ def test_serve_observability_runs_without_jax():
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+ROUTER_FLEET = r"""
+import io, json, os, sys, tempfile, urllib.request
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch import cli
+from racon_tpu_torch.obs import prom
+from racon_tpu_torch.obs.fleet import FleetAggregator
+from racon_tpu_torch.obs.journal import check_consistency, read_journal
+from racon_tpu_torch.serve import (PolishClient, PolishRouter, PolishServer,
+                                   make_fragment_dataset, make_synth_dataset)
+
+d = tempfile.mkdtemp()
+os.makedirs(os.path.join(d, "c"))
+os.makedirs(os.path.join(d, "f"))
+paths = make_synth_dataset(os.path.join(d, "c"), contigs=2)
+frag = make_fragment_dataset(os.path.join(d, "f"))
+servers = [PolishServer(socket_path=os.path.join(d, f"s{i}.sock"),
+                        device="cpu", warmup=False,
+                        autotune_table=os.path.join(d, "at.json")).start()
+           for i in range(2)]
+socks = [s.config.socket_path for s in servers]
+jp = os.path.join(d, "router.jsonl")
+router = PolishRouter(replicas=socks, socket_path=os.path.join(d, "r.sock"),
+                      journal=jp, metrics_port=0).start()
+try:
+    direct = PolishClient(socket_path=socks[0], timeout=120)
+    cl = PolishClient(socket_path=router.config.socket_path, timeout=120)
+    want = direct.submit(*paths).fasta
+    res = cl.submit(*paths)
+    assert res.fasta == want and res.router["shards"] == 2
+    assert cl.submit(*paths, stream=True).fasta == want
+    reads = cl.submit(*frag, fragment=True)
+    assert reads.fasta == direct.submit(*frag, fragment=True).fasta
+    assert reads.router["frag_shards"] == 2
+    url = f"http://127.0.0.1:{router.config.metrics_port}/metrics"
+    body = urllib.request.urlopen(url, timeout=30).read().decode()
+    assert prom.parse(body).counters[
+        "racon_tpu_router_jobs_completed_total"] == 3
+    agg = FleetAggregator(socks)
+    assert agg.poll().healthy
+    agg.close()
+    out, buf = sys.stdout, io.StringIO()
+    sys.stdout = buf
+    try:
+        rc = cli.main(["fleet", "--endpoints", ",".join(socks), "--json"])
+    finally:
+        sys.stdout = out
+    assert rc == 0 and json.loads(buf.getvalue())["healthy"]
+finally:
+    assert router.drain()
+    for s in servers:
+        assert s.drain(timeout=60)
+assert check_consistency(read_journal(jp)) == []
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_router_and_fleet_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", ROUTER_FLEET], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def _sources():
+    root = os.path.join(REPO, "racon_tpu_torch")
+    for dirpath, _, names in os.walk(root):
+        for name in sorted(names):
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, REPO), n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "racon_tpu")]
+    assert bad == []

@@ -18,7 +18,11 @@ What is held:
     strictly, and `/healthz` answers the RPC's body;
   - the scrape's family names and label keys equal the JAX server's for
     the same submit sequence, with the audit, the window cache and QoS
-    each off and on; an off family is absent;
+    each off and on; an off family is absent. Each server runs on a
+    fresh winner-table handle of its own (both render
+    `sched.autotune.consults` from a process-global handle), so a
+    default handle consulted earlier in the process, on either side or
+    both, changes nothing;
   - the journal's per-job event sequence equals the JAX server's for a
     plain, a streamed, a rounds, a rejected-ingest, a preempted and
     resumed, and a cancelled job, and `check_consistency` passes on both;
@@ -38,6 +42,7 @@ What is held:
 The JAX package is imported inside the fixtures and tests that use it.
 """
 
+import contextlib
 import gzip
 import json
 import os
@@ -52,6 +57,7 @@ import torch
 from racon_tpu_torch.errors import RaconError
 from racon_tpu_torch.obs import fleet, prom, trace
 from racon_tpu_torch.obs.journal import check_consistency, read_journal
+from racon_tpu_torch.sched.autotune import get_autotuner, reset_autotuner_cache
 from racon_tpu_torch.serve import (JobFailed, PolishClient, PolishServer,
                                    make_synth_dataset)
 from racon_tpu_torch.serve.server import serve_main
@@ -216,27 +222,55 @@ def _scrape_variants(srv, scrape) -> dict:
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_ref(dataset, cut_reads, tmp_path_factory):
-    """One JAX server (one worker, preemption, the window cache and a
-    journal armed, the audit armed at a rate that samples nothing): the
-    light sequence's families with each feature off and on, then the
-    journal scenarios."""
+@contextlib.contextmanager
+def fresh_jax_autotuner(table: str):
+    """The JAX package's process-global winner-table handle, fresh and
+    pointed at `table` for the block: its server renders
+    `sched.autotune.consults` from that handle, so a consult made earlier
+    in the process must not reach the scrape."""
+    jautotune = pytest.importorskip("racon_tpu.sched.autotune")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RACON_TPU_AUTOTUNE_CACHE", table)
+        jautotune.reset_autotuner_cache()
+        try:
+            yield
+        finally:
+            jautotune.reset_autotuner_cache()
+
+
+def jax_families(dataset, d) -> dict:
+    """The JAX server of `jax_ref` (its fixture's knobs) on a fresh
+    winner-table handle: the light sequence's families with each feature
+    off and on. The server is returned still running, with its client."""
     jserve = pytest.importorskip("racon_tpu.serve")
-    d = tmp_path_factory.mktemp("jax_ref")
     srv = jserve.PolishServer(socket_path=str(d / "j.sock"), warmup=False,
                               workers=1, preempt=True, audit_rate=1e-9,
                               wincache=True, journal=str(d / "j.jsonl"),
                               flight_dir="")
     srv.start()
+    cl = jserve.PolishClient(socket_path=srv.config.socket_path,
+                             timeout=WAIT)
     try:
-        cl = jserve.PolishClient(socket_path=srv.config.socket_path,
-                                 timeout=WAIT)
         light_sequence(cl, dataset)
-        fams = _scrape_variants(srv, cl.scrape)
-        outcomes = journal_scenarios(srv, cl, dataset, cut_reads)
-    finally:
+        return srv, cl, _scrape_variants(srv, cl.scrape)
+    except BaseException:
         srv.drain(timeout=30)
+        raise
+
+
+@pytest.fixture(scope="module")
+def jax_ref(dataset, cut_reads, tmp_path_factory):
+    """One JAX server (one worker, preemption, the window cache and a
+    journal armed, the audit armed at a rate that samples nothing) on a
+    fresh winner-table handle: the light sequence's families with each
+    feature off and on, then the journal scenarios."""
+    d = tmp_path_factory.mktemp("jax_ref")
+    with fresh_jax_autotuner(str(d / "autotune.json")):
+        srv, cl, fams = jax_families(dataset, d)
+        try:
+            outcomes = journal_scenarios(srv, cl, dataset, cut_reads)
+        finally:
+            srv.drain(timeout=30)
     return {"families": fams, "journal": per_trace(str(d / "j.jsonl")),
             "outcomes": outcomes}
 
@@ -327,22 +361,32 @@ def test_scrape_rpc_equals_http(dataset, tmp_path):
         assert srv.drain(timeout=30)
 
 
-@pytest.mark.parametrize("off", ["none", "audit", "wincache", "qos"])
-def test_scrape_families_match_jax(jax_ref, dataset, tmp_path, off):
+def port_families(dataset, tmp_path, off="none") -> dict:
+    """The port's server at `jax_ref`'s knobs with feature `off` taken
+    away, on a fresh winner-table handle of its own: the light
+    sequence's families."""
     kw = dict(workers=1, preempt=True, audit_rate=1e-9, wincache=True,
-              flight_dir="", journal=str(tmp_path / "j.jsonl"))
+              flight_dir="", journal=str(tmp_path / "j.jsonl"),
+              autotune_table=str(tmp_path / "autotune.json"))
     if off == "audit":
         kw["audit_rate"] = 0.0
     elif off == "wincache":
         kw["wincache"] = False
     elif off == "qos":
         kw["preempt"] = False
+    reset_autotuner_cache()
     srv, cl = start(tmp_path, **kw)
     try:
         light_sequence(cl, dataset)
-        mine = families(cl.scrape())
+        return families(cl.scrape())
     finally:
         assert srv.drain(timeout=30)
+        reset_autotuner_cache()
+
+
+@pytest.mark.parametrize("off", ["none", "audit", "wincache", "qos"])
+def test_scrape_families_match_jax(jax_ref, dataset, tmp_path, off):
+    mine = port_families(dataset, tmp_path, off)
     assert mine == jax_ref["families"][off]
     group = {"none": None, "audit": "racon_tpu_audit_",
              "wincache": "racon_tpu_serve_wincache_",
@@ -354,6 +398,32 @@ def test_scrape_families_match_jax(jax_ref, dataset, tmp_path, off):
     else:
         assert "racon_tpu_lane_health" in mine
         assert mine["racon_tpu_lane_health"] == ("gauge", ("lane",))
+
+
+@pytest.mark.parametrize("consulted", ["jax", "port", "both"])
+def test_scrape_families_match_jax_after_default_consults(dataset,
+                                                          tmp_path,
+                                                          consulted):
+    """A default winner-table handle consulted earlier in the process
+    (as another test file in the same worker may: one side's consult
+    alone gave that side the `sched.autotune.consults` family) must not
+    reach either server's scrape: each server runs on a fresh handle,
+    and the families stay equal, that family absent from both."""
+    jautotune = pytest.importorskip("racon_tpu.sched.autotune")
+    if consulted in ("jax", "both"):
+        jautotune.get_autotuner().winner("session", (768, 640), ())
+    if consulted in ("port", "both"):
+        get_autotuner().winner("session", (768, 640), ())
+    d = tmp_path / "jax"
+    d.mkdir()
+    with fresh_jax_autotuner(str(d / "autotune.json")):
+        srv, _, fams = jax_families(dataset, d)
+        srv.drain(timeout=30)
+    (tmp_path / "port").mkdir()
+    mine = port_families(dataset, tmp_path / "port")
+    assert mine == fams["none"]
+    consults = prom.metric_name("sched.autotune.consults") + "_total"
+    assert consults not in mine
 
 
 # -------------------------------------------------------------- journal
