@@ -214,14 +214,27 @@ mismatch or exception exits non-zero:
      beside its own) timed and parsed strictly; the journal consistent
      after the drain; the fullest K1 batch of the first replica held
      against its plain version and timed against its bound.
+  18. the elastic fleet (autoscale_path): one PolishServer on the card
+     (phase 17's posture) behind a PolishRouter with an Autoscaler whose
+     default spawn starts a second `serve` process on the card with the
+     same posture: phase 5's one-contig triple as three traced jobs at
+     once, the held shards' pressure spawning the replica, which runs one
+     of them (each FASTA equal to phase 5's, the spawned replica's job
+     launching K1 and K2); a servetop screen while it is alive; the
+     replica stopped after the idle and its process gone; the journal
+     consistent with a balanced autoscale ledger (obsreport), each merged
+     trace clean under tracereport; the server's fullest K1 batch held
+     against its plain version and timed against its bound.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
 fragment path of phase 8, the fused path of phase 9, the runs of phase
 10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
 phase 13 (path `serve`), of phase 14 (path `serve_kinds`), of phase 15
-(path `serve_lanes`), of phase 16 (path `serve_obs`) and of phase 17
-(path `router`), in all, by path and by instantiation; K3: launches
+(path `serve_lanes`), of phase 16 (path `serve_obs`), of phase 17
+(path `router`) and of phase 18 (path `autoscale`: this process's and
+the spawned replica's, the latter also as `launches_autoscale_child`
+and in no instantiation row), in all, by path and by instantiation; K3: launches
 on the four runs of phase 9, the fused runs of phases 10, 12, 13, 14 and
 15 and phase 11, and phase 14's held call), the card's name and power
 limit, and as the last line
@@ -232,6 +245,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -399,16 +413,18 @@ def main() -> int:
     k1o, k2o = phase("16 serve obs", serve_obs_path, dev, big, workdir,
                      report)
     k1r, k2r = phase("17 router", router_path, dev, big, workdir, report)
+    k1x, k2x = phase("18 autoscale", autoscale_path, dev, big, workdir,
+                     report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
                          (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
                          (k1k, k2k), (k1l, k2l), (k1o, k2o),
-                         (k1r, k2r)):
+                         (k1r, k2r), (k1x, k2x)):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
                             "adaptive", "autotune", "hooks", "serve",
                             "serve_kinds", "serve_lanes", "serve_obs",
-                            "router"), paths))
+                            "router", "autoscale"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
@@ -428,6 +444,12 @@ def main() -> int:
         "k1_fullest_lane1"]
     kernels[0]["held_serve_obs"] = report["serve_obs_path"]["k1_fullest"]
     kernels[0]["held_router"] = report["router_path"]["k1_fullest"]
+    kernels[0]["held_autoscale"] = report["autoscale_path"]["k1_fullest"]
+    # the spawned replica's launches are in `launches` and
+    # `launches_by_path`; its jobs report no instantiation
+    for k, key in zip(kernels, ("k1", "k2")):
+        k["launches_autoscale_child"] = \
+            report["autoscale_path"]["b"]["child_launches"][key]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -5081,6 +5103,271 @@ def router_path(dev, paths, workdir, report):
         f"({held['bound_by']}); card {card}")
     report["router_path"] = out
     return (launches["k1"], k1p), (launches["k2"], k2p)
+
+
+#: phase 18's autoscaler: one replica to start, room for one more; fast
+#: decisions, a short idle before the scale-down, and a hold long enough
+#: to outlast a spawned replica's start (the interpreter, torch, the CUDA
+#: context, the libraries and its warm-up), so a held shard can reach it
+AUTOSCALE = {"min_replicas": 1, "max_replicas": 2, "interval_s": 0.2,
+             "up_pressure": 1.0, "up_sustain_s": 0.5, "down_idle_s": 2.0,
+             "cooldown_s": 0.5, "hold_s": 30.0, "ready_timeout_s": 60.0}
+AUTOSCALE_JOBS = 3
+
+
+def autoscale_replica_args(table: str, threads: int) -> list:
+    """The `serve` flags of phase 18's spawned replica: the in-process
+    server's posture, on the card."""
+    return ["--device", "cuda", "--workers", "1", "-t", str(threads),
+            "-m", str(MATCH), "-x", str(MISMATCH), "-g", str(GAP),
+            "-c", "1", "--cudaaligner-batches", "1",
+            "--cuda-pipeline-depth", "2", "--cuda-autotune-table", table]
+
+
+def autoscale_path(dev, paths, workdir, report):
+    """Phase 18: the elastic fleet. One PolishServer in this process
+    (phase 17's posture: unix socket, one worker, session engine,
+    `cuda_poa_batches=1`, `cuda_aligner_batches=1`, depth 2, 5/-4/-8,
+    COLD_TABLE, warm-up on) behind a PolishRouter (a journal, health
+    every 0.3 s) with an Autoscaler (AUTOSCALE) whose default spawn
+    starts `python -m racon_tpu_torch serve` on the card with the same
+    posture (`autoscale_replica_args`; a winner-table path of its own,
+    which, like COLD_TABLE, must still not exist after the phase):
+
+      a. phase 5's one-contig triple as AUTOSCALE_JOBS traced jobs at
+         once (`submit_traced`): the first takes the server, the others
+         hold for an idle replica, and the held shards' pressure spawns
+         one replica process. Each merged FASTA equals phase 5's; the
+         journal holds one `autoscale-up` and a shard dispatched to the
+         spawned replica, whose job launched K1 and K2 (its `serve.batch`
+         in the shard's result); a servetop screen taken while it is
+         alive shows the autoscale suffix. Printed: the replica's time
+         to its first clean healthz, the wave's wall, each job's wall
+         beside phase 13's lone job;
+      b. after the idle the journal holds `autoscale-down` and the
+         process has exited; the journal passes `check_consistency` and
+         obsreport's `check_autoscale`; tracereport's `check` of each
+         merged trace is empty (the stages of the one that held most are
+         printed);
+      c. the server's fullest K1 batch held against its plain version and
+         timed against its bound.
+
+    No process outlives the phase, whatever fails. The in-process launch
+    counters are zeroed before the server starts and read after the
+    drains (part c excluded); the spawned replica's come from its jobs'
+    results. Returns (K1 launches, by instantiation) and (K2 ...), the
+    launches including the spawned replica's, the instantiations only
+    this process's."""
+    import threading
+
+    import torch
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.obs.fleet import FleetAggregator
+    from racon_tpu_torch.obs.journal import check_consistency, read_journal
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.serve import (PolishClient, PolishRouter,
+                                       PolishServer)
+    from racon_tpu_torch.serve.autoscale import Autoscaler
+    from racon_tpu_torch.tools import obsreport, servetop, tracereport
+
+    card = card_info()
+    out: dict = {}
+    contig = b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                      for n, d in KEPT["contig"])
+    journal = os.path.join(workdir, "autoscale_journal.jsonl")
+    child_table = os.path.join(workdir, "autoscale_child_table.json")
+    sock_dir = os.path.join(workdir, "as")
+    os.makedirs(sock_dir, exist_ok=True)
+    threads = max(1, (os.cpu_count() or 2) // 2)
+
+    def fail(part, msg):
+        raise SystemExit(f"autoscale path {part}: {msg}")
+
+    def log_tails() -> list:
+        """The end of each spawned replica's standard error."""
+        tails = []
+        for name in sorted(os.listdir(sock_dir)):
+            if name.endswith(".log"):
+                with contextlib.suppress(OSError), \
+                        open(os.path.join(sock_dir, name), "rb") as fh:
+                    tails.append(fh.read()[-3000:].decode(errors="replace"))
+        return tails
+
+    poa_kernels.reset_launches()
+    align_kernels.reset_launches()
+    poa_fused_kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = PolishServer(
+        socket_path=os.path.join(workdir, "autoscale_rep.sock"), workers=1,
+        device="cuda", match=MATCH, mismatch=MISMATCH, gap=GAP,
+        job_threads=threads, cuda_poa_batches=1, cuda_aligner_batches=1,
+        pipeline_depth=2, autotune_table=COLD_TABLE).start()
+    router = PolishRouter(
+        replicas=[srv.config.socket_path],
+        socket_path=os.path.join(workdir, "autoscale_router.sock"),
+        journal=journal, health_interval_s=0.3).start()
+    scaler = Autoscaler(router, socket_dir=sock_dir,
+                        replica_args=autoscale_replica_args(child_table,
+                                                            threads),
+                        **AUTOSCALE).start()
+    out["start_s"] = time.perf_counter() - t0
+    log(f"[chip_smoke] autoscale path: server (warm-up "
+        f"{srv._warm['warmup_s']:.3f} s), router and autoscaler up in "
+        f"{out['start_s']:.3f} s; {AUTOSCALE}; card {card}")
+    results: dict = {}
+    walls: dict = {}
+    screen = ""
+
+    def job(i):
+        cl = PolishClient(socket_path=router.config.socket_path, timeout=600)
+        t = time.perf_counter()
+        try:
+            results[i] = cl.submit_traced(*paths, trace_id=f"wave{i}")
+        except Exception as exc:  # noqa: BLE001 — reported below
+            results[i] = exc
+        walls[i] = time.perf_counter() - t
+
+    wave = [threading.Thread(target=job, args=(i,), daemon=True)
+            for i in range(AUTOSCALE_JOBS)]
+    try:
+        # ---- a. the wave
+        with PathCapture(runner=srv.batcher._lanes[0].runner) as cap:
+            tw = time.perf_counter()
+            for t in wave:
+                t.start()
+            deadline = time.monotonic() + AUTOSCALE["ready_timeout_s"] + 30
+            while (not scaler.counters["scale_ups"]
+                   and not scaler.counters["spawn_failures"]
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            if not scaler.counters["scale_ups"]:
+                fail("a", f"no scale-up: {scaler.snapshot()}, ready "
+                          f"timeout {AUTOSCALE['ready_timeout_s']} s, the "
+                          f"replica's stderr: {log_tails()}")
+            child = scaler.spawned[0]
+            # the servetop screen while the spawned replica is alive
+            agg = FleetAggregator([router.config.socket_path,
+                                   srv.config.socket_path, child["spec"]])
+            snap = agg.poll()
+            rows = [servetop.replica_row(r, {}, 0.0) for r in snap.replicas]
+            screen = servetop.render_screen(snap, agg.burn.state(), rows,
+                                            {}, 0.0)
+            agg.close()
+            for t in wave:
+                t.join(600)
+            wave_s = time.perf_counter() - tw
+        bad = {i: r for i, r in results.items() if isinstance(r, Exception)}
+        if bad or len(results) != AUTOSCALE_JOBS:
+            fail("a", f"jobs failed or lost: {bad}, {len(results)} results")
+        if any(res.fasta != contig for res, _ in results.values()):
+            fail("a", "a job's FASTA differs from phase 5's")
+        if "autoscale 1u/0d" not in screen or "[SCALED +1]" not in screen:
+            fail("a", f"servetop shows no autoscale suffix:\n{screen}")
+        on_child = {}
+        for i, (res, doc) in sorted(results.items()):
+            reps = [r["replica"] for r in res.trace_replicas or ()]
+            batch = res.router["shards_detail"][0]["batch"]
+            if reps == [child["spec"]]:
+                on_child[i] = batch
+        if not on_child:
+            fail("a", "no job ran on the spawned replica")
+        if any(b["k1_launches"] <= 0 or b["k2_launches"] <= 0
+               for b in on_child.values()):
+            fail("a", f"the spawned replica launched no K1 or K2: "
+                      f"{on_child}")
+        lone = report["serve_path"]["jobs"]["alone"]["wall_s"]
+        out["a"] = {
+            "ready_s": child["ready_s"], "wave_s": wave_s,
+            "job_walls_s": [walls[i] for i in sorted(walls)],
+            "phase13_alone_s": lone, "on_child": sorted(on_child),
+            "child_batches": {i: {k: b.get(k) for k in (
+                "k1_launches", "k2_launches", "iterations", "windows")}
+                for i, b in on_child.items()},
+            "screen": screen.splitlines()[1]}
+        log(f"[chip_smoke] autoscale path a: {AUTOSCALE_JOBS} jobs at once, "
+            f"each FASTA equal to phase 5's; the spawned replica ready in "
+            f"{child['ready_s']:.3f} s, ran job(s) {sorted(on_child)} "
+            f"(K1 {[b['k1_launches'] for b in on_child.values()]} / K2 "
+            f"{[b['k2_launches'] for b in on_child.values()]} launches); "
+            f"wave {wave_s:.3f} s, jobs "
+            f"{[round(walls[i], 3) for i in sorted(walls)]} s against phase "
+            f"13's lone job {lone:.3f} s; servetop: "
+            f"{out['a']['screen'].strip()}; card {card}")
+
+        # ---- b. scale-down after the idle
+        deadline = time.monotonic() + AUTOSCALE["down_idle_s"] + 60
+        while (not scaler.counters["scale_downs"]
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        if child["handle"].poll() is None:
+            fail("b", f"the spawned replica is still running: "
+                      f"{scaler.snapshot()}, its stderr: {log_tails()}")
+        out["b"] = {"snapshot": scaler.snapshot(),
+                    "exit_code": child["handle"].poll(),
+                    "idle_to_exit_s": time.perf_counter() - tw - wave_s}
+    finally:
+        # stops what the autoscaler still owns (SIGTERM, then SIGKILL
+        # after 15 s); a replica that never got ready was stopped already
+        scaler.close()
+        clean = router.drain(timeout=120)
+        drained = srv.drain(timeout=600)
+    if not clean or not drained:
+        fail("b", "a drain did not end cleanly")
+    if os.path.exists(COLD_TABLE) or os.path.exists(child_table):
+        fail("b", "a winner table was written during the phase")
+    entries = read_journal(journal)
+    events = [e["event"] for e in entries]
+    faults = check_consistency(entries) + obsreport.check_autoscale(entries)
+    to_child = [e for e in entries if e["event"] == "shard-dispatched"
+                and e.get("replica") == child["spec"]]
+    if (faults or events.count("autoscale-up") != 1
+            or events.count("autoscale-down") != 1 or not to_child
+            or events.count("finished") != AUTOSCALE_JOBS):
+        fail("b", f"journal faults {faults}, events "
+                  f"{ {ev: events.count(ev) for ev in set(events)} }")
+    stages = {}
+    for i, (res, doc) in sorted(results.items()):
+        rep = tracereport.analyze(doc)
+        problems = tracereport.check(doc, rep)
+        if problems:
+            fail("b", f"tracereport on job {i}: {problems}")
+        stages[i] = {k: round(v, 4) for k, v in rep["stages"].items()}
+    held = max(stages, key=lambda i: stages[i]["hold"])
+    # read with the launches, before part c's hold adds its own
+    launches = {"k1": poa_kernels.launches, "k2": align_kernels.launches,
+                "k3": poa_fused_kernels.launches}
+    k1p = by_plan(poa_kernels.launches_by_shape)
+    k2p = by_plan(align_kernels.launches_by_shape)
+    child_launches = {k: sum(b[f"{k}_launches"] for b in on_child.values())
+                      for k in ("k1", "k2", "k3")}
+    out["b"].update(journal_lines=len(entries), stages=stages,
+                    launches=launches, child_launches=child_launches)
+    log(f"[chip_smoke] autoscale path b: scaled down, the replica exited "
+        f"({out['b']['exit_code']}); journal {len(entries)} lines, "
+        f"consistent, autoscale ledger balanced; tracereport checks clean, "
+        f"job {held}'s stages {stages[held]}; launches here {launches}, "
+        f"in the spawned replica {child_launches}")
+
+    # ---- c. the fullest K1 batch of the server
+    if not cap.k1:
+        fail("c", "the server launched no K1 batch")
+    (nbk, lbk), (n, plan, args) = max(cap.k1.items(),
+                                      key=lambda kv: kv[1][0])
+    torch.cuda.synchronize()
+    held_k1 = hold_k1(args, nbk, lbk, f"the autoscale path's fullest "
+                      f"{(nbk, lbk)} batch", widths=(plan[0],))[plan]
+    out["k1_fullest"] = {"shape": [nbk, lbk], "jobs": n,
+                         "plan": plan_name(*plan), **held_k1}
+    log(f"[chip_smoke] autoscale path c: the server's fullest K1 batch, "
+        f"{(nbk, lbk)} {plan_name(*plan)} with {n} jobs, identical to the "
+        f"plain version; kernel {held_k1['ms']:.3f} ms, plain "
+        f"{held_k1['plain_ms']:.1f} ms, bound {held_k1['bound_ms']:.4f} ms "
+        f"({held_k1['bound_by']}); card {card}")
+    report["autoscale_path"] = out
+    return ((launches["k1"] + child_launches["k1"], k1p),
+            (launches["k2"] + child_launches["k2"], k2p))
 
 
 if __name__ == "__main__":

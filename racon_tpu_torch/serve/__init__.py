@@ -20,7 +20,10 @@
                   over N warm replicas (contig, window-range and
                   fragment read-range shards, the contig-order merge,
                   journal-backed requeue on a replica's loss, rolling
-                  restarts, the federated scrape)
+                  restarts, the federated scrape, add_replica /
+                  remove_replica and the dispatch hold)
+    autoscale.py  AutoscaleConfig and Autoscaler: the elastic fleet's
+                  loop, spawning and stopping replica processes
     protocol.py   length-prefixed JSON frames, the typed frame errors and
                   `error_response`
     wincache.py   the content-addressed window consensus cache, keyed on

@@ -58,16 +58,23 @@ unchanged:
     cancel of the parent, or a shard that fails `cancelled` or
     `deadline-doomed`, fans a cancel out to the sibling shards.
 
-Every knob is a `RouterConfig` keyword and a `router` flag; no
-environment variable sets one. `python -m racon_tpu_torch router
---replicas /tmp/a.sock,/tmp/b.sock` runs one (README, "Router and
-fleet").
+  - **The elastic fleet.** `add_replica` / `remove_replica` join and
+    leave the routing set live (journaled `replica-added` /
+    `replica-removed`; the aggregator polls the new set). An attached
+    `Autoscaler` (serve/autoscale.py, `router --autoscale`) drives them:
+    it spawns replica processes under sustained pressure and stops the
+    newest it spawned after sustained idle. While it is armed and the
+    fleet can still grow, a shard whose replicas are all busy holds for
+    an idle one for up to `hold_s` (`_scaleup_headroom`,
+    `_pick_replica(max_inflight=1)`); a held shard counts as backlog, a
+    `hold` journal line and the `held` argument of its `router.dispatch`
+    span record it. Healthz's `autoscale` block and the
+    `racon_tpu_router_autoscale_*` families appear only once armed.
 
-Left for the autoscaler (serve/autoscale.py has no counterpart here
-yet), each of them with the autoscaler: `add_replica` /
-`remove_replica`, `_scaleup_headroom` and the dispatch hold for an idle
-replica in `_run_shard`, the `autoscale` blocks of `healthz_snapshot`
-and `prometheus_text`, and the `--autoscale*` flags.
+Every knob is a `RouterConfig` / `AutoscaleConfig` keyword and a `router`
+flag; no environment variable sets one. `python -m racon_tpu_torch
+router --replicas /tmp/a.sock,/tmp/b.sock [--autoscale ...]` runs one
+(README, "Router and fleet").
 """
 
 from __future__ import annotations
@@ -452,12 +459,18 @@ class PolishRouter:
         self._active: dict[str, tuple] = {}
         self._inflight_jobs = 0
         self._requeued_outstanding = 0
+        #: shards holding in `_run_shard` for an idle replica (the
+        #: dispatch hold); the autoscaler counts them as backlog
+        self._dispatch_waiting = 0
         self._draining = threading.Event()
         self._stopped = threading.Event()
         self._t_start = time.perf_counter()
         self.counters = {"jobs_submitted": 0, "jobs_completed": 0,
                          "jobs_failed": 0, "shards_dispatched": 0,
                          "parts_routed": 0, "requeues": 0}
+        #: the attached Autoscaler or None: healthz and the scrape show
+        #: its state only when armed, and only then may a shard hold
+        self.autoscaler = None
         #: the router's own always-on flight ring: plan / dispatch /
         #: shard / stream / merge / requeue / cancel spans per routed job,
         #: tagged with the parent and `<trace>.s<k>` child ids. Not the
@@ -611,19 +624,67 @@ class PolishRouter:
         with self._state_lock:
             return sum(1 for r in self.replicas if r.routable)
 
-    def _pick_replica(self, exclude: set) -> ReplicaState | None:
+    # ---------------------------------------------------- elastic fleet
+    def add_replica(self, spec: str) -> bool:
+        """Join a replica to the live routing set (the autoscaler's
+        scale-up; also for an operator). Idempotent; the next poll or a
+        submit takes it from there."""
+        with self._state_lock:
+            if any(r.spec == spec for r in self.replicas):
+                return False
+            self.replicas.append(ReplicaState(spec))
+        self.fleet.add_endpoint(spec)
+        if self.journal is not None:
+            self.journal.record("replica-added", replica=spec)
+        log_info(f"[racon_tpu_torch::router] replica {spec} added "
+                 f"({self._routable_count()} routable)")
+        return True
+
+    def remove_replica(self, spec: str) -> bool:
+        """Take a replica out of the routing set (scale-down, before its
+        drain). Its shards in flight finish or requeue as on any loss;
+        nothing new routes there. Idempotent."""
+        with self._state_lock:
+            before = len(self.replicas)
+            self.replicas = [r for r in self.replicas if r.spec != spec]
+            removed = len(self.replicas) != before
+        if not removed:
+            return False
+        self.fleet.remove_endpoint(spec)
+        if self.journal is not None:
+            self.journal.record("replica-removed", replica=spec)
+        log_info(f"[racon_tpu_torch::router] replica {spec} removed")
+        return True
+
+    def _pick_replica(self, exclude: set,
+                      max_inflight: int | None = None
+                      ) -> ReplicaState | None:
         """The least-loaded routable replica, preferring ones the shard
-        has not failed on; claims an inflight slot under the lock."""
+        has not failed on; claims an inflight slot under the lock. With
+        `max_inflight`, only replicas below that load qualify: the
+        dispatch hold insists on an idle one."""
         with self._state_lock:
             cands = [r for r in self.replicas
                      if r.routable and r.spec not in exclude]
             if not cands:
                 cands = [r for r in self.replicas if r.routable]
+            if max_inflight is not None:
+                cands = [r for r in cands if r.inflight < max_inflight]
             if not cands:
                 return None
             best = min(cands, key=lambda r: r.inflight)
             best.inflight += 1
             return best
+
+    def _scaleup_headroom(self) -> bool:
+        """True while an armed autoscaler could still add a replica: the
+        only time a shard holds for an idle replica."""
+        asc = self.autoscaler
+        if asc is None:
+            return False
+        with self._state_lock:
+            total = len(self.replicas)
+        return total < asc.config.max_replicas
 
     def _release_replica(self, r: ReplicaState) -> None:
         with self._state_lock:
@@ -725,7 +786,9 @@ class PolishRouter:
                 "replicas_down": down,
                 "requeued_outstanding": outstanding,
                 "inflight": inflight,
-                "uptime_s": round(time.perf_counter() - self._t_start, 3)}
+                "uptime_s": round(time.perf_counter() - self._t_start, 3),
+                **({"autoscale": self.autoscaler.snapshot()}
+                   if self.autoscaler is not None else {})}
 
     def stats_snapshot(self) -> dict:
         with self._state_lock:
@@ -780,6 +843,18 @@ class PolishRouter:
                 "router.uptime_seconds": round(
                     time.perf_counter() - self._t_start, 3),
             }
+        if self.autoscaler is not None:
+            # armed only: an unarmed router's exposition is unchanged
+            snap = self.autoscaler.snapshot()
+            counters["router.autoscale.scale_ups"] = (
+                snap["scale_ups"], "replicas spawned on pressure")
+            counters["router.autoscale.scale_downs"] = (
+                snap["scale_downs"], "replicas drained on idle")
+            gauges["router.autoscale.spawned"] = (
+                snap["spawned"], "autoscaler-owned replicas alive")
+            gauges["router.autoscale.pressure"] = (
+                snap["pressure"], "queued+inflight jobs per routable "
+                "replica at the last poll")
         return body + obs_prom.render(counters, gauges)
 
     def _start_metrics_http(self) -> None:
@@ -1354,9 +1429,29 @@ class PolishRouter:
         requeued_pending = False
         exclude: set[str] = set()
         wait_deadline = time.monotonic() + self.config.replica_wait_s
+        # the dispatch hold: while the fleet can still grow, insist on an
+        # idle replica for up to hold_s before settling for a busy one. A
+        # held shard counts as backlog, so the hold summons the replica
+        # it waits for; the first replica to go idle takes it within one
+        # 0.1 s poll
+        asc = self.autoscaler
+        hold_deadline = (time.monotonic() + asc.config.hold_s
+                         if asc is not None and asc.config.hold_s > 0
+                         else None)
+        waiting_flagged = False
+
+        def set_waiting(on: bool):
+            nonlocal waiting_flagged
+            if on == waiting_flagged:
+                return
+            with self._state_lock:
+                self._dispatch_waiting = max(
+                    0, self._dispatch_waiting + (1 if on else -1))
+            waiting_flagged = on
 
         def settle():
             nonlocal requeued_pending
+            set_waiting(False)
             if requeued_pending:
                 requeued_pending = False
                 with self._state_lock:
@@ -1364,8 +1459,9 @@ class PolishRouter:
                         0, self._requeued_outstanding - 1)
 
         #: each attempt's `router.dispatch` span runs from here to the
-        #: pick, so a wait for a replica shows as its width
+        #: pick, so a wait for a replica (busy or held) shows as its width
         attempt_t0 = time.perf_counter()
+        held = False  # the hold engaged on this attempt
         while True:
             if merge.failure is not None:
                 # another shard, or a parent cancel, doomed the job: no
@@ -1384,10 +1480,17 @@ class PolishRouter:
                     settle()
                     return
                 child["deadline_s"] = round(remaining, 4)
-            replica = self._pick_replica(exclude)
+            hold = (hold_deadline is not None
+                    and time.monotonic() < hold_deadline
+                    and not self._draining.is_set()
+                    and self._scaleup_headroom())
+            replica = self._pick_replica(
+                exclude, max_inflight=1 if hold else None)
             if replica is None:
-                if (time.monotonic() < wait_deadline
-                        and not self._draining.is_set()):
+                if hold or (time.monotonic() < wait_deadline
+                            and not self._draining.is_set()):
+                    held = held or hold
+                    set_waiting(True)
                     time.sleep(0.1)
                     continue
                 merge.fail(_ShardFailure(
@@ -1396,13 +1499,14 @@ class PolishRouter:
                     f"{self.config.replica_wait_s:g}s"))
                 settle()
                 return
+            set_waiting(False)
             picked_t = time.perf_counter()
+            held_s = picked_t - attempt_t0
             self.recorder.complete(
                 "router.dispatch", attempt_t0, picked_t,
                 {"job": job_id, "trace_id": child["trace_id"], "shard": k,
-                 "replica": replica.spec,
-                 "held_s": round(picked_t - attempt_t0, 4),
-                 "attempt": losses + busy_waits})
+                 "replica": replica.spec, "held_s": round(held_s, 4),
+                 "held": held, "attempt": losses + busy_waits})
             with self._state_lock:
                 self.counters["shards_dispatched"] += 1
             if self.journal is not None:
@@ -1410,6 +1514,10 @@ class PolishRouter:
                                     trace=trace_id, shard=k,
                                     replica=replica.spec,
                                     attempt=losses + busy_waits)
+                if held:
+                    # the span's twin: obsreport's timelines read it
+                    self.journal.record("hold", job=job_id, trace=trace_id,
+                                        shard=k, held_s=round(held_s, 4))
             with merge.lock:
                 merge.dispatched[k] = (replica, child["trace_id"])
                 merge.replicas_seen[replica.spec] = replica
@@ -1444,6 +1552,7 @@ class PolishRouter:
                 # the shard goes elsewhere, no loss
                 exclude.add(replica.spec)
                 attempt_t0 = time.perf_counter()
+                held = False
                 continue
             except QueueFull as exc:
                 busy_waits += 1
@@ -1453,6 +1562,7 @@ class PolishRouter:
                     settle()
                     return
                 attempt_t0 = time.perf_counter()
+                held = False
                 time.sleep(_retry_delay(exc.retry_after))
                 continue
             except ServeError as exc:
@@ -1511,6 +1621,7 @@ class PolishRouter:
             exclude.add(replica.spec)
             wait_deadline = time.monotonic() + self.config.replica_wait_s
             attempt_t0 = time.perf_counter()
+            held = False
 
 
 # ------------------------------------------------------------------ CLI
@@ -1564,9 +1675,62 @@ def router_main(argv: list[str]) -> int:
                     help="write the router's own flight ring (plan, "
                          "dispatch, stream, merge and requeue spans per "
                          "routed job) as Chrome-trace JSON at stop")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="arm the elastic fleet: spawn warm replicas on "
+                         "sustained backlog pressure or a firing deadline "
+                         "burn-rate alert, stop the newest spawned one "
+                         "after sustained idle, and hold a shard for an "
+                         "idle replica while the fleet can grow")
+    ap.add_argument("--autoscale-min", default=None,
+                    help="fleet floor (default 1)")
+    ap.add_argument("--autoscale-max", default=None,
+                    help="fleet ceiling (default 4)")
+    ap.add_argument("--autoscale-interval", default=None,
+                    help="decision loop seconds (default 1)")
+    ap.add_argument("--autoscale-up-pressure", default=None,
+                    help="queued + inflight jobs per routable replica that "
+                         "count as pressure (default 2)")
+    ap.add_argument("--autoscale-up-sustain", default=None,
+                    help="seconds pressure must last before a scale-up "
+                         "(default 2)")
+    ap.add_argument("--autoscale-down-idle", default=None,
+                    help="seconds of a fully idle fleet before a "
+                         "scale-down (default 10)")
+    ap.add_argument("--autoscale-cooldown", default=None,
+                    help="least seconds between two actions (default 3)")
+    ap.add_argument("--autoscale-dir", default=None,
+                    help="socket directory of spawned replicas (default a "
+                         "new temporary directory)")
+    ap.add_argument("--autoscale-ready-timeout", default=None,
+                    help="seconds a spawned replica may take to its first "
+                         "clean healthz (default 20)")
+    ap.add_argument("--autoscale-hold", default=None,
+                    help="seconds a shard may hold out for an idle or new "
+                         "replica (default 5; 0 = no hold); to reach a new "
+                         "replica the hold must outlast its start, 9-12 s "
+                         "measured on an H100")
+    ap.add_argument("--autoscale-replica-args", default="",
+                    metavar="ARGS",
+                    help="`serve` flags for every spawned replica, one "
+                         "string split like a shell command, given with "
+                         "'=' (--autoscale-replica-args=\"-c 1 "
+                         "--cudaaligner-batches 1 -m 5 -x -4 -g -8\"); "
+                         "never --socket or --port")
     args = ap.parse_args(argv)
 
+    from .autoscale import AutoscaleConfig, Autoscaler
+
+    # the autoscale values go to AutoscaleConfig as typed, so that it is
+    # their one strict parser: a bad one exits 1 before anything starts
+    given = {key: getattr(args, "autoscale_" + flag) for key, flag in (
+        ("min_replicas", "min"), ("max_replicas", "max"),
+        ("interval_s", "interval"), ("up_pressure", "up_pressure"),
+        ("up_sustain_s", "up_sustain"), ("down_idle_s", "down_idle"),
+        ("cooldown_s", "cooldown"), ("socket_dir", "dir"),
+        ("ready_timeout_s", "ready_timeout"), ("hold_s", "hold"),
+        ("replica_args", "replica_args"))}
     try:
+        scale_cfg = AutoscaleConfig(**given) if args.autoscale else None
         router = PolishRouter(
             replicas=args.replicas, socket_path=args.socket,
             port=args.port, journal=args.journal,
@@ -1580,6 +1744,8 @@ def router_main(argv: list[str]) -> int:
     except (RaconError, OSError, ValueError) as exc:
         print(f"[racon_tpu_torch::router] error: {exc}", file=sys.stderr)
         return 1
+    scaler = (Autoscaler(router, scale_cfg).start()
+              if scale_cfg is not None else None)
 
     stop = threading.Event()
 
@@ -1590,5 +1756,7 @@ def router_main(argv: list[str]) -> int:
     signal.signal(signal.SIGINT, _on_signal)
     while not stop.is_set() and not router._stopped.is_set():
         stop.wait(0.2)
+    if scaler is not None:
+        scaler.close()
     router.drain()
     return 0

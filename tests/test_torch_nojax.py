@@ -34,7 +34,11 @@ ring and its dumps, a traced job merged with the client's spans, a trace
 pull, obs/fleet.py's burn-rate tracker) and leaves no tracer armed. A
 seventh routes jobs over two servers (a contig job, a streamed job and a
 fragment job through serve/router.py, with its journal and metrics port)
-and polls them with obs/fleet.py's aggregator and `fleet --json`.
+and polls them with obs/fleet.py's aggregator and `fleet --json`. An
+eighth, with `racon_tpu` blocked too, takes an autoscaler's scale-up
+decision over a fake router and runs the three tools' `main`
+(obsreport on a journal, tracereport on a trace, servetop on a live
+server).
 Besides, no module of the port, nor `chip_smoke.py`, names `jax`,
 `jaxlib` or `racon_tpu` in an import statement."""
 
@@ -565,6 +569,94 @@ def test_router_and_fleet_run_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", ROUTER_FLEET], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+ELASTIC_TOOLS = r"""
+import io, json, os, sys, tempfile, threading, types
+sys.modules["jax"] = None
+sys.modules["racon_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.serve import PolishServer
+from racon_tpu_torch.serve.autoscale import AutoscaleConfig, Autoscaler
+from racon_tpu_torch.tools import obsreport, servetop, tracereport
+
+class Router:
+    def __init__(self):
+        rep = types.SimpleNamespace(routable=True)
+        self.fleet = types.SimpleNamespace(last=lambda: types.SimpleNamespace(
+            replicas=[types.SimpleNamespace(ok=True, health={
+                "queue_depth": 5, "inflight": 1})], burn=None))
+        self._state_lock = threading.Lock()
+        self.replicas = [rep]
+        self._inflight_jobs = self._requeued_outstanding = 0
+        self._dispatch_waiting = 0
+        self.journal = None
+        self.added = []
+    def add_replica(self, spec):
+        self.added.append(spec)
+        self.replicas.append(types.SimpleNamespace(routable=True))
+    def remove_replica(self, spec):
+        self.replicas.pop()
+
+d = tempfile.mkdtemp()
+router = Router()
+sc = Autoscaler(router, AutoscaleConfig(up_sustain_s=1.0, socket_dir=d),
+                spawn=lambda spec: spec, stop=lambda h: None)
+sc._wait_ready = lambda spec: True
+assert sc.step(now=0.0) is None and sc.step(now=1.5) == "up"
+assert router.added == [os.path.join(d, "autoscale_1.sock")]
+
+def run(main, argv):
+    out, buf = sys.stdout, io.StringIO()
+    sys.stdout = buf
+    try:
+        return main(argv), buf.getvalue()
+    finally:
+        sys.stdout = out
+
+jp = os.path.join(d, "j.jsonl")
+with open(jp, "w") as fh:
+    for i, e in enumerate(["received", "started", "finished"]):
+        fh.write(json.dumps({"t": float(i), "event": e, "job": "j1"}) + "\n")
+    fh.write(json.dumps({"t": 3.0, "event": "autoscale-down",
+                         "replica": "x"}) + "\n")
+rc, out = run(obsreport.main, ["--journal", jp, "--flight-dir", d, "--check"])
+assert rc == 1 and "autoscale-down for 'x'" in out, out
+tp = os.path.join(d, "t.json")
+with open(tp, "w") as fh:
+    json.dump({"traceEvents": [{"name": "serve.job", "ph": "X", "ts": 0,
+                                "dur": 100, "args": {}}],
+               "trace_context": {}}, fh)
+rc, out = run(tracereport.main, [tp, "--check"])
+assert rc == 0 and "direct" in out, out
+srv = PolishServer(socket_path=os.path.join(d, "s.sock"), device="cpu",
+                   warmup=False,
+                   autotune_table=os.path.join(d, "at.json")).start()
+try:
+    rc, out = run(servetop.main, ["--once", "--endpoints",
+                                  srv.config.socket_path])
+    assert rc == 0 and "fleet  queue" in out, out
+finally:
+    assert srv.drain(timeout=60)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu", "obsreport",
+                                    "tracereport", "servetop")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_autoscaler_and_tools_run_without_jax():
+    """An autoscaler step over a fake router, and the three tools' `main`
+    on small inputs, with `jax` and `racon_tpu` blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", ELASTIC_TOOLS], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -716,10 +716,15 @@ def run_fleet(serve_mod, make_server, d, data) -> dict:
     socks = [s.config.socket_path for s in servers]
     proxy = DyingProxy(d / "dying.sock", upstream=socks[0], after=1,
                        dies=2)
+    # a JAX replica's scrape can take 2 s or more on the CPU while its
+    # first job traces and compiles, and a probe that times out marks the
+    # replica down: the scenario's shard counts would then follow the
+    # machine's speed. Both routers wait up to 30 s for a probe.
     routers = [serve_mod.PolishRouter(replicas=",".join(reps),
                                       socket_path=str(d / f"{n}.sock"),
                                       journal=str(d / f"{n}.jsonl"),
-                                      health_interval_s=0.2).start()
+                                      health_interval_s=0.2,
+                                      probe_timeout_s=30.0).start()
                for n, reps in (("router", socks),
                                ("failrouter", [proxy.path, socks[1]]))]
     try:
@@ -729,6 +734,10 @@ def run_fleet(serve_mod, make_server, d, data) -> dict:
             wait_routable(cl, 2)
         results = router_scenario(*cls, data["paths4"], data["path1"],
                                   data["frag"])
+        # the scrape renders the router's last completed poll: poll once
+        # more, so both routers federate the replicas' state after the
+        # scenario, not a poll that began during it
+        routers[0]._apply_poll(routers[0].fleet.poll())
         scrape = cls[0].request({"type": "scrape"})["text"]
         stats = cls[0].request({"type": "stats"})
     finally:
