@@ -225,6 +225,30 @@ mismatch or exception exits non-zero:
      consistent with a balanced autoscale ledger (obsreport), each merged
      trace clean under tracereport; the server's fullest K1 batch held
      against its plain version and timed against its bound.
+  19. the operator tools faultcheck and servebench on the card
+     (tools_path): faultcheck's range section (a one-contig job range-
+     sharded over two `serve --device cuda` processes, one killed with
+     `kill -9` mid-job) beside its grid (every quick row of MATRIX in the
+     depth2, depth2+fused and serve columns, after the clean gates) and
+     its audit section, every cell green, K2 and K3 launched, the range
+     replicas running `-c 1 --cudaaligner-batches 1` and launching K1
+     and K2; then servebench's default mode at 20 kb x 20x over 4
+     contigs (`-c 1 --cudaaligner-batches 1`), exit 0 with K1 and K2
+     launched on the warm server, its artifact under build/. The
+     fullest K2 batch of each shape that the grid and the warm server
+     launched is held against its plain version (the grid's at every
+     instantiation; a shape and instantiation the run held earlier on a
+     batch at least as full, as phase 8 holds servebench's, is not held
+     again).
+
+K2 batches of HOST_PLAIN_CELLS (pairs x band) or fewer are held against
+a plain version computed on the host CPU (the card runs the plain wavefront
+loop slower there), in three worker processes started at the outset,
+so those run beside each other and beside the card's work; every other
+hold computes it on the card. The kernels' nvcc builds and the host
+library's g++ run at once. K2's
+`plain_ms` in the kernel line sums the card's plain times only; the
+host's are `plain_ms_host`, and `plain_by_batch` says where each ran.
 
 Prints per-phase numbers, then the kernel line (K1 and K2: launches on
 the contig path of phase 5 at depth 2, the N-base path of phase 5b, the
@@ -232,11 +256,15 @@ fragment path of phase 8, the fused path of phase 9, the runs of phase
 10, all of phase 11 (path `autotune`), of phase 12 (path `hooks`), of
 phase 13 (path `serve`), of phase 14 (path `serve_kinds`), of phase 15
 (path `serve_lanes`), of phase 16 (path `serve_obs`), of phase 17
-(path `router`) and of phase 18 (path `autoscale`: this process's and
+(path `router`), of phase 18 (path `autoscale`: this process's and
 the spawned replica's, the latter also as `launches_autoscale_child`
-and in no instantiation row), in all, by path and by instantiation; K3: launches
-on the four runs of phase 9, the fused runs of phases 10, 12, 13, 14 and
-15 and phase 11, and phase 14's held call), the card's name and power
+and in no instantiation row) and of phase 19 (paths `faultcheck`: the
+grid and the audit, and the range section's replica processes, the
+latter also as `launches_faultcheck_child` and in no instantiation row;
+`servebench`: the warm server), in all, by path
+and by instantiation; K3: launches on the four runs of phase 9, the
+fused runs of phases 10, 12, 13, 14 and 15, phase 11, phase 19's
+faultcheck grid, and phase 14's held call), the card's name and power
 limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when no
 CUDA device is present or when run outside the repository. Imports
@@ -245,14 +273,17 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
+import multiprocessing
 import os
 import random
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: the winner table of every phase before phase 11: a path that never
@@ -343,21 +374,38 @@ def main() -> int:
     log(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
         f"on {torch.cuda.get_device_name(0)}")
 
+    # the host CPU's workers for K2's small plain holds (HOST_PLAIN_CELLS),
+    # started now so they are warm by phase 3; stopped at exit
+    global PLAIN_POOL
+    PLAIN_POOL = ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_warm_plain_worker)
+    atexit.register(PLAIN_POOL.shutdown, cancel_futures=True)
+    for _ in range(3):
+        PLAIN_POOL.submit(int)
+
     # ---------------------------------------------------------- 1. build
+    # every nvcc and the host library's g++ run at once
     t0 = time.perf_counter()
     notb = build_without_traceback("poa_window_sweep.cu",
                                    "rt_poa_window_sweep", 11, 9)
     notb2 = build_without_traceback("align_wavefront.cu",
                                     "rt_align_wavefront", 8, 6)
     k3stg = build_k3_stages()
-    _build.kernels()
-    k_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    native.get_lib()
-    n_s = time.perf_counter() - t1
+
+    def host_lib() -> float:
+        t1 = time.perf_counter()
+        native.get_lib()
+        return time.perf_counter() - t1
+
+    with ThreadPoolExecutor(1) as ex:
+        host = ex.submit(host_lib)
+        _build.kernels()
+        k_s = time.perf_counter() - t0
+        n_s = host.result()
     log(f"[chip_smoke] build: kernels {k_s:.2f} s "
         f"({'cached' if _build.build_info.get('cached') else 'nvcc'}), "
-        f"host library {n_s:.2f} s; card {card}")
+        f"host library {n_s:.2f} s beside them; card {card}")
     for line in _build.build_info.get("ptxas", "").splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"[chip_smoke]   ptxas: {line.strip()}")
@@ -415,23 +463,26 @@ def main() -> int:
     k1r, k2r = phase("17 router", router_path, dev, big, workdir, report)
     k1x, k2x = phase("18 autoscale", autoscale_path, dev, big, workdir,
                      report)
+    tools = phase("19 tools", tools_path, dev, workdir, report)
     log(f"[chip_smoke] phase walls (s): "
         f"{ {k: round(v, 2) for k, v in walls.items()} }; card {card}")
     for k, *paths in zip(kernels, contig, nbases, fragment, (k1f, k2f),
                          (k1a, k2a), (k1t, k2t), (k1h, k2h), (k1s, k2s),
                          (k1k, k2k), (k1l, k2l), (k1o, k2o),
-                         (k1r, k2r), (k1x, k2x)):
+                         (k1r, k2r), (k1x, k2x), tools["faultcheck"][:2],
+                         tools["servebench"]):
         by_path = dict(zip(("contig", "nbases", "fragment", "fused",
                             "adaptive", "autotune", "hooks", "serve",
                             "serve_kinds", "serve_lanes", "serve_obs",
-                            "router", "autoscale"), paths))
+                            "router", "autoscale", "faultcheck",
+                            "servebench"), paths))
         k["launches"] = sum(n for n, _ in paths)
         k["launches_by_path"] = {p: n for p, (n, _) in by_path.items()}
         k["launches_by_plan"] = {p: pl for p, (_, pl) in by_path.items()}
         for row in k["instantiations"]:
             row["launches"] = sum(pl.get(row["plan"], 0)
                                   for _, pl in paths)
-    for runs in (k3a, k3t, k3h, k3s, k3k, k3l):
+    for runs in (k3a, k3t, k3h, k3s, k3k, k3l, tools["faultcheck"][2]):
         k3["launches"] += sum(runs.values())
         k3["launches_by_path"].update(runs)
         for row in k3["instantiations"]:
@@ -450,6 +501,10 @@ def main() -> int:
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_autoscale_child"] = \
             report["autoscale_path"]["b"]["child_launches"][key]
+        k["launches_faultcheck_child"] = \
+            report["tools_path"]["a"]["range_replica_launches"][key]
+    kernels[1]["held_faultcheck"] = report["tools_path"]["a"]["k2_held"]
+    kernels[1]["held_servebench"] = report["tools_path"]["b"]["k2_held"]
     kernels.append(k3)
 
     out_dir = os.path.join(HERE, "build")
@@ -974,33 +1029,109 @@ def launch_k2(fn, edge, band, args, plan):
     return ops, meta
 
 
-def hold_k2(edge, band, a8, ap, what: str, time_it: bool = True,
-            widths=None) -> dict:
-    """K2 against its plain version on one batch at every instantiation
-    the edge allows (int16 where the overflow proof holds, packed when
-    `ap` is given): the plain version once per score width, both operand
-    forms held against it (ops[:count], count, distance, touched). Exits
-    on a difference. Returns {plan: row}, each with the kernel's
-    CUDA-event ms (mean of 2 after a warm-up), the plain version's
-    host-clocked ms, the bound and the band-touched pairs."""
+#: a held K2 batch of at most this many cells a wavefront step (pairs x
+#: band) has its plain version computed on the host CPU: on the card the
+#: plain version steps one wavefront at a time in small launches, whatever
+#: the batch, and the host's step grows with its cells; at band 896 the
+#: host was faster up to 8 pairs and level at 16 (PERF.md, section 6)
+HOST_PLAIN_CELLS = 16 * 896
+
+
+def host_plain(a8, band) -> bool:
+    return a8[0].shape[0] * band <= HOST_PLAIN_CELLS
+
+#: worker processes that compute those host plain versions (started by
+#: main), so they run beside each other and beside the card's work
+PLAIN_POOL = None
+
+#: every (edge, band, plan) K2 was held at in this run -> (pairs, what)
+HELD_K2: dict = {}
+
+
+def _warm_plain_worker() -> None:
+    import torch
+
+    import racon_tpu_torch.ops.align  # noqa: F401
+
+    torch.set_num_threads(2)
+
+
+def _host_plain_k2(arrays, band: int, dtype: str):
+    """K2's plain version on the host CPU, in a PLAIN_POOL worker: numpy
+    operands in, (ops, meta, ms of the plain version) out."""
     import torch
 
     from racon_tpu_torch.ops.align import banded_nw, traceback
+
+    q, t, ql, tl, offs = (torch.from_numpy(a) for a in arrays)
+    t0 = time.perf_counter()
+    bp, dist = banded_nw(q, t, ql, tl, offs, band, dtype)
+    ops, meta = traceback(bp, dist, offs, ql, tl, band)
+    return ops.numpy(), meta.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def k2_widths(edge, widths=None) -> tuple:
     from racon_tpu_torch.ops.dtypes import aligner_int16_ok
 
-    if widths is None:
-        widths = ("int32", "int16") if aligner_int16_ok(edge) else \
-            ("int32",)
+    if widths is not None:
+        return tuple(widths)
+    return ("int32", "int16") if aligner_int16_ok(edge) else ("int32",)
+
+
+def plain_k2_async(edge, band, a8, widths=None) -> dict:
+    """Starts the plain version of a held K2 batch of HOST_PLAIN_CELLS
+    or fewer (host_plain) on the host CPU, one PLAIN_POOL task per width:
+    {dtype: future}; {} for a larger batch (hold_k2 computes that one on
+    the card). Start it early and hand it to hold_k2 to overlap it."""
+    if not host_plain(a8, band):
+        return {}
+    arrays = [x.cpu().numpy() for x in a8]
+    out = {}
+    for dt in k2_widths(edge, widths):
+        if PLAIN_POOL is not None:
+            out[dt] = PLAIN_POOL.submit(_host_plain_k2, arrays, band, dt)
+        else:  # imported, not run: in this process, now
+            out[dt] = Future()
+            out[dt].set_result(_host_plain_k2(arrays, band, dt))
+    return out
+
+
+def hold_k2(edge, band, a8, ap, what: str, time_it: bool = True,
+            widths=None, plain=None) -> dict:
+    """K2 against its plain version on one batch at every instantiation
+    the edge allows (int16 where the overflow proof holds, packed when
+    `ap` is given): the plain version once per score width (on the host
+    CPU for a batch of HOST_PLAIN_CELLS or fewer, in PLAIN_POOL,
+    `plain` when plain_k2_async started it before; on the card
+    otherwise), both operand forms held against it (ops[:count], count,
+    distance, touched). Exits on a difference. Returns {plan: row}, each
+    with the kernel's CUDA-event ms (mean of 2 after a warm-up), the
+    plain version's ms (host-clocked; in the worker, its compute alone)
+    and where it ran, the bound and the band-touched pairs."""
+    import torch
+
+    from racon_tpu_torch.ops.align import banded_nw, traceback
+
+    widths = k2_widths(edge, widths)
     q, t, ql, tl, offs = a8
+    if plain is None:
+        plain = plain_k2_async(edge, band, a8, widths)
     rows = {}
     for dtype in widths:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bp, dist = banded_nw(q, t, ql, tl, offs, band, dtype)
-        w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        del bp
+        if dtype in plain:
+            h_ops, h_meta, plain_ms = plain[dtype].result()
+            w_ops = torch.from_numpy(h_ops).to(q.device)
+            w_meta = torch.from_numpy(h_meta).to(q.device)
+            plain_dev = "cpu"
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bp, dist = banded_nw(*a8, band, dtype)
+            w_ops, w_meta = traceback(bp, dist, offs, ql, tl, band)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_dev = q.device.type
+            del bp
         for packed, a in ((False, a8), (True, ap)):
             if a is None:
                 continue
@@ -1012,14 +1143,23 @@ def hold_k2(edge, band, a8, ap, what: str, time_it: bool = True,
                 raise SystemExit(f"K2 wavefront_align {plan_name(*plan)} "
                                  f"disagrees with its plain version on "
                                  f"{what}: meta max |diff| {err}")
-            row = {"plain_ms": plain_ms, "err": err,
-                   "touched": int(meta[:, 2].sum())}
+            row = {"plain_ms": plain_ms, "plain_on": plain_dev,
+                   "err": err, "touched": int(meta[:, 2].sum())}
             if time_it:
                 row["ms"] = cuda_ms(lambda: align_k2(a, band, plan), reps=2)
                 row["bound_ms"], row["bound_by"] = wavefront_bound(
                     ql, tl, offs, band, meta[:, 0], packed)
             rows[plan] = row
+            key = (edge, band, plan_name(*plan))
+            if q.shape[0] > HELD_K2.get(key, (0,))[0]:
+                HELD_K2[key] = (q.shape[0], what)
     return rows
+
+
+def plain_key(row) -> str:
+    """Where a hold row's plain time is summed: `plain_ms` when the plain
+    version ran on the card, `plain_ms_host` when on the host CPU."""
+    return "plain_ms_host" if row["plain_on"] == "cpu" else "plain_ms"
 
 
 def decisions(ops, meta, q_lens, t_lens):
@@ -1085,11 +1225,22 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
             cases.append(("fullest", c))
         elif c is same[-1]:
             cases.append(("last partial", c))
-    for kind, (edge, band, idx, args, plan) in cases:
-        a8, ap = k2_forms(al, pairs, edge, band, idx)
+    # the host plains of the small batches start first, so they run
+    # beside the card's plain versions of the others
+    forms = [k2_forms(al, pairs, c[0], c[1], c[2]) for _, c in cases]
+    started = [plain_k2_async(c[0], c[1], f[0])
+               for (_, c), f in zip(cases, forms)]
+    adv = []
+    for edge, band, adv_pairs, label in adversarial_pairs():
+        idx = list(range(len(adv_pairs)))
+        a8, ap = k2_forms(al, adv_pairs, edge, band, idx)
+        adv.append((edge, band, adv_pairs, label, idx, a8, ap,
+                    plain_k2_async(edge, band, a8)))
+    for (kind, (edge, band, idx, args, plan)), (a8, ap), pl in zip(
+            cases, forms, started):
         rows = hold_k2(edge, band, a8, ap,
                        f"the {kind} ({edge}, {band}) batch",
-                       time_it=kind == "fullest")
+                       time_it=kind == "fullest", plain=pl)
         err = max([err] + [x["err"] for x in rows.values()])
         n_touched = rows[plan]["touched"]
         if kind == "last partial":
@@ -1108,17 +1259,20 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
         main_rows.append(r)
         for p, x in rows.items():
             acc = inst.setdefault(p, {"batches": 0, "ms": 0.0,
-                                      "plain_ms": 0.0, "bound_ms": 0.0,
-                                      "bound_by": by})
-            for k in ("ms", "plain_ms", "bound_ms"):
+                                      "plain_ms": None, "plain_ms_host": None,
+                                      "bound_ms": 0.0, "bound_by": by})
+            for k in ("ms", "bound_ms"):
                 acc[k] += x[k]
+            # None where no batch's plain version ran there
+            acc[plain_key(x)] = (acc[plain_key(x)] or 0.0) + x["plain_ms"]
             acc["batches"] += 1
             acc["bound_by"] = x["bound_by"]
         rows_out.append({
             "kind": kind, "edge": edge, "band": band, "pairs": len(idx),
             "plan": plan_name(*plan),
             "instantiations": {plan_name(*p): x for p, x in rows.items()},
-            "ms": ms, "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": ms, "plain_ms": r["plain_ms"], "plain_on": r["plain_on"],
+            "bound_ms": r["bound_ms"],
             "bound_by": by, "touched": n_touched, "wavefronts": waves,
             "ns_per_wavefront": ms * 1e6 / waves,
             "no_traceback_ms": tb_free,
@@ -1132,11 +1286,10 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
             f"without traceback {tb_free:.3f} ms (traceback share "
             f"{100 * (1 - tb_free / ms):.1f}%); plane {plane} bytes")
     adv_rows = []
-    for edge, band, adv_pairs, label in adversarial_pairs():
-        idx = list(range(len(adv_pairs)))
-        a8, ap = k2_forms(al, adv_pairs, edge, band, idx)
+    for edge, band, adv_pairs, label, idx, a8, ap, pl in adv:
         rows = hold_k2(edge, band, a8, ap,
-                       f"the adversarial ({edge}, {band}) batch {label}")
+                       f"the adversarial ({edge}, {band}) batch {label}",
+                       plain=pl)
         err = max([err] + [x["err"] for x in rows.values()])
         n_touched = max(x["touched"] for x in rows.values())
         # a band narrower than the bucket can be touched, and the
@@ -1191,7 +1344,15 @@ def check_wavefront(dev, draft, reads, paf, report, notb) -> dict:
             "replaces": "racon_tpu/ops/align_pallas.py:91",
             "launches": 0, "max_abs_err": err,
             "ms": sum(r["ms"] for r in main_rows),
-            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            # the plain version's time on the card, and apart from it
+            # the rows whose plain version ran on the host CPU
+            "plain_ms": sum(r["plain_ms"] for r in main_rows
+                            if plain_key(r) == "plain_ms"),
+            "plain_ms_host": sum(r["plain_ms"] for r in main_rows
+                                 if plain_key(r) == "plain_ms_host"),
+            "plain_by_batch": [{k: r[k] for k in ("edge", "band", "pairs",
+                                                  "plain_ms", "plain_on")}
+                               for r in rows_out],
             "bound_ms": sum(r["bound_ms"] for r in main_rows),
             "bound_by": by, "library_ms": None,
             "instantiations": [{"plan": plan_name(*p), **inst[p]}
@@ -1814,6 +1975,9 @@ class PathCapture:
         self.k1: dict = {}          # (nb, lb) -> (real jobs, plan, inputs)
         self.k1_jobs = 0
         self.align_calls: list = []
+        #: the aligner's envelope and band of each align call, so a hold
+        #: batches the pairs as that call did
+        self.align_opts: list = []
         self.align_s = 0.0
         self._n = 0
 
@@ -1850,6 +2014,8 @@ class PathCapture:
 
         def _align(al, pairs, progress=None, **kw):
             cap.align_calls.append(pairs)
+            cap.align_opts.append({"max_length": al.max_length,
+                                   "band_width": al.band_width})
             t0 = time.perf_counter()
             try:
                 return align(al, pairs, progress, **kw)
@@ -1870,15 +2036,74 @@ class PathCapture:
         return False
 
 
+def hold_fullest_k2(dev, cap, label: str, every: bool = False,
+                    once: bool = False):
+    """The fullest batch of each K2 (edge, band) that a captured run
+    (PathCapture) launched, batched as each align call batched its pairs
+    (its envelope and band), held against its plain version at the
+    instantiation it ran (`every`: at every instantiation the edge and
+    its bases allow), timed, and checked at both widths where int16
+    holds. With `once`, a shape whose instantiation this run already
+    held on a batch at least as full (HELD_K2) is not held again: its row
+    names that hold instead. Returns (rows, cross-width batches); the
+    holds' launches come after the run's counts were read, and count for
+    no path."""
+    import torch
+
+    from racon_tpu_torch.ops.align import BatchAligner
+    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
+
+    fullest: dict = {}
+    for pairs, opts in zip(cap.align_calls, cap.align_opts):
+        al = BatchAligner(device=dev, **opts)
+        for edge, band, idx in al.chunks(pairs):
+            if len(idx) > fullest.get((edge, band), (0,))[0]:
+                fullest[(edge, band)] = (len(idx), pairs, idx, opts)
+    rows = []
+    todo = []
+    for (edge, band), (n, pairs, idx, opts) in sorted(fullest.items()):
+        al = BatchAligner(device=dev, **opts)
+        args = al.operands(pairs, edge, band, idx)
+        plan = (al.plan_for(edge, band), args[0].dtype == torch.uint8)
+        before = HELD_K2.get((edge, band, plan_name(*plan)))
+        if once and before is not None and before[0] >= n:
+            rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
+                         "plan": plan_name(*plan), "held_before": before[1],
+                         "held_before_pairs": before[0]})
+            continue
+        a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
+                                                  pack=False)
+        widths = None if every else (plan[0],)
+        # the host plains start first, beside the card's of the others
+        todo.append((edge, band, n, args, a8, plan, widths,
+                     plain_k2_async(edge, band, a8, widths)))
+    n_cross = 0
+    for edge, band, n, args, a8, plan, widths, started in todo:
+        held = hold_k2(edge, band, a8, args if plan[1] else None,
+                       f"the {label}'s fullest ({edge}, {band}) batch",
+                       widths=widths, plain=started)
+        r = held[plan]
+        if aligner_int16_ok(edge):
+            cross_width_k2(args, band, plan[1], f"the {label}'s "
+                           f"fullest ({edge}, {band}) batch")
+            n_cross += 1
+        rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
+                     "plan": plan_name(*plan), "touched": r["touched"],
+                     "held_at": sorted(plan_name(*p) for p in held),
+                     "max_abs_err": max(x["err"] for x in held.values()),
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "plain_on": r["plain_on"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
+    del todo
+    return rows, n_cross
+
+
 def hold_captured(dev, cap, label: str):
     """The fullest batch of each K1 bucket and of each K2 (edge, band)
     that a captured run (PathCapture) launched, held against its
     plain version at the instantiation it ran, timed, and checked at both
     widths where int16 holds. Returns (rows, cross-width batches)."""
     import torch
-
-    from racon_tpu_torch.ops.align import BatchAligner
-    from racon_tpu_torch.ops.dtypes import aligner_int16_ok
 
     # the fullest batch of each K1 bucket at the instantiation it ran,
     # against the plain version, and at both widths where int16 holds
@@ -1900,44 +2125,36 @@ def hold_captured(dev, cap, label: str):
                      "rows": args[0].shape[0], "plan": plan_name(*plan),
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
-    # the fullest batch of each K2 (edge, band), as the polishers batched
-    # their pairs
-    fullest: dict = {}
-    for pairs in cap.align_calls:
-        for edge, band, idx in BatchAligner(device=dev).chunks(pairs):
-            if len(idx) > fullest.get((edge, band), (0,))[0]:
-                fullest[(edge, band)] = (len(idx), pairs, idx)
-    al = BatchAligner(device=dev)
-    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
-        args = al.operands(pairs, edge, band, idx)
-        plan = (al.plan_for(edge, band), args[0].dtype == torch.uint8)
-        a8 = args if not plan[1] else al.operands(pairs, edge, band, idx,
-                                                  pack=False)
-        held = hold_k2(edge, band, a8, args if plan[1] else None,
-                       f"the {label}'s fullest ({edge}, {band}) batch",
-                       widths=(plan[0],))
-        r = held[plan]
-        if aligner_int16_ok(edge):
-            cross_width_k2(args, band, plan[1], f"the {label}'s "
-                           f"fullest ({edge}, {band}) batch")
-            n_cross += 1
-        rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
-                     "plan": plan_name(*plan), "touched": r["touched"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
-        del args, a8
+    k2_rows, k2_cross = hold_fullest_k2(dev, cap, label)
+    rows += k2_rows
+    n_cross += k2_cross
+    log_held(label, rows)
+    log(f"[chip_smoke] {label} cross-width check: {n_cross} fullest "
+        f"batches of int16 shapes identical at int16 and int32")
+    return rows, n_cross
+
+
+def log_held(label: str, rows: list) -> None:
+    """One line for each held fullest batch (hold_captured's rows)."""
     for r in rows:
+        if "held_before" in r:
+            log(f"[chip_smoke] {label} {r['kernel']} fullest batch at "
+                f"{tuple(r['shape'])}, {r['plan']}: {r['pairs']} pairs; "
+                f"this shape and instantiation were held earlier in this "
+                f"run on {r['held_before']} ({r['held_before_pairs']} "
+                f"pairs), so not again")
+            continue
         log(f"[chip_smoke] {label} {r['kernel']} fullest batch at "
             f"{tuple(r['shape'])}, {r['plan']}: "
             + (f"{r['jobs']} jobs / {r['rows']} rows"
                if r["kernel"] == "K1" else
                f"{r['pairs']} pairs ({r['touched']} band-touched)")
             + f" identical; kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
-    log(f"[chip_smoke] {label} cross-width check: {n_cross} fullest "
-        f"batches of int16 shapes identical at int16 and int32")
-    return rows, n_cross
+            f"{r['plain_ms']:.1f} ms"
+            + (f" on {r['plain_on']}" if "plain_on" in r else "")
+            + (f" (held at {', '.join(r['held_at'])})" if "held_at" in r
+               else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def fragment_path(dev, truth, reads, workdir, report):
@@ -2737,7 +2954,17 @@ def adaptive_path(dev, paths, windows, report):
                          f"edges {sorted(fullest)}")
 
     # ---- 2. the fullest batch of each derived shape, held (the static
-    # shapes are phases 2 and 3's)
+    # shapes are phases 2 and 3's); the K2 batches' host plain versions
+    # start first, beside each other and the K1 holds
+    k2_todo = []
+    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
+        if edge in BatchAligner.BUCKETS:
+            continue
+        part = idx[:16] if edge > 2048 else idx
+        a8, ap = k2_forms(al, pairs, edge, band, part)
+        dtype = al.plan_for(edge, band)
+        k2_todo.append((edge, band, n, part, a8, ap, dtype,
+                        plain_k2_async(edge, band, a8, (dtype,))))
     rows = []
     for (nb, lb), (n, plan, args) in sorted(cap.k1.items()):
         if (nb, lb) in BUCKETS:
@@ -2750,19 +2977,16 @@ def adaptive_path(dev, paths, windows, report):
                      "max_abs_err": 0,
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]})
-    for (edge, band), (n, pairs, idx) in sorted(fullest.items()):
-        if edge in BatchAligner.BUCKETS:
-            continue
-        part = idx[:16] if edge > 2048 else idx
-        a8, ap = k2_forms(al, pairs, edge, band, part)
-        dtype = al.plan_for(edge, band)
+    for edge, band, n, part, a8, ap, dtype, started in k2_todo:
         held = hold_k2(edge, band, a8, ap, f"the adaptive path's fullest "
-                       f"({edge}, {band}) batch", widths=(dtype,))
+                       f"({edge}, {band}) batch", widths=(dtype,),
+                       plain=started)
         for p, r in held.items():
             rows.append({"kernel": "K2", "shape": [edge, band], "pairs": n,
                          "held_rows": len(part), "plan": plan_name(*p),
                          "max_abs_err": r["err"], "touched": r["touched"],
                          "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "plain_on": r["plain_on"],
                          "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"]})
         del a8, ap
@@ -2774,8 +2998,9 @@ def adaptive_path(dev, paths, windows, report):
                f"{r['held_rows']} of {r['pairs']} pairs "
                f"({r['touched']} band-touched)")
             + f" identical (max |diff| 0); kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"{r['plain_ms']:.1f} ms"
+            + (f" on {r['plain_on']}" if "plain_on" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     out["held"] = rows
     out["ladders"] = ladders
     if len(cap.k1_batches) != m2["k1_launches"]:
@@ -5368,6 +5593,229 @@ def autoscale_path(dev, paths, workdir, report):
     report["autoscale_path"] = out
     return ((launches["k1"] + child_launches["k1"], k1p),
             (launches["k2"] + child_launches["k2"], k2p))
+
+
+#: phase 19's faultcheck columns (every quick row in each) and its
+#: servebench run: the default mode at a small size, the artifact under
+#: build/
+TOOLS_COLUMNS = ("depth2", "depth2+fused", "serve")
+SERVEBENCH_ARGS = ["--device", "cuda", "--jobs", "2", "--cold-runs", "1",
+                   "--genome-kb", "20", "--contigs", "4", "-c", "1",
+                   "--cudaaligner-batches", "1"]
+
+
+def tools_path(dev, workdir, report):
+    """Phase 19: the operator tools faultcheck and servebench on the card,
+    through their own functions (racon_tpu_torch/tools/):
+
+      a. faultcheck: its range section (a one-contig job range-sharded
+         over two `serve --device cuda -c 1 --cudaaligner-batches 1`
+         replica processes, started at once, one killed with `kill -9`
+         mid-job; each finished shard must have launched K1 and K2 in
+         its replica) runs in a thread beside the rest, which starts no
+         worker thread of its own, so the grid's orphan checks see none
+         of it; meanwhile the grid's clean gates at depth 2 (the fused
+         engine's `cuda_fused` 0 against 1), every quick row of MATRIX
+         in TOOLS_COLUMNS (each cell through `run_cell` /
+         `run_serve_cell`), then the audit section. Every cell must be
+         green. The in-process launches are counted over the grid and
+         the audit: K2 (the aligner rows) and K3 (the fused column) must
+         be launched; K1 is counted where the audit's oracle and the
+         session engine run it. Then, while the range section still
+         runs, the fullest K2 batch of each shape the grid launched is
+         held against its plain version at every instantiation
+         (hold_fullest_k2);
+      b. servebench's default mode (SERVEBENCH_ARGS: a cold CLI run as a
+         `python -m racon_tpu_torch --device cuda` process, the warm
+         server in this process), beside the range section's tail (its
+         replicas stalled on `hang=8`), must exit 0 with K1 and K2 launched on
+         the warm server; its artifact goes to build/. Printed: the cold
+         wall, the warm p50, the wave's p50 and the gates. Then the
+         fullest K2 batch of each shape the warm server launched is held
+         at the instantiation it ran, unless this run held that shape
+         and instantiation before on a batch at least as full.
+
+    Returns {"faultcheck": ((K1 launches, by instantiation), (K2 ...),
+    {"<dtype> faultcheck": K3 launches}), "servebench": ((K1 ...),
+    (K2 ...))}."""
+    import threading
+
+    from racon_tpu_torch.device import card_info
+    from racon_tpu_torch.ops import align_kernels, poa_fused_kernels
+    from racon_tpu_torch.ops import poa_kernels
+    from racon_tpu_torch.tools import faultcheck as fc
+    from racon_tpu_torch.tools import servebench
+
+    card = card_info()
+    out: dict = {}
+    tmp = os.path.join(workdir, "tools")
+    rtmp = os.path.join(tmp, "range")
+    os.makedirs(rtmp)
+
+    def fail(part, msg):
+        raise SystemExit(f"tools path {part}: {msg}")
+
+    def reset():
+        poa_kernels.reset_launches()
+        align_kernels.reset_launches()
+        poa_fused_kernels.reset_launches()
+
+    def counts():
+        return ((poa_kernels.launches, by_plan(poa_kernels.launches_by_shape)),
+                (align_kernels.launches,
+                 by_plan(align_kernels.launches_by_shape)),
+                {f"{dt} faultcheck": n for dt, n in k3_by_dtype().items()})
+
+    # ---- a. faultcheck
+    ranged: dict = {"detail": {}}
+
+    def range_section():
+        t = time.perf_counter()
+        try:
+            ranged["cells"] = fc.run_range_cells(rtmp, "cuda",
+                                                 ranged["detail"])
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            ranged["cells"] = [("range", f"FAIL crashed ({exc})")]
+        ranged["wall_s"] = time.perf_counter() - t
+
+    reset()
+    ta = time.perf_counter()
+    t_range = threading.Thread(target=range_section, daemon=True)
+    t_range.start()
+    try:
+        paths = fc.make_dataset(tmp, random.Random(11))
+        grid = fc.Grid(paths, "cuda", os.path.join(tmp,
+                                                   "autotune_cold.json"))
+        with PathCapture() as cap_a:
+            bad = grid.clean_gates(depths=(2,), columns=TOOLS_COLUMNS)
+            if bad:
+                fail("a", f"clean gates: {bad}")
+            rows = [m for m in fc.MATRIX if not m[3]]
+            t0 = time.perf_counter()
+            cells = fc.run_grid(grid, rows, TOOLS_COLUMNS, tmp)
+            grid_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            audit = fc.run_audit_cells(tmp, paths, "cuda")
+            audit_s = time.perf_counter() - t0
+        (k1, k1p), (k2, k2p), k3 = counts()
+        # the grid's K2 batches, held after the counts were read, while
+        # the range section (which launches nothing in this process)
+        # still runs
+        th = time.perf_counter()
+        held_a, _ = hold_fullest_k2(dev, cap_a, "faultcheck grid",
+                                    every=True)
+        hold_a_s = time.perf_counter() - th
+        del cap_a
+        grid_done_s = time.perf_counter() - ta
+
+        # ---- b. servebench, beside the range section's tail (its job
+        # stalls on `hang=8`, then its replicas are killed)
+        art = os.path.join(HERE, "build", "servebench_phase19.json")
+        os.makedirs(os.path.dirname(art), exist_ok=True)
+        reset()
+        tb = time.perf_counter()
+        with PathCapture() as cap_b:
+            rc = servebench.main(SERVEBENCH_ARGS + ["--json", art])
+        sb_s = time.perf_counter() - tb
+        (s1, s1p), (s2, s2p), _ = counts()
+        range_left = t_range.is_alive()
+    finally:
+        # the section kills its replica processes when it ends: wait for
+        # it whatever failed here, so no process outlives the phase
+        t_range.join(600)
+    if t_range.is_alive():
+        fail("a", "the range section did not end")
+    fc_s = max(grid_done_s, ranged["wall_s"])
+    red = [(name, col, cell) for name, row in cells
+           for col, cell in zip(TOOLS_COLUMNS, row)
+           if not cell.startswith("pass")]
+    red += [(name, "section", cell) for name, cell in
+            audit + ranged["cells"] if not cell.startswith("pass")]
+    for name, row in cells:
+        log(f"[chip_smoke] tools path a: {name:<28} "
+            + " | ".join(f"{c}: {cell}" for c, cell in
+                         zip(TOOLS_COLUMNS, row)))
+    for name, cell in audit + ranged["cells"]:
+        log(f"[chip_smoke] tools path a: {name:<28} {cell}")
+    if red:
+        fail("a", f"red cells: {red}")
+    if k2 <= 0 or sum(k3.values()) <= 0:
+        fail("a", f"the grid launched no K2 or no K3: K2 {k2}, K3 {k3}")
+    # the range cell held each shard to K1 and K2 launches in its
+    # replica process (the shards' serve batches, from the survivor)
+    child = {k: sum(b.get(f"{k}_launches", 0)
+                    for b in ranged["detail"].get("shards", ()))
+             for k in ("k1", "k2", "k3")}
+    n_cells = len(rows) * len(TOOLS_COLUMNS) + len(audit) + len(ranged[
+        "cells"])
+    if not held_a:
+        fail("a", "the grid's K2 batches were not captured for a hold")
+    log_held("faultcheck grid", held_a)
+    out["a"] = {"cells": n_cells, "grid_s": grid_s, "audit_s": audit_s,
+                "range_s": ranged["wall_s"], "wall_s": fc_s,
+                "range_cell_s": ranged["detail"].get("wall_s"),
+                "grid": {name: row for name, row in cells},
+                "sections": dict(audit + ranged["cells"]),
+                "launches": {"k1": k1, "k2": k2, "k3": k3},
+                "range_replica_launches": child,
+                "k2_held": held_a, "hold_s": hold_a_s}
+    log(f"[chip_smoke] tools path a: faultcheck on cuda, {n_cells} cells "
+        f"green ({len(rows)} quick rows x {TOOLS_COLUMNS}, the audit and "
+        f"the range section); grid {grid_s:.3f} s, audit {audit_s:.3f} s, "
+        f"range section {ranged['wall_s']:.3f} s (beside them and the "
+        f"hold), in all "
+        f"{fc_s:.3f} s; launches K1 {k1} {k1p}, K2 {k2} {k2p}, K3 {k3}; "
+        f"the range section's replica processes K1 {child['k1']}, K2 "
+        f"{child['k2']} (the shards that finished); {len(held_a)} K2 "
+        f"batch shape(s) held in {out['a']['hold_s']:.3f} s; card {card}")
+
+    # ---- b. servebench's verdict
+    with open(art) as fh:
+        doc = json.load(fh)
+    if rc != 0 or not doc["pass"]:
+        fail("b", f"servebench exited {rc}: {doc}")
+    if s1 <= 0 or s2 <= 0:
+        fail("b", f"the warm server launched no K1 or no K2: {s1}, {s2}")
+    # the warm server's K2 batches, held after the counts were read
+    th = time.perf_counter()
+    held_b, _ = hold_fullest_k2(dev, cap_b, "servebench warm server",
+                                once=True)
+    del cap_b
+    if not held_b:
+        fail("b", "the warm server's K2 batches were not captured for a "
+                  "hold")
+    log_held("servebench warm server", held_b)
+    w = doc["warm"]
+    out["b"] = {"wall_s": sb_s, "cold_p50_s": doc["cold"]["p50_s"],
+                "warm_seq_p50_s": w["seq_p50_s"], "wave_p50_s": w["p50_s"],
+                "wave_s": w["wave_s"], "warmup_s": w["warmup_s"],
+                "ttfb_p50_s": w["ttfb_p50_s"],
+                "compiles_per_job": w["compiles_per_job"],
+                "journal": doc["journal"], "speedup_p50": doc["speedup_p50"],
+                "device": doc.get("device"),
+                "beside_range_section": range_left,
+                "launches": {"k1": s1, "k2": s2},
+                "k2_held": held_b, "hold_s": time.perf_counter() - th}
+    log(f"[chip_smoke] tools path b: servebench {' '.join(SERVEBENCH_ARGS)}"
+        f" passed in {sb_s:.3f} s ("
+        f"{'beside' if range_left else 'after'} the range section's "
+        f"tail): cold CLI {doc['cold']['p50_s']:.3f} s, "
+        f"warm p50 {w['seq_p50_s']:.3f} s (x{doc['speedup_p50']}), the "
+        f"wave's p50 {w['p50_s']:.3f} s (time to first byte "
+        f"{w['ttfb_p50_s']} s); gates: warm beats cold, first dispatches "
+        f"a job {w['compiles_per_job']}, FASTA equal to the cold bytes, "
+        f"progress and result_part frames, journal consistent "
+        f"{doc['journal']['consistent']}; warm server launches K1 {s1} "
+        f"{s1p}, K2 {s2} {s2p}; of its {len(held_b)} K2 batch shapes "
+        f"{sum('held_before' not in r for r in held_b)} held here (in "
+        f"{out['b']['hold_s']:.3f} s), the rest earlier in the run; card "
+        f"{card}")
+    report["tools_path"] = out
+    # the range replicas' launches count for the path, unsplit by
+    # instantiation (their jobs report none), as phase 18's child's do
+    return {"faultcheck": ((k1 + child["k1"], k1p),
+                           (k2 + child["k2"], k2p), k3),
+            "servebench": ((s1, s1p), (s2, s2p))}
 
 
 if __name__ == "__main__":

@@ -107,6 +107,10 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
             default: 0
             band width for GPU alignment; 0 = auto (10% of the mean
             pair length)
+        --cudaaligner-max-length <int>
+            default: the largest bucket edge (65536)
+            length envelope of GPU alignment: a pair longer than the
+            largest bucket edge within it is aligned on the CPU
         --device <cuda|cpu>
             default: cuda
             device of the GPU paths; cuda raises when no card is present,
@@ -156,9 +160,13 @@ usage: python -m racon_tpu_torch [options ...] <sequences> <overlaps> <target se
     subcommands (--help on each for every flag):
         serve [--wincache] [--wincache-max-bytes <int>]
               [--frag-group <int>] [--preempt] [--abort-margin <seconds>]
+              [--cudaaligner-max-length <int>] [--host-poa-chunk <int>]
+              [--device-latency-s <seconds>] [--device-latency-x <x>]
             the warm job server: the window cache, corrected reads per
-            streamed frame of a fragment job, priority preemption and
-            the deadline-abort margin
+            streamed frame of a fragment job, priority preemption, the
+            deadline-abort margin, the aligner's length envelope, the
+            host POA chunk and a simulated device latency (sleeps after
+            each pipeline chunk; the output does not change)
         submit [--rounds <int>] [-f | --fragment]
                [--frag-lo <int> --frag-hi <int>] [--ingest]
                [--subsample <ref_len> <cov>] [--normalize]
@@ -196,6 +204,7 @@ def parse_args(argv: list[str]) -> dict | None:
         "cuda_poa_batches": 0,
         "cuda_aligner_batches": 0,
         "cuda_aligner_band_width": 0,
+        "aligner_max_length": None,
         "cuda_banded_alignment": False,
         "device": "cuda",
         "score_dtype": "auto",
@@ -265,6 +274,7 @@ def parse_args(argv: list[str]) -> dict | None:
                   "threads": ("num_threads", int),
                   "cudaaligner-batches": ("cuda_aligner_batches", int),
                   "cudaaligner-band-width": ("cuda_aligner_band_width", int),
+                  "cudaaligner-max-length": ("aligner_max_length", int),
                   "device": ("device", _device_choice),
                   "cuda-dtype": ("score_dtype", _dtype_choice),
                   "cuda-engine": ("cuda_engine", _engine_choice),
@@ -423,7 +433,8 @@ def main(argv: list[str] | None = None) -> int:
             log_level=opts["log_level"], profile_dir=opts["profile_dir"],
             cuda_engine=opts["cuda_engine"], cuda_fused=opts["cuda_fused"],
             adaptive_buckets=opts["adaptive_buckets"],
-            autotune_table=opts["autotune_table"])
+            autotune_table=opts["autotune_table"],
+            aligner_max_length=opts["aligner_max_length"])
         polisher.initialize()
         polished = polisher.polish(opts["drop_unpolished_sequences"])
     except RaconError as exc:

@@ -101,7 +101,10 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     adaptive_buckets: bool = False,
                     devices=None,
                     autotune_table: str | None = None,
-                    fault_plan=None) -> "Polisher":
+                    fault_plan=None, aligner_max_length: int | None = None,
+                    device_latency_s: float = 0.0,
+                    device_latency_x: float = 0.0,
+                    host_poa_chunk: int | None = None) -> "Polisher":
     """Factory mirroring reference createPolisher (polisher.cpp:55-160).
     The defaults match the JAX package's create_polisher, banded device
     POA included; the CLI defaults -b off. `score_dtype` (auto, int32 or
@@ -127,7 +130,14 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     path), which the engines consult under `score_dtype="auto"` and
     `cuda_fused="auto"`; a cold table changes nothing. `fault_plan` (a
     resilience.FaultPlan or its spec string; None: none) arms injected
-    faults at this polisher's pipeline stages (resilience/faults.py)."""
+    faults at this polisher's pipeline stages (resilience/faults.py).
+    `aligner_max_length` is the device aligner's length envelope (pairs
+    beyond the largest bucket edge within it align on the host; None:
+    BatchAligner's default, its largest bucket edge).
+    `device_latency_s` / `device_latency_x` simulate a device round trip
+    in both phases' pipelines, and `host_poa_chunk` is the host POA
+    engine's windows per chunk (pipeline/, ops/poa.py; None:
+    BatchPOA.HOST_CHUNK); none of the three changes the output."""
     if log_level is not None:
         set_log_level(log_level)
     if trace_path:
@@ -153,7 +163,9 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     cuda_aligner_batches, cuda_aligner_band_width, device,
                     score_dtype, pack_bases, pipeline_depth, metrics_path,
                     profile_dir, cuda_engine, cuda_fused, fused_fallback,
-                    adaptive_buckets, devices, autotune_table, fault_plan)
+                    adaptive_buckets, devices, autotune_table, fault_plan,
+                    aligner_max_length, device_latency_s, device_latency_x,
+                    host_poa_chunk)
 
 
 class Polisher:
@@ -170,7 +182,11 @@ class Polisher:
                  cuda_engine: str = "session", cuda_fused: str = "auto",
                  fused_fallback: str = "session",
                  adaptive_buckets: bool = False, devices=None,
-                 autotune_table: str | None = None, fault_plan=None):
+                 autotune_table: str | None = None, fault_plan=None,
+                 aligner_max_length: int | None = None,
+                 device_latency_s: float = 0.0,
+                 device_latency_x: float = 0.0,
+                 host_poa_chunk: int | None = None):
         import torch
 
         from ..parallel.mesh import BatchRunner
@@ -203,6 +219,12 @@ class Polisher:
         self.cuda_engine = cuda_engine
         self.cuda_fused = cuda_fused
         self.fused_fallback = fused_fallback
+        self.aligner_max_length = aligner_max_length
+        #: the simulated device latency and the host POA chunk (neither
+        #: changes the output)
+        self.device_latency_s = device_latency_s
+        self.device_latency_x = device_latency_x
+        self.host_poa_chunk = host_poa_chunk
         #: this polisher's injected faults (one-shot, shared by its
         #: phases' pipelines), or None
         self.faults = (FaultPlan.parse(fault_plan)
@@ -313,7 +335,9 @@ class Polisher:
                                 stats=self.pipeline_stats,
                                 fallback_workers=max(
                                     1, min(4, self.num_threads)),
-                                faults=self.faults)
+                                faults=self.faults,
+                                device_latency_s=self.device_latency_s,
+                                device_latency_x=self.device_latency_x)
 
     @property
     def stage_stats(self) -> dict:
@@ -757,7 +781,8 @@ class Polisher:
                     band_width=self.cuda_aligner_band_width,
                     device=self.device, score_dtype=self.score_dtype,
                     pack_bases=self.pack_bases, scheduler=self.scheduler,
-                    runner=self.device_runner, autotuner=self.autotuner)
+                    runner=self.device_runner, autotuner=self.autotuner,
+                    max_length=self.aligner_max_length)
                 pipeline = self._make_pipeline()
                 fb: list[tuple[list[int], object]] = []
                 # concurrent fallback jobs split the thread budget; at
@@ -927,7 +952,8 @@ class Polisher:
                             fused_fallback=self.fused_fallback,
                             scheduler=self.scheduler,
                             runner=self.device_runner,
-                            autotuner=self.autotuner)
+                            autotuner=self.autotuner,
+                            host_chunk=self.host_poa_chunk)
         t0 = time.perf_counter()
         with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
                            else None, "consensus"), pipeline:

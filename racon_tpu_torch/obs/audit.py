@@ -109,7 +109,8 @@ _PARAM_FIELDS = ("match", "mismatch", "gap", "window_length", "trim",
                  "cuda_banded_alignment", "cuda_aligner_band_width",
                  "cuda_engine", "cuda_fused", "fused_fallback",
                  "score_dtype", "pack_bases", "pipeline_depth", "device",
-                 "autotuner")
+                 "autotuner", "device_latency_s", "device_latency_x",
+                 "host_poa_chunk")
 
 
 def _slim_params(p):

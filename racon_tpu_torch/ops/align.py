@@ -206,8 +206,9 @@ class BatchAligner:
     a multiple of 128.
 
     Rejects mirror cudaaligner's statuses (cudaaligner.cpp:63-71): pairs
-    beyond the largest bucket (the cudaaligner max-length envelope,
-    cudaaligner.cpp:63-68), or empty, pairs whose traceback rode the
+    beyond the largest bucket edge within `max_length` (the cudaaligner
+    max-length envelope, cudaaligner.cpp:63-68; 65536 admits every
+    bucket), or empty, pairs whose traceback rode the
     band boundary, and pairs whose in-band cost is
     beyond what a <=30%-error overlap can produce come back as None, and
     the caller aligns them on the host — no overlap is ever dropped. Each
@@ -236,11 +237,18 @@ class BatchAligner:
     def __init__(self, band_width: int = 0,
                  device: str | torch.device = "cuda",
                  score_dtype: str = "auto", pack_bases: bool = True,
-                 scheduler=None, runner=None, autotuner=None):
+                 scheduler=None, runner=None, autotuner=None,
+                 max_length: int | None = None):
         from ..parallel.mesh import BatchRunner
         from ..sched import BatchScheduler
 
         self.band_width = band_width
+        #: the length envelope (the reference's cudaaligner max length,
+        #: cudaaligner.cpp:63-68; by default the largest bucket edge): a
+        #: pair longer than the largest bucket edge within it is aligned
+        #: on the host
+        self.max_length = self.BUCKETS[-1] if max_length is None \
+            else max_length
         self.device = resolve(device)
         resolve_dtype(True, score_dtype)  # reject an unknown posture now
         self.score_dtype = score_dtype
@@ -277,8 +285,8 @@ class BatchAligner:
         return cls.MAX_BP_BYTES // ((2 * edge + 1) * band)
 
     def _bucket_of(self, length: int) -> int | None:
-        return next((edge for edge in self.BUCKETS if length <= edge),
-                    None)
+        return next((edge for edge in self.BUCKETS
+                     if length <= edge <= self.max_length), None)
 
     @staticmethod
     def _auto_band(mean_len: float) -> int:
@@ -352,7 +360,7 @@ class BatchAligner:
             for edge, idxs in static_groups.items():
                 sub = self.sched.aligner_ladder(
                     [shape_of(i) for i in idxs], k=k_of[edge],
-                    max_length=self.BUCKETS[-1]) or (edge,)
+                    max_length=self.max_length) or (edge,)
                 for i in idxs:
                     e = next((x for x in sub if x >= shape_of(i)), edge)
                     groups.setdefault((e, band_of[i]), []).append(i)

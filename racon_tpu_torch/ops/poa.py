@@ -45,13 +45,18 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve
+from ..errors import RaconError
 from ..native import poa_batch
 from ..pipeline import DispatchPipeline
 from ..utils.logger import Logger, log_info
 
 
 class BatchPOA:
-    #: windows per host batch call (bounds peak packed-buffer memory)
+    #: windows per host batch call by default (bounds peak packed-buffer
+    #: memory); `host_chunk` sets it per engine (None: this default). The chunk never changes
+    #: the output (windows are independent), only the pipeline's batching:
+    #: the serve benchmark's fleet modes shrink it so a simulated
+    #: per-chunk device latency paces in proportion to a job's windows
     HOST_CHUNK = 4096
 
     def __init__(self, match: int, mismatch: int, gap: int,
@@ -62,13 +67,23 @@ class BatchPOA:
                  score_dtype: str = "auto", pack_bases: bool = True,
                  pipeline=None, engine: str = "session",
                  fused: str = "auto", fused_fallback: str = "session",
-                 scheduler=None, runner=None, autotuner=None):
+                 scheduler=None, runner=None, autotuner=None,
+                 host_chunk: int | None = None):
         if engine not in ("session", "fused"):
             raise ValueError(f"device engine {engine!r}: want 'session' or "
                              f"'fused'")
         if fused_fallback not in ("session", "host"):
             raise ValueError(f"fused fallback {fused_fallback!r}: want "
                              f"'session' or 'host'")
+        try:
+            self.host_chunk = int(self.HOST_CHUNK if host_chunk is None
+                                  else host_chunk)
+        except (TypeError, ValueError):
+            self.host_chunk = 0
+        if self.host_chunk <= 0:
+            raise RaconError("BatchPOA",
+                             f"invalid host chunk {host_chunk!r} (expected "
+                             "a positive integer)!")
         self.match = match
         self.mismatch = mismatch
         self.gap = gap
@@ -136,8 +151,8 @@ class BatchPOA:
             self.logger.bar_total(len(todo))
         pl = (self.pipeline if self.pipeline is not None
               else DispatchPipeline(depth=0))
-        chunks = [todo[s:s + self.HOST_CHUNK]
-                  for s in range(0, len(todo), self.HOST_CHUNK)]
+        chunks = [todo[s:s + self.host_chunk]
+                  for s in range(0, len(todo), self.host_chunk)]
 
         def pack(chunk):
             return [_pack(w) for w in chunk]

@@ -32,6 +32,18 @@ def _tensors(out):
     return [t for t in out if isinstance(t, torch.Tensor)]
 
 
+def mesh_info(worker_lanes: int = 1, devices=None) -> dict:
+    """The lane posture a measurement was taken under, with the JAX
+    package's keys (racon_tpu/parallel/mesh.py): `n_devices` is the
+    number of lanes a BatchRunner over `devices` uses (None: every
+    visible CUDA device, and DeviceError without one), `worker_lanes`
+    the serve layer's lane count. `max_devices_env` is always None: the
+    port reads no environment variable to cap its devices."""
+    return {"n_devices": BatchRunner(devices).n_devices,
+            "worker_lanes": int(worker_lanes),
+            "max_devices_env": None}
+
+
 def partition_devices(devices=None, k: int = 1) -> list[list]:
     """Split a device list into `k` contiguous, near-equal lanes (the
     serve layer's worker lanes, each with its own BatchRunner): `k`

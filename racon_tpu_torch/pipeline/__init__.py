@@ -42,10 +42,16 @@ Fault injection (resilience/faults.py): a pipeline given a `FaultPlan`
 fires it as each of the pack, device (dispatch) and unpack stages starts
 its N-th item of a run, and as the N-th fallback job starts; a fired
 fault is counted as `faults`. Without a plan the stage callbacks run as
-they are. The JAX pipeline's watchdog (its retry and deadline policy)
-and its simulated device-latency knobs are not ported; their counters
-(retries, timeouts, ...) stay in `PipelineStats` at zero so the snapshot
-keys match.
+they are. The JAX pipeline's watchdog (its retry and deadline policy) is
+not ported; its counters (retries, timeouts, ...) stay in
+`PipelineStats` at zero so the snapshot keys match.
+
+Simulated device latency (`device_latency_s`, `device_latency_x`, both
+0 by default): a fixed sleep after each chunk's result wait, and a sleep
+of `x` times each chunk's dispatch time after the dispatch. Both are
+slept off the CPU and charged to `device_s`; the output does not change.
+The serve benchmark's fleet modes arm them in their replicas to measure
+a regime where the device round trip, not the host, sets the pace.
 """
 
 from __future__ import annotations
@@ -56,9 +62,24 @@ import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 
+from ..errors import RaconError
 from ..obs import trace
 
 _STOP = object()
+
+
+def _latency(name: str, value) -> float:
+    """A simulated-latency knob as a float >= 0, or RaconError."""
+    try:
+        lat = float(value)
+    except (TypeError, ValueError):
+        raise RaconError("pipeline.DispatchPipeline",
+                         f"invalid {name} {value!r} (expected a "
+                         "float)!") from None
+    if not lat >= 0:
+        raise RaconError("pipeline.DispatchPipeline",
+                         f"{name} must be >= 0!")
+    return lat
 
 #: the degradation counters of the JAX package's resilience layer (its
 #: REPORT_KEYS): kept in the snapshot, reported apart from `pipeline`
@@ -127,12 +148,19 @@ class DispatchPipeline:
     """
 
     def __init__(self, depth: int = 2, fallback_workers: int = 2,
-                 stats: PipelineStats | None = None, faults=None):
+                 stats: PipelineStats | None = None, faults=None,
+                 device_latency_s: float = 0.0,
+                 device_latency_x: float = 0.0):
         self.depth = max(0, int(depth))
         self.fallback_workers = max(1, int(fallback_workers))
         self.stats = stats if stats is not None else PipelineStats()
         #: a resilience.FaultPlan fired at the stages, or None
         self.faults = faults
+        #: the simulated device latency (module docstring)
+        self.device_latency_s = _latency("device_latency_s",
+                                         device_latency_s)
+        self.device_latency_x = _latency("device_latency_x",
+                                         device_latency_x)
         self._fb_counter = itertools.count()
         self._executor: ThreadPoolExecutor | None = None
         self._futures: list[Future] = []
@@ -143,6 +171,23 @@ class DispatchPipeline:
         `describe(item) -> dict` supplies per-chunk span args. Both cost
         nothing when tracing is off."""
         items = list(items)
+        # the simulated latency wraps the stages before the fault plan,
+        # so a stall is charged to the device stage as a real round trip
+        if self.device_latency_x > 0.0:
+            inner_dispatch, x = dispatch, self.device_latency_x
+
+            def dispatch(item, ops, _d=inner_dispatch, _x=x):
+                t0 = time.perf_counter()
+                handle = _d(item, ops)
+                time.sleep((time.perf_counter() - t0) * _x)
+                return handle
+        if self.device_latency_s > 0.0:
+            inner_wait, lat = wait, self.device_latency_s
+
+            def wait(handle, _w=inner_wait, _lat=lat):
+                res = _w(handle)
+                time.sleep(_lat)
+                return res
         if self.faults is not None:
             pack, dispatch, unpack = self._armed(pack, dispatch, unpack)
         tr = trace.get_tracer()

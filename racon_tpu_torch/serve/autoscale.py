@@ -132,24 +132,64 @@ class AutoscaleConfig:
                 f"unknown autoscale option(s): {', '.join(sorted(kw))}")
 
 
-def _default_spawn(spec: str, replica_args: list[str]):
-    """Start one warm replica process serving on the unix socket `spec`,
-    with the operator's `serve` flags and an explicit device."""
+def spawn_replica(spec: str, replica_args: list[str]):
+    """Start one replica process serving on the unix socket `spec`, with
+    the operator's `serve` flags and an explicit device; its stderr goes
+    to `<spec without its suffix>.log`."""
     args = list(replica_args)
     if not any(a.split("=", 1)[0] == "--device" for a in args):
         args += ["--device", "cuda"]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_PKG_PARENT, env.get("PYTHONPATH")) if p)
-    log_path = os.path.splitext(spec)[0] + ".log"
-    with open(log_path, "ab") as log:
+    with open(replica_log(spec), "ab") as log:
         return subprocess.Popen(
             [sys.executable, "-m", "racon_tpu_torch", "serve", "--socket",
              spec, *args], stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=log, env=env)
 
 
-def _default_stop(handle) -> None:
+def replica_log(spec: str) -> str:
+    """Where spawn_replica sends the replica's stderr."""
+    return os.path.splitext(spec)[0] + ".log"
+
+
+def replica_log_tail(spec: str, n: int = 3000) -> str:
+    """The last `n` bytes of the replica's stderr log ("" when absent)."""
+    try:
+        with open(replica_log(spec), "rb") as fh:
+            fh.seek(0, os.SEEK_END)
+            fh.seek(max(0, fh.tell() - n))
+            return fh.read().decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def wait_replica_ready(spec: str, handle=None, timeout_s: float = 120.0,
+                       halt: threading.Event | None = None) -> bool:
+    """Poll a spawned replica's healthz until its first clean answer (ok,
+    not draining): True then; False once `handle` (a process) has exited,
+    `halt` is set or `timeout_s` has passed."""
+    from .client import PolishClient, ServeError
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if halt is not None and halt.is_set():
+            return False
+        poll = getattr(handle, "poll", None)
+        if poll is not None and poll() is not None:
+            return False
+        try:
+            doc = PolishClient(socket_path=spec, timeout=2.0).healthz()
+            if doc.get("ok") and not doc.get("draining"):
+                return True
+        except (ServeError, ProtocolError, OSError):
+            pass
+        time.sleep(0.1)
+    return False
+
+
+def stop_replica(handle) -> None:
     """SIGTERM (the server drains), then SIGKILL if it has not exited in
     15 s (the router's requeue covers even that)."""
     with contextlib.suppress(Exception):
@@ -173,8 +213,8 @@ class Autoscaler:
         self.config = config if config is not None \
             else AutoscaleConfig(**overrides)
         self._spawn = spawn or (
-            lambda spec: _default_spawn(spec, self.config.replica_args))
-        self._stop_replica = stop or _default_stop
+            lambda spec: spawn_replica(spec, self.config.replica_args))
+        self._stop_replica = stop or stop_replica
         self._dir = self.config.socket_dir or tempfile.mkdtemp(
             prefix="racon_tpu_torch_autoscale_")
         #: replicas this loop owns, oldest first: {"spec", "handle", "t",
@@ -346,25 +386,10 @@ class Autoscaler:
         return True
 
     def _wait_ready(self, spec: str) -> bool:
-        """Poll the new replica's healthz until its first clean answer (ok,
-        not draining). A spawned process that exits ends the wait."""
-        from .client import PolishClient, ServeError
-
-        deadline = time.monotonic() + self.config.ready_timeout_s
-        while time.monotonic() < deadline:
-            if self._halt.is_set():
-                return False
-            poll = getattr(self._spawning, "poll", None)
-            if poll is not None and poll() is not None:
-                return False
-            try:
-                doc = PolishClient(socket_path=spec, timeout=2.0).healthz()
-                if doc.get("ok") and not doc.get("draining"):
-                    return True
-            except (ServeError, ProtocolError, OSError):
-                pass
-            time.sleep(0.1)
-        return False
+        """The new replica's first clean healthz (wait_replica_ready); a
+        spawned process that exits, or close(), ends the wait."""
+        return wait_replica_ready(spec, self._spawning,
+                                  self.config.ready_timeout_s, self._halt)
 
     def _scale_down(self) -> None:
         with self._lock:

@@ -231,7 +231,8 @@ def _engine_key(p) -> tuple:
             p.num_threads, p.cuda_poa_batches, p.cuda_banded_alignment,
             p.cuda_aligner_band_width, p.cuda_engine, p.cuda_fused,
             p.fused_fallback, p.score_dtype, p.pack_bases,
-            p.pipeline_depth, str(p.device), p.autotuner.path)
+            p.pipeline_depth, str(p.device), p.autotuner.path,
+            p.device_latency_s, p.device_latency_x, p.host_poa_chunk)
 
 
 def _shape_key(window) -> tuple[int, int]:
@@ -811,7 +812,9 @@ class WindowBatcher:
         if ent is None:
             pipeline = DispatchPipeline(
                 depth=p0.pipeline_depth, stats=lane.pipeline_stats,
-                fallback_workers=max(1, min(4, p0.num_threads)))
+                fallback_workers=max(1, min(4, p0.num_threads)),
+                device_latency_s=p0.device_latency_s,
+                device_latency_x=p0.device_latency_x)
             engine = BatchPOA(
                 p0.match, p0.mismatch, p0.gap, p0.window_length,
                 num_threads=p0.num_threads,
@@ -821,7 +824,7 @@ class WindowBatcher:
                 pipeline=pipeline, engine=p0.cuda_engine,
                 fused=p0.cuda_fused, fused_fallback=p0.fused_fallback,
                 scheduler=lane.scheduler, runner=lane.runner,
-                autotuner=p0.autotuner)
+                autotuner=p0.autotuner, host_chunk=p0.host_poa_chunk)
             ent = lane.engines[key] = (pipeline, engine)
         return ent
 

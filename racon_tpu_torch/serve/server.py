@@ -224,6 +224,10 @@ def _parse_tenant_weights(raw) -> dict:
     return out
 
 
+def _int_or_none(raw) -> int | None:
+    return None if raw is None else int(raw)
+
+
 class ServeConfig:
     """The server's posture: transport, capacity, the feeder's knobs and
     the polish defaults a job inherits where its request names no
@@ -274,6 +278,15 @@ class ServeConfig:
         self.pipeline_depth = kw.pop("pipeline_depth", 2)
         self.adaptive_buckets = bool(kw.pop("adaptive_buckets", False))
         self.autotune_table = kw.pop("autotune_table", None)
+        #: every job's device-aligner length envelope, simulated device
+        #: latency and host POA chunk (create_polisher's knobs of the same
+        #: names; none changes a job's bytes)
+        #: (None: the engines' own defaults)
+        self.aligner_max_length = _int_or_none(
+            kw.pop("aligner_max_length", None))
+        self.device_latency_s = float(kw.pop("device_latency_s", 0.0))
+        self.device_latency_x = float(kw.pop("device_latency_x", 0.0))
+        self.host_poa_chunk = _int_or_none(kw.pop("host_poa_chunk", None))
         #: the content-addressed window cache (off by default): a window
         #: whose content, engine key and kernel posture were polished
         #: before skips the device (serve/wincache.py), LRU-bounded by
@@ -833,7 +846,11 @@ class PolishServer:
             pipeline_depth=opt("pipeline_depth"),
             cuda_engine=opt("cuda_engine"), cuda_fused=opt("cuda_fused"),
             adaptive_buckets=cfg.adaptive_buckets,
-            autotune_table=cfg.autotune_table, fault_plan=fault_plan)
+            autotune_table=cfg.autotune_table, fault_plan=fault_plan,
+            aligner_max_length=cfg.aligner_max_length,
+            device_latency_s=cfg.device_latency_s,
+            device_latency_x=cfg.device_latency_x,
+            host_poa_chunk=cfg.host_poa_chunk)
 
     def warmup(self, paths: tuple[str, str, str] | None = None) -> dict:
         """Run one job end to end through the batcher at the server's
@@ -2209,6 +2226,22 @@ def serve_main(argv: list[str]) -> int:
     ap.add_argument("-b", "--cuda-banded-alignment", action="store_true")
     ap.add_argument("--cudaaligner-batches", type=int, default=0)
     ap.add_argument("--cudaaligner-band-width", type=int, default=0)
+    ap.add_argument("--cudaaligner-max-length", type=int, default=None,
+                    help="the device aligner's length envelope: a pair "
+                         "longer than the largest bucket edge within it "
+                         "is aligned on the host (default: the largest "
+                         "bucket edge)")
+    ap.add_argument("--device-latency-s", type=float, default=0.0,
+                    help="simulated device latency: sleep this many "
+                         "seconds after each pipeline chunk's result wait "
+                         "(default 0: off; the output does not change)")
+    ap.add_argument("--device-latency-x", type=float, default=0.0,
+                    help="simulated device latency: sleep this multiple "
+                         "of each pipeline chunk's dispatch time after it "
+                         "(default 0: off; the output does not change)")
+    ap.add_argument("--host-poa-chunk", type=int, default=None,
+                    help="windows per host POA chunk (default: the host "
+                         "engine's own; the output does not change)")
     ap.add_argument("--cuda-engine", choices=("session", "fused"),
                     default="session")
     ap.add_argument("--cuda-fused", choices=("auto", "0", "1"),
@@ -2328,6 +2361,10 @@ def serve_main(argv: list[str]) -> int:
               cuda_banded_alignment=args.cuda_banded_alignment,
               cuda_aligner_batches=args.cudaaligner_batches,
               cuda_aligner_band_width=args.cudaaligner_band_width,
+              aligner_max_length=args.cudaaligner_max_length,
+              device_latency_s=args.device_latency_s,
+              device_latency_x=args.device_latency_x,
+              host_poa_chunk=args.host_poa_chunk,
               cuda_engine=args.cuda_engine, cuda_fused=args.cuda_fused,
               score_dtype=args.cuda_dtype,
               pipeline_depth=args.cuda_pipeline_depth,

@@ -9,4 +9,14 @@
     servetop      a live console over servers and routers: the fleet
                   line, a row a replica, tenants, the winner table, the
                   window cache, the audit and the autoscaler
+    faultcheck    the fault grid: injected faults at each pipeline stage
+                  in every column (depths, scheduler, tracer, fused
+                  engine, a server, two lanes), held to the port's
+                  contract (a raise typed, a hang waited out), then the
+                  audit, router, range, fragment, trace and preempt
+                  sections over replica processes killed with `kill -9`
+    servebench    the serve benchmark: a warm server's jobs against cold
+                  one-shot CLI processes, and the fleet, router, ramp,
+                  audit, rounds, fragment, flood and open-loop modes,
+                  with a JSON artifact (`--json`)
 """

@@ -53,9 +53,11 @@ import pytest
 
 from racon_tpu_torch.errors import RaconError
 from racon_tpu_torch.obs.journal import check_consistency, read_journal
-from racon_tpu_torch.serve import (PolishClient, PolishRouter,
+from racon_tpu_torch.serve import (PolishClient, PolishRouter, PolishServer,
                                    make_synth_dataset)
-from racon_tpu_torch.serve.autoscale import AutoscaleConfig, Autoscaler
+from racon_tpu_torch.serve.autoscale import (AutoscaleConfig, Autoscaler,
+                                             replica_log, replica_log_tail,
+                                             wait_replica_ready)
 from racon_tpu_torch.serve.router import router_main
 from racon_tpu_torch.tools.obsreport import check_autoscale
 from test_torch_router import _env, start_server, WAIT  # noqa: F401
@@ -634,3 +636,30 @@ def test_router_main_refuses_bad_autoscale(argv, tmp_path, capsys):
                         sock, "--autoscale", *argv]) == 1
     assert "error" in capsys.readouterr().err
     assert not os.path.exists(sock)  # refused before anything started
+
+
+# ------------------------------------------- the shared ready-wait helper
+def test_wait_replica_ready_helper(tmp_path):
+    """wait_replica_ready: True on a live server's first clean healthz;
+    False at once for an exited process or a set halt, and after the
+    timeout for a socket nobody serves. replica_log_tail reads the end
+    of the log spawn_replica writes."""
+    spec = str(tmp_path / "nobody.sock")
+    exited = types.SimpleNamespace(poll=lambda: 1)
+    t0 = time.monotonic()
+    assert wait_replica_ready(spec, exited, timeout_s=30.0) is False
+    halt = threading.Event()
+    halt.set()
+    assert wait_replica_ready(spec, None, 30.0, halt) is False
+    assert time.monotonic() - t0 < 5.0
+    assert wait_replica_ready(spec, None, timeout_s=0.3) is False
+    with open(replica_log(spec), "wb") as fh:
+        fh.write(b"x" * 50 + b"the end")
+    assert replica_log_tail(spec, 7) == "the end"
+    assert replica_log_tail(str(tmp_path / "none.sock")) == ""
+    sock = str(tmp_path / "live.sock")
+    srv = PolishServer(socket_path=sock, device="cpu", warmup=False).start()
+    try:
+        assert wait_replica_ready(sock, None, timeout_s=30.0) is True
+    finally:
+        srv.drain(timeout=30)

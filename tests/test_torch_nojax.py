@@ -38,7 +38,8 @@ and polls them with obs/fleet.py's aggregator and `fleet --json`. An
 eighth, with `racon_tpu` blocked too, takes an autoscaler's scale-up
 decision over a fake router and runs the three tools' `main`
 (obsreport on a journal, tracereport on a trace, servetop on a live
-server).
+server). A ninth, with both blocked, runs faultcheck's and servebench's
+`--help`, one grid cell and the bench's dataset and mesh block.
 Besides, no module of the port, nor `chip_smoke.py`, names `jax`,
 `jaxlib` or `racon_tpu` in an import statement."""
 
@@ -661,6 +662,58 @@ def test_autoscaler_and_tools_run_without_jax():
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+FAULT_BENCH = r"""
+import contextlib, io, os, random, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["racon_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from racon_tpu_torch.tools import faultcheck, servebench
+
+for mod in (faultcheck, servebench):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            mod.main(["--help"])
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
+    assert "--device" in buf.getvalue(), buf.getvalue()
+d = tempfile.mkdtemp()
+grid = faultcheck.Grid(faultcheck.make_dataset(d, random.Random(11)), "cpu",
+                       os.path.join(d, "cold.json"))
+assert grid.clean_gates(aligners=(1,), depths=(0,), columns=("depth0",)) \
+    == []
+cell = faultcheck.run_cell(grid, "depth0", 1, "device:chunk=0:raise")
+assert cell == "pass  DeviceError, next clean", cell
+paths = servebench.build_dataset(d, 2, 3, 1000, 42, contigs=2)
+assert all(os.path.getsize(p) > 0 for p in paths)
+assert servebench._mesh_block({"worker_lanes": 1},
+                              [torch.device("cpu")])["n_devices"] == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu",
+                                    "faultcheck", "servebench")
+             and sys.modules[m] is not None)
+print("LOADED", bad)
+"""
+
+
+def test_fault_grid_and_serve_bench_run_without_jax():
+    """faultcheck's and servebench's `--help`, a grid cell and the bench's
+    dataset and mesh block, with `jax` and `racon_tpu` blocked; neither
+    tool names a `RACON_TPU_*` environment variable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", FAULT_BENCH], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+    for name in ("faultcheck.py", "servebench.py"):
+        with open(os.path.join(REPO, "racon_tpu_torch", "tools", name),
+                  encoding="utf-8") as fh:
+            assert "RACON_TPU_" not in fh.read(), name
 
 
 def _sources():

@@ -371,8 +371,7 @@ def test_host_poa_depths_byte_identical_to_jax():
         pw = _windows(Window, WindowType, 17)
         with DispatchPipeline(depth=depth) as pl:
             eng = BatchPOA(3, -5, -4, 220, num_threads=2, device="cpu",
-                           pipeline=pl)
-            eng.HOST_CHUNK = 4
+                           pipeline=pl, host_chunk=4)
             eng.generate_consensus(pw, trim=True)
             stats = pl.stats.snapshot()
         assert stats["chunks"] == stats["launches"] == 3

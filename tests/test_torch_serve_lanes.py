@@ -92,7 +92,8 @@ def host_params(tmp_path):
         num_threads=1, cuda_poa_batches=0, cuda_banded_alignment=False,
         cuda_aligner_band_width=0, cuda_engine="session", cuda_fused="auto",
         fused_fallback="session", score_dtype="auto", pack_bases=True,
-        pipeline_depth=0, device=CPU,
+        pipeline_depth=0, device=CPU, device_latency_s=0.0,
+        device_latency_x=0.0, host_poa_chunk=4096,
         autotuner=Autotuner(str(tmp_path / "t.json")))
 
 
