@@ -295,6 +295,10 @@ class Polisher:
         self.poa = None
         #: wall seconds per phase of the last run
         self.phase_s: dict[str, float] = {}
+        #: seconds by span name of the last run (obs/trace.py spans given
+        #: `into=`): initialize()'s steps, and the session engine's
+        #: poa.sync and poa.fetch
+        self.span_s: dict[str, float] = {}
         #: targets loaded, and those dropped as unpolished, by the last run
         self.n_targets = 0
         self.n_dropped = 0
@@ -429,6 +433,7 @@ class Polisher:
         self.segment_meta = {}
         self._range_first_rank = []
         self.phase_s = {}
+        self.span_s = {}
         self.n_targets = 0
         self.n_dropped = 0
         self._progress_phase = None
@@ -493,98 +498,115 @@ class Polisher:
             self._reset_run_state()
         self._arm_progress()
         t_init = time.perf_counter()
+        with trace.span("polisher.initialize") as sp:
+            self._initialize()
+            sp.set(windows=len(self.windows), targets=self.n_targets)
+        t_end = time.perf_counter()
+        self.phase_s["initialize"] = t_end - t_init
+        self.hists.observe("phase.initialize", t_end - t_init)
+        flush_dedup()
+
+    def _initialize(self) -> None:
+        """initialize()'s steps, each a span (obs/trace.py) totalled in
+        `span_s`; the align phase's own total is `phase_s["align"]`."""
         self._consults_base = self.autotuner.consults_snapshot()
         log = self.logger
         log.log()
+        span_s = self.span_s
 
         # -- targets (loaded whole; reference polisher.cpp:202-217)
-        self.tparser.reset()
-        self.tparser.parse(self.sequences, -1)
-        target_base = 0
-        if self.target_range is not None:
-            # keep the targets whose file index lies in [lo, hi); the
-            # id_to_id keys below keep the file index, so id-keyed
-            # overlaps (MHAP) resolve as name-keyed ones do, and overlaps
-            # onto dropped targets resolve to nothing and are skipped
-            lo, hi = self.target_range
-            total = len(self.sequences)
-            lo, hi = max(0, int(lo)), min(int(hi), total)
-            if hi <= lo:
-                raise RaconError(
-                    "Polisher.initialize",
-                    f"target_range [{self.target_range[0]}, "
-                    f"{self.target_range[1]}) selects no targets out of "
-                    f"{total}!")
-            del self.sequences[hi:]
-            del self.sequences[:lo]
-            target_base = lo
-        targets_size = len(self.sequences)
-        if targets_size == 0:
-            raise RaconError("Polisher.initialize", "empty target sequences set!")
-        self.n_targets = targets_size
+        with trace.span("polisher.load_targets", into=span_s):
+            self.tparser.reset()
+            self.tparser.parse(self.sequences, -1)
+            target_base = 0
+            if self.target_range is not None:
+                # keep the targets whose file index lies in [lo, hi); the
+                # id_to_id keys below keep the file index, so id-keyed
+                # overlaps (MHAP) resolve as name-keyed ones do, and overlaps
+                # onto dropped targets resolve to nothing and are skipped
+                lo, hi = self.target_range
+                total = len(self.sequences)
+                lo, hi = max(0, int(lo)), min(int(hi), total)
+                if hi <= lo:
+                    raise RaconError(
+                        "Polisher.initialize",
+                        f"target_range [{self.target_range[0]}, "
+                        f"{self.target_range[1]}) selects no targets out of "
+                        f"{total}!")
+                del self.sequences[hi:]
+                del self.sequences[:lo]
+                target_base = lo
+            targets_size = len(self.sequences)
+            if targets_size == 0:
+                raise RaconError("Polisher.initialize",
+                                 "empty target sequences set!")
+            self.n_targets = targets_size
 
-        name_to_id: dict[str, int] = {}
-        id_to_id: dict[int, int] = {}
-        for i in range(targets_size):
-            name_to_id[self.sequences[i].name + "t"] = i
-            id_to_id[(target_base + i) << 1 | 1] = i
+            name_to_id: dict[str, int] = {}
+            id_to_id: dict[int, int] = {}
+            for i in range(targets_size):
+                name_to_id[self.sequences[i].name + "t"] = i
+                id_to_id[(target_base + i) << 1 | 1] = i
 
-        has_name = [True] * targets_size
-        has_data = [True] * targets_size
-        has_reverse_data = [False] * targets_size
+            has_name = [True] * targets_size
+            has_data = [True] * targets_size
+            has_reverse_data = [False] * targets_size
 
         log.log("[racon_tpu_torch::Polisher.initialize] loaded target sequences")
         log.log()
 
         # -- reads streamed in chunks; duplicates of targets share storage
         #    (reference polisher.cpp:228-264)
-        sequences_size = 0
-        total_sequences_length = 0
-        self.sparser.reset()
-        more = True
-        while more:
-            start = len(self.sequences)
-            more = self.sparser.parse(self.sequences, KCHUNK_SIZE)
-            kept: list[Sequence] = []
-            for seq in self.sequences[start:]:
-                total_sequences_length += len(seq.data)
-                tgt = name_to_id.get(seq.name + "t")
-                if tgt is not None:
-                    dup = self.sequences[tgt]
-                    if len(seq.data) != len(dup.data) or \
-                       len(seq.quality) != len(dup.quality):
-                        raise RaconError(
-                            "Polisher.initialize",
-                            f"duplicate sequence {seq.name} with unequal data")
-                    name_to_id[seq.name + "q"] = tgt
-                    id_to_id[sequences_size << 1 | 0] = tgt
-                else:
-                    gid = start + len(kept)
-                    name_to_id[seq.name + "q"] = gid
-                    id_to_id[sequences_size << 1 | 0] = gid
-                    kept.append(seq)
-                sequences_size += 1
-            del self.sequences[start:]
-            self.sequences.extend(kept)
+        with trace.span("polisher.load_sequences", into=span_s):
+            sequences_size = 0
+            total_sequences_length = 0
+            self.sparser.reset()
+            more = True
+            while more:
+                start = len(self.sequences)
+                more = self.sparser.parse(self.sequences, KCHUNK_SIZE)
+                kept: list[Sequence] = []
+                for seq in self.sequences[start:]:
+                    total_sequences_length += len(seq.data)
+                    tgt = name_to_id.get(seq.name + "t")
+                    if tgt is not None:
+                        dup = self.sequences[tgt]
+                        if len(seq.data) != len(dup.data) or \
+                           len(seq.quality) != len(dup.quality):
+                            raise RaconError(
+                                "Polisher.initialize",
+                                f"duplicate sequence {seq.name} with "
+                                "unequal data")
+                        name_to_id[seq.name + "q"] = tgt
+                        id_to_id[sequences_size << 1 | 0] = tgt
+                    else:
+                        gid = start + len(kept)
+                        name_to_id[seq.name + "q"] = gid
+                        id_to_id[sequences_size << 1 | 0] = gid
+                        kept.append(seq)
+                    sequences_size += 1
+                del self.sequences[start:]
+                self.sequences.extend(kept)
 
-        if sequences_size == 0:
-            raise RaconError("Polisher.initialize", "empty sequences set!")
+            if sequences_size == 0:
+                raise RaconError("Polisher.initialize", "empty sequences set!")
 
-        n_seqs = len(self.sequences)
-        has_name += [False] * (n_seqs - targets_size)
-        has_data += [False] * (n_seqs - targets_size)
-        has_reverse_data += [False] * (n_seqs - targets_size)
+            n_seqs = len(self.sequences)
+            has_name += [False] * (n_seqs - targets_size)
+            has_data += [False] * (n_seqs - targets_size)
+            has_reverse_data += [False] * (n_seqs - targets_size)
 
-        window_type = (WindowType.kNGS
-                       if total_sequences_length / sequences_size <= 1000
-                       else WindowType.kTGS)
+            window_type = (WindowType.kNGS
+                           if total_sequences_length / sequences_size <= 1000
+                           else WindowType.kTGS)
 
         log.log("[racon_tpu_torch::Polisher.initialize] loaded sequences")
         log.log()
 
         # -- overlaps streamed; per-query filtering (polisher.cpp:284-355)
-        overlaps = self._load_overlaps(name_to_id, id_to_id,
-                                       has_data, has_reverse_data)
+        with trace.span("polisher.load_overlaps", into=span_s):
+            overlaps = self._load_overlaps(name_to_id, id_to_id,
+                                           has_data, has_reverse_data)
         if not overlaps and self.target_range is None:
             # a target-range shard may hold only targets without overlaps
             # (they come back unpolished and drop as in a whole run)
@@ -594,8 +616,9 @@ class Polisher:
         log.log()
 
         # -- free unneeded storage; build revcomps where needed
-        for i, seq in enumerate(self.sequences):
-            seq.transmute(has_name[i], has_data[i], has_reverse_data[i])
+        with trace.span("polisher.transmute", into=span_s):
+            for i, seq in enumerate(self.sequences):
+                seq.transmute(has_name[i], has_data[i], has_reverse_data[i])
 
         self._progress_phase = "align"
         t_align = time.perf_counter()
@@ -608,83 +631,76 @@ class Polisher:
         # -- windows (polisher.cpp:384-399); in range mode only the grid
         #    starts lo <= j < hi materialize, and `rank` stays the global
         #    grid rank, so a window's output does not depend on its shard
-        rng = self.window_range
-        id_to_first_window_id = [0] * (targets_size + 1)
-        self._range_first_rank = [0] * targets_size
-        for i in range(targets_size):
-            data = self.sequences[i].data
-            quality = self.sequences[i].quality
-            k = 0
-            kept = 0
-            for j in range(0, len(data), self.window_length):
-                if rng is None or rng[0] <= j < rng[1]:
-                    length = min(j + self.window_length, len(data)) - j
-                    q = quality[j:j + length] if quality \
-                        else self.dummy_quality[:length]
-                    self.windows.append(create_window(
-                        i, k, window_type, data[j:j + length], q))
-                    if kept == 0:
-                        self._range_first_rank[i] = k
-                    kept += 1
-                k += 1
-            id_to_first_window_id[i + 1] = id_to_first_window_id[i] + kept
+        with trace.span("polisher.windows", into=span_s):
+            rng = self.window_range
+            id_to_first_window_id = [0] * (targets_size + 1)
+            self._range_first_rank = [0] * targets_size
+            for i in range(targets_size):
+                data = self.sequences[i].data
+                quality = self.sequences[i].quality
+                k = 0
+                kept = 0
+                for j in range(0, len(data), self.window_length):
+                    if rng is None or rng[0] <= j < rng[1]:
+                        length = min(j + self.window_length, len(data)) - j
+                        q = quality[j:j + length] if quality \
+                            else self.dummy_quality[:length]
+                        self.windows.append(create_window(
+                            i, k, window_type, data[j:j + length], q))
+                        if kept == 0:
+                            self._range_first_rank[i] = k
+                        kept += 1
+                    k += 1
+                id_to_first_window_id[i + 1] = id_to_first_window_id[i] + kept
 
-        self.targets_coverages = [0] * targets_size
+            self.targets_coverages = [0] * targets_size
 
         # -- layer assignment (polisher.cpp:403-457)
-        wl = self.window_length
-        for o in overlaps:
-            self.targets_coverages[o.t_id] += 1
-            seq = self.sequences[o.q_id]
-            bps = o.breaking_points
-            if bps is None:
-                continue
-            qual_fwd = seq.quality
-            has_qual = bool(qual_fwd) or bool(seq._reverse_quality)
-            if o.strand:
-                data_src = seq.reverse_complement
-                qual_src = seq.reverse_quality if has_qual else None
-            else:
-                data_src = seq.data
-                qual_src = qual_fwd if has_qual else None
-            qual_arr = (np.frombuffer(qual_src, dtype=np.uint8)
-                        if qual_src else None)
+        with trace.span("polisher.layers", into=span_s):
+            wl = self.window_length
+            for o in overlaps:
+                self.targets_coverages[o.t_id] += 1
+                seq = self.sequences[o.q_id]
+                bps = o.breaking_points
+                if bps is None:
+                    continue
+                qual_fwd = seq.quality
+                has_qual = bool(qual_fwd) or bool(seq._reverse_quality)
+                if o.strand:
+                    data_src = seq.reverse_complement
+                    qual_src = seq.reverse_quality if has_qual else None
+                else:
+                    data_src = seq.data
+                    qual_src = qual_fwd if has_qual else None
+                qual_arr = (np.frombuffer(qual_src, dtype=np.uint8)
+                            if qual_src else None)
 
-            for t_first, q_first, t_last1, q_last1 in bps:
-                if q_last1 - q_first < 0.02 * wl:
-                    continue
-                if qual_arr is not None:
-                    avg = float(qual_arr[q_first:q_last1].mean()) - 33.0
-                    if avg < self.quality_threshold:
+                for t_first, q_first, t_last1, q_last1 in bps:
+                    if q_last1 - q_first < 0.02 * wl:
                         continue
-                window_start = (t_first // wl) * wl
-                if rng is not None and \
-                        not rng[0] <= window_start < rng[1]:
-                    continue
-                window_id = (id_to_first_window_id[o.t_id]
-                             + t_first // wl
-                             - self._range_first_rank[o.t_id])
-                data = data_src[q_first:q_last1]
-                qual = (qual_src[q_first:q_last1] if qual_src else None)
-                self.windows[window_id].add_layer(
-                    data, qual, int(t_first - window_start),
-                    int(t_last1 - window_start - 1))
-            o.breaking_points = None
+                    if qual_arr is not None:
+                        avg = float(qual_arr[q_first:q_last1].mean()) - 33.0
+                        if avg < self.quality_threshold:
+                            continue
+                    window_start = (t_first // wl) * wl
+                    if rng is not None and \
+                            not rng[0] <= window_start < rng[1]:
+                        continue
+                    window_id = (id_to_first_window_id[o.t_id]
+                                 + t_first // wl
+                                 - self._range_first_rank[o.t_id])
+                    data = data_src[q_first:q_last1]
+                    qual = (qual_src[q_first:q_last1] if qual_src else None)
+                    self.windows[window_id].add_layer(
+                        data, qual, int(t_first - window_start),
+                        int(t_last1 - window_start - 1))
+                o.breaking_points = None
 
         log.log("[racon_tpu_torch::Polisher.initialize] transformed data "
                 "into windows")
         # the window total as consensus progress zero: the client's bar
         # knows its denominator before the first batch
         self.emit_progress(0, len(self.windows), phase="consensus")
-        t_end = time.perf_counter()
-        self.phase_s["initialize"] = t_end - t_init
-        self.hists.observe("phase.initialize", t_end - t_init)
-        tr = trace.get_tracer()
-        if tr is not None:
-            tr.complete("polisher.initialize", t_init, t_end,
-                        {"windows": len(self.windows),
-                         "targets": targets_size})
-        flush_dedup()
 
     def _load_overlaps(self, name_to_id, id_to_id, has_data, has_reverse_data):
         overlaps: list = []
@@ -758,11 +774,12 @@ class Polisher:
         need = [o for o in overlaps
                 if not o.cigar and o.is_valid and self._range_keeps(o)]
         if need:
-            pairs = []
-            for o in need:
-                q_span = o.aligned_query_span(self.sequences)
-                t_span = self.sequences[o.t_id].data[o.t_begin:o.t_end]
-                pairs.append((q_span, t_span))
+            with trace.span("align.pairs", into=self.span_s):
+                pairs = []
+                for o in need:
+                    q_span = o.aligned_query_span(self.sequences)
+                    t_span = self.sequences[o.t_id].data[o.t_begin:o.t_end]
+                    pairs.append((q_span, t_span))
 
             self.logger.bar_total(len(pairs))
             bar_msg = "[racon_tpu_torch::Polisher.initialize] aligning overlaps"
@@ -807,7 +824,9 @@ class Polisher:
                         runs = self.aligner.align(pairs, progress=bar_n,
                                                   pipeline=pipeline,
                                                   on_reject=on_reject)
-                        pipeline.drain_fallback()
+                        with trace.span("pipeline.drain_fallback",
+                                        into=self.span_s):
+                            pipeline.drain_fallback()
                 except BaseException:
                     # no fallback thread outlives the failed phase
                     pipeline.cancel_fallback()
@@ -827,9 +846,10 @@ class Polisher:
                                         progress=bar_n)
                 for i, c in zip(rest, cigars):
                     need[i].cigar = c
-            for o, r in zip(need, runs):
-                if r is not None:
-                    o.cigar = cigar_from_ops(r).encode()
+            with trace.span("align.cigar", into=self.span_s):
+                for o, r in zip(need, runs):
+                    if r is not None:
+                        o.cigar = cigar_from_ops(r).encode()
             self.n_aligner_host_fallback = (
                 len(rest) + len(handled)
                 if self.cuda_aligner_batches > 0 else 0)
@@ -846,9 +866,11 @@ class Polisher:
                          "cost limit); batches by score dtype and operand "
                          f"form: {plan_split(a.batches_by_plan)}")
 
-        for o in overlaps:
-            if o.is_valid and o.cigar and self._range_keeps(o):
-                o.find_breaking_points(self.sequences, self.window_length)
+        with trace.span("polisher.breaking_points", into=self.span_s):
+            for o in overlaps:
+                if o.is_valid and o.cigar and self._range_keeps(o):
+                    o.find_breaking_points(self.sequences,
+                                           self.window_length)
 
         self.logger.log("[racon_tpu_torch::Polisher.initialize] aligned "
                         "overlaps")
@@ -954,9 +976,12 @@ class Polisher:
                             runner=self.device_runner,
                             autotuner=self.autotuner,
                             host_chunk=self.host_poa_chunk)
+        engine = self.cuda_engine if self.cuda_poa_batches > 0 else "host"
         t0 = time.perf_counter()
         with torch_profile(self.profile_dir if self.cuda_poa_batches > 0
-                           else None, "consensus"), pipeline:
+                           else None, "consensus"), pipeline, \
+                trace.span("polisher.consensus", windows=len(self.windows),
+                           engine=engine):
             self.poa.generate_consensus(self.windows, self.trim)
             if self.device.type == "cuda":
                 import torch
@@ -965,6 +990,7 @@ class Polisher:
         t1 = time.perf_counter()
         dt = t1 - t0
         self.phase_s["consensus"] = dt
+        trace.add_totals(self.span_s, self.poa.span_s)
         if self.progress_hook is not None:
             snap = self.scheduler.stats.snapshot()
             self.emit_progress(
@@ -973,12 +999,6 @@ class Polisher:
                            for e, v in snap.items()
                            if "occupancy_pct" in v} or None)
         self.hists.observe("phase.consensus", dt)
-        tr = trace.get_tracer()
-        if tr is not None:
-            tr.complete("polisher.consensus", t0, t1,
-                        {"windows": len(self.windows),
-                         "engine": self.cuda_engine
-                         if self.cuda_poa_batches > 0 else "host"})
         if dt > 0 and self.windows:
             log_info(f"[racon_tpu_torch::Polisher.polish] consensus "
                      f"throughput: {len(self.windows) / dt:.1f} windows/s")

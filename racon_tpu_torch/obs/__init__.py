@@ -27,7 +27,12 @@ exemplars and export for it.
 of the JAX package's `jax_profile`: a context manager that brackets one
 device phase with a `torch.profiler` capture written as Chrome trace
 JSON to `<directory>/<phase>.json` (`--cuda-profile <dir>`), and a no-op
-when no directory is named or the profiler cannot start.
+when no directory is named or the profiler cannot start. Every span
+(`obs.trace.span`) opened while it records is a range in the capture,
+on its own thread's track: the capture takes every thread (the
+pipeline's pack and unpack workers, its fallback pool) where the
+installed torch accepts `profile_all_threads`, else only the thread
+that started it.
 """
 
 from __future__ import annotations
@@ -46,6 +51,19 @@ __all__ = ["trace", "MetricsRegistry", "Histogram", "HistogramSet",
            "warn_dedup", "flush_dedup"]
 
 
+def _all_threads() -> dict:
+    """`torch.profiler.profile`'s keyword that records every thread's
+    ranges, where the installed torch has it; else nothing (the thread
+    that starts the capture only)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 class _SafeTorchProfile:
     """`torch.profiler.profile` bracket that degrades to a no-op: a
     profiler that cannot start or stop must not take a run down."""
@@ -62,7 +80,7 @@ class _SafeTorchProfile:
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
-            prof = profile(activities=acts)
+            prof = profile(activities=acts, **_all_threads())
             prof.__enter__()
             self._prof = prof
         except Exception as exc:

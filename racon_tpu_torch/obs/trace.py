@@ -1,14 +1,34 @@
-"""Span tracing: Chrome trace-event recording for Perfetto.
+"""Span tracing: the port's one span API, and Chrome trace-event
+recording for Perfetto.
 
-`TraceRecorder` records spans (the dispatch pipeline's pack / device /
-unpack / fallback stages per chunk, the session engine's dispatch and
-commit, the polisher's phases) and instant events, and writes them as
-Chrome trace-event JSON loadable in Perfetto (https://ui.perfetto.dev)
-or chrome://tracing.
+`span(name, into=None, **args)` wraps one region of host work (a
+polisher step, a pipeline wait, an engine's batch step). One call feeds
+three sinks, each only when it is on:
+
+  (a) `into`: the span's seconds are added to `into[name]`, whether
+      tracing is armed or not. This is how `Polisher.span_s` and the
+      session engine's `span_s` count per-run totals; keep such spans at
+      phase or batch granularity (one perf_counter pair and one dict add
+      each), and give each `into` dict to one thread;
+  (b) the armed recorder (`configure(path)`, the CLI's `--cuda-trace
+      <file>`; `install()`, the server's flight recorder; `scoped()`, a
+      job's own trace): a complete ("X") Chrome event on the opening
+      thread's track;
+  (c) a running `torch.profiler` capture (the benchmark's traced run,
+      `--cuda-profile`): a `record_function` range of the same name, on
+      the profiler's clock and the opening thread, entered only when
+      torch's process-wide profiler flag is set.
+
+With none of them on, a span costs two `is None` checks and the flag's
+read, and returns a shared no-op. `complete(...)` on a
+recorder records a span from endpoints taken earlier (the pipeline's
+stage counters); it feeds (b) only, since a profiler range cannot be
+opened after the fact.
+
+`TraceRecorder`:
 
   1. Off by default, one `is None` check per hook when off. The process
-     tracer is armed only by `configure(path)` (the CLI's `--cuda-trace
-     <file>`); `reset()` disarms it.
+     tracer is armed only by `configure(path)`; `reset()` disarms it.
   2. Cheap when on: events append to per-thread buffers (the shared lock
      is taken once per thread, when its buffer registers), timestamps
      are the `time.perf_counter` endpoints the pipeline's stage counters
@@ -17,10 +37,17 @@ or chrome://tracing.
   3. Thread-safe: the pipeline's pack and unpack workers and its
      fallback pool record freely; `events()` snapshots every buffer and
      sorts by timestamp.
+  4. Laid over a profiler capture by wall clock: `save()` writes
+     `baseTimeNanoseconds`, the wall-clock epoch nanoseconds of the
+     recorder's time zero, beside `traceEvents`, under the key and in
+     the sense of a Kineto (`torch.profiler`) Chrome trace: an event's
+     wall time is `baseTimeNanoseconds + ts * 1000` ns in both files.
 
-Span names and `args` keys are the JAX package's (racon_tpu/obs/trace.py
-and its call sites), so one trace reader serves both. For a long-lived
-process: `install()` arms a recorder the caller built (the bounded
+The JAX package's span names and `args` keys are kept where it has the
+span (racon_tpu/obs/trace.py and its call sites), so one trace reader
+serves both; the spans it has not got are the port's own (README's
+observability section lists them). For a long-lived process:
+`install()` arms a recorder the caller built (the bounded
 FlightRecorder of obs/flight.py), `scoped()` arms a fresh per-job
 recorder and restores the previous one after (teeing into it when one
 was armed), `rebase()` moves a recorder's time zero earlier, and
@@ -32,33 +59,67 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 
+#: torch's `torch.autograd.profiler` module once the process has loaded
+#: torch (no profiler records before that); looked up, never imported, so
+#: the serve client's commands start without torch
+_torch_profiler = None
+
+
+def _profiler():
+    global _torch_profiler
+    if _torch_profiler is None:
+        _torch_profiler = sys.modules.get("torch.autograd.profiler")
+    return _torch_profiler
+
 
 class _Span:
-    """Context manager recording one complete ("X") event on exit."""
+    """Context manager over one region: feeds the sinks the module
+    docstring lists on exit. `set(**args)` adds args known only at the
+    region's end."""
 
-    __slots__ = ("_rec", "_name", "_args", "_t0")
+    __slots__ = ("_rec", "_name", "_args", "_into", "_range", "_t0")
 
-    def __init__(self, rec: "TraceRecorder", name: str, args: dict | None):
+    def __init__(self, rec, name: str, args: dict | None,
+                 into: dict | None = None):
         self._rec = rec
         self._name = name
         self._args = args
+        self._into = into
+        self._range = None
+
+    def set(self, **args) -> None:
+        self._args = dict(self._args or (), **args)
 
     def __enter__(self) -> "_Span":
+        prof = _torch_profiler or _profiler()
+        if prof is not None and prof._is_profiler_enabled:
+            self._range = prof.record_function(self._name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc_info) -> None:
-        self._rec.complete(self._name, self._t0, time.perf_counter(),
-                           self._args)
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc_info)
+        if self._into is not None:
+            self._into[self._name] = (self._into.get(self._name, 0.0)
+                                      + (t1 - self._t0))
+        if self._rec is not None:
+            self._rec.complete(self._name, self._t0, t1, self._args)
 
 
 class _NullSpan:
-    """Shared no-op context for the disabled-tracer path."""
+    """Shared no-op context for a span with every sink off."""
 
     __slots__ = ()
+
+    def set(self, **args) -> None:
+        pass
 
     def __enter__(self) -> "_NullSpan":
         return self
@@ -77,6 +138,9 @@ class TraceRecorder:
         self.path = path
         self._pid = os.getpid()
         self._base = time.perf_counter()
+        #: the wall-clock epoch nanoseconds of `_base` (module docstring,
+        #: item 4)
+        self.base_ns = time.time_ns()
         self._lock = threading.Lock()
         self._buffers: list[list] = []
         self._threads: dict[int, str] = {}
@@ -109,6 +173,7 @@ class TraceRecorder:
         their real offsets instead of clamping to 0. Valid only before
         events are recorded; a later or equal base is ignored."""
         if base < self._base:
+            self.base_ns -= round((self._base - base) * 1e9)
             self._base = base
 
     def complete(self, name: str, t0: float, t1: float,
@@ -130,9 +195,6 @@ class TraceRecorder:
         if args:
             ev["args"] = args
         buf.append(ev)
-
-    def span(self, name: str, **args) -> _Span:
-        return _Span(self, name, args or None)
 
     def events(self) -> list[dict]:
         """Timestamp-sorted snapshot of every buffer, prefixed with the
@@ -156,7 +218,8 @@ class TraceRecorder:
             raise ValueError("TraceRecorder.save: no output path")
         with open(path, "w") as fh:
             json.dump({"traceEvents": self.events(),
-                       "displayTimeUnit": "ms"}, fh)
+                       "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": self.base_ns}, fh)
         return path
 
 
@@ -194,8 +257,8 @@ def reset() -> None:
 class _TeeRecorder:
     """A recorder that forwards every event to several recorders: how a
     per-job trace (scoped) coexists with a recorder already armed, which
-    keeps recording. Only the recording calls (`complete`, `instant`,
-    `span`) fan out; `events` and `save` are the primary's."""
+    keeps recording. Only the recording calls (`complete`, `instant`)
+    fan out; `events` and `save` are the primary's."""
 
     def __init__(self, primary: TraceRecorder, *others: TraceRecorder):
         self._recs = (primary,) + others
@@ -208,9 +271,6 @@ class _TeeRecorder:
     def instant(self, name, args=None) -> None:
         for rec in self._recs:
             rec.instant(name, args)
-
-    def span(self, name: str, **args) -> _Span:
-        return _Span(self, name, args or None)
 
     def events(self) -> list[dict]:
         return self._recs[0].events()
@@ -293,10 +353,21 @@ def trace_matches(args: dict | None, trace_id: str) -> bool:
     return isinstance(tids, (list, tuple)) and any(_hit(t) for t in tids)
 
 
-def span(name: str, **args):
-    """A recording span when tracing is armed, a shared no-op otherwise."""
-    tr = get_tracer()
-    return tr.span(name, **args) if tr is not None else _NULL_SPAN
+def span(name: str, into: dict | None = None, **args):
+    """One region's span (module docstring): a shared no-op when no
+    recorder is armed, `into` is None and no torch profiler records."""
+    tr = _tracer
+    if tr is None and into is None:
+        prof = _torch_profiler or _profiler()
+        if prof is None or not prof._is_profiler_enabled:
+            return _NULL_SPAN
+    return _Span(tr, name, args or None, into)
+
+
+def add_totals(into: dict, totals: dict) -> None:
+    """Add one `into` dict's span seconds to another's, by name."""
+    for name, s in totals.items():
+        into[name] = into.get(name, 0.0) + s
 
 
 def instant(name: str, **args) -> None:

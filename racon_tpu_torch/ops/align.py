@@ -14,7 +14,8 @@ kernel ops/align_kernels.wavefront_align, at either score dtype and
 operand form; `BatchAligner` buckets pairs, picks each batch's score
 dtype and operand form, and runs them through the wrapper on its
 device, through the dispatch pipeline's pack / dispatch / wait / unpack
-stages, under the profiler ranges align.operands, align.kernel and
+stages, under the spans (obs/trace.py) align.operands, align.kernel
+(split into align.launch, align.account and align.readback) and
 align.decode.
 """
 
@@ -24,9 +25,9 @@ import contextlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve
+from ..obs import trace
 from .dtypes import INF16, aligner_int16_ok, kernel_plan, resolve_dtype
 from .encode import unpack_2bit
 
@@ -494,7 +495,7 @@ class BatchAligner:
             # (for_batch) with no padding lanes; one lane: the operands'
             # copies start here, on the batch's stream
             r = runner.for_batch(len(idx))
-            with record_function("align.operands"), on_stream(i):
+            with trace.span("align.operands"), on_stream(i):
                 args = self.host_operands(pairs, edge, band, idx,
                                           lanes=r.round_batch(len(idx)))
                 if r.n_devices == 1:
@@ -513,45 +514,50 @@ class BatchAligner:
                                                               0) + len(idx)
             r = runner.for_batch(len(idx))
             lanes, n_waves = offs.shape
-            with record_function("align.kernel"), on_stream(i):
-                # first-dispatch telemetry: the JAX package's key, the
-                # lane count included
-                t0 = time.perf_counter()
-                ops, meta = concat(r.run_split(
-                    functools.partial(wavefront_align, band=band,
-                                      score_dtype=dtype, packed=plan[1]),
-                    q, t, q_lens, t_lens, offs), self.device)
-                self.sched.stats.record_compile_once(
-                    "aligner", (band, n_waves, lanes, kernel, *plan),
-                    time.perf_counter() - t0)
-                # occupancy: useful DP cells = per-pair wave count x band
-                # against the batch's n_waves x band x lanes, with the
-                # lane view (per-lane useful split; what the full
-                # runner's round_batch would have dispatched)
-                row_cells = [(len(pairs[j][0]) + len(pairs[j][1]) + 1)
-                             * band for j in idx]
-                self.sched.stats.record(
-                    "aligner", (edge, band), jobs=len(idx), lanes=lanes,
-                    useful_cells=sum(row_cells),
-                    total_cells=lanes * n_waves * band, kernel=kernel,
-                    dtype=dtype, n_devices=r.n_devices,
-                    shard_useful=shard_useful_split(row_cells, lanes,
-                                                    r.n_devices),
-                    full_mesh_cells=(runner.round_batch(len(idx))
-                                     * n_waves * band))
-                pl.stats.bump("launches")
+            with trace.span("align.kernel"), on_stream(i):
+                with trace.span("align.launch"):
+                    t0 = time.perf_counter()
+                    ops, meta = concat(r.run_split(
+                        functools.partial(wavefront_align, band=band,
+                                          score_dtype=dtype,
+                                          packed=plan[1]),
+                        q, t, q_lens, t_lens, offs), self.device)
+                    launch_s = time.perf_counter() - t0
+                with trace.span("align.account"):
+                    # first-dispatch telemetry: the JAX package's key, the
+                    # lane count included
+                    self.sched.stats.record_compile_once(
+                        "aligner", (band, n_waves, lanes, kernel, *plan),
+                        launch_s)
+                    # occupancy: useful DP cells = per-pair wave count x
+                    # band against the batch's n_waves x band x lanes,
+                    # with the lane view (per-lane useful split; what the
+                    # full runner's round_batch would have dispatched)
+                    row_cells = [(len(pairs[j][0]) + len(pairs[j][1]) + 1)
+                                 * band for j in idx]
+                    self.sched.stats.record(
+                        "aligner", (edge, band), jobs=len(idx), lanes=lanes,
+                        useful_cells=sum(row_cells),
+                        total_cells=lanes * n_waves * band, kernel=kernel,
+                        dtype=dtype, n_devices=r.n_devices,
+                        shard_useful=shard_useful_split(row_cells, lanes,
+                                                        r.n_devices),
+                        full_mesh_cells=(runner.round_batch(len(idx))
+                                         * n_waves * band))
+                    pl.stats.bump("launches")
                 if streams is None:
                     return ops, meta, None, lens
-                # the copies back, queued behind the kernel on the
-                # batch's stream, into pinned buffers
-                ops_h = torch.empty(ops.shape, dtype=ops.dtype,
-                                    pin_memory=True)
-                meta_h = torch.empty(meta.shape, dtype=meta.dtype,
-                                     pin_memory=True)
-                ops_h.copy_(ops, non_blocking=True)
-                meta_h.copy_(meta, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+                with trace.span("align.readback"):
+                    # the copies back, queued behind the kernel on the
+                    # batch's stream, into pinned buffers
+                    ops_h = torch.empty(ops.shape, dtype=ops.dtype,
+                                        pin_memory=True)
+                    meta_h = torch.empty(meta.shape, dtype=meta.dtype,
+                                         pin_memory=True)
+                    ops_h.copy_(ops, non_blocking=True)
+                    meta_h.copy_(meta, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
             return ops_h, meta_h, done, lens
 
         def wait(handle):
@@ -565,7 +571,7 @@ class BatchAligner:
             ops, meta, lens = res
             accepted = 0
             rejected: list[int] = []
-            with record_function("align.decode"):
+            with trace.span("align.decode"):
                 for lane, i_pair in enumerate(idx):
                     count, dist, touched = (int(v) for v in meta[lane])
                     # an in-band cost far above what a <=30%-error overlap

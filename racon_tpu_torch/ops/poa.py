@@ -47,6 +47,7 @@ import torch
 from ..device import resolve
 from ..errors import RaconError
 from ..native import poa_batch
+from ..obs import trace
 from ..pipeline import DispatchPipeline
 from ..utils.logger import Logger, log_info
 
@@ -122,6 +123,9 @@ class BatchPOA:
         #: the device engine of the last pass (the fused engine when it
         #: ran, else the session engine)
         self.engine = None
+        #: seconds by span name of the session engines this object ran
+        #: (their `span_s`: poa.sync, poa.fetch)
+        self.span_s: dict = {}
 
     def generate_consensus(self, windows, trim: bool) -> None:
         """Fill `window.consensus` / `window.polished` for every window,
@@ -197,6 +201,7 @@ class BatchPOA:
         else:
             self.engine = self._session()
             results, statuses = self.engine.consensus(packed)
+            trace.add_totals(self.span_s, self.engine.span_s)
             log_session_stats(self.engine.last_stats, statuses,
                               self.engine.batches_by_plan)
         for w, (cons, cov) in zip(todo, results):
@@ -243,6 +248,7 @@ class BatchPOA:
                                        if self.scheduler is not None
                                        else None)))
             sub_res, sub_st = session.consensus([packed[i] for i in rest])
+            trace.add_totals(self.span_s, session.span_s)
             log_session_stats(session.last_stats, sub_st,
                               session.batches_by_plan)
             for i, r, st in zip(rest, sub_res, sub_st):

@@ -52,7 +52,6 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve
 from ..obs import trace
@@ -938,7 +937,7 @@ class FusedPOA:
             k, chunk = item
             plan = self._chain_plan(max(len(windows[i]) - 1 for i in chunk))
             fused = self._fused_plan(plan)
-            with record_function("fused.pack"), on_stream(k):
+            with trace.span("fused.pack"), on_stream(k):
                 state, calls = self._pack_calls(windows, chunk, plan, fused,
                                                 n_dev)
             return fused, state, calls
@@ -982,7 +981,7 @@ class FusedPOA:
                       self.score_dtype, kernel) + (("loop",) if fused
                                                    else ()))
                     for d, ops, done in calls]
-            with record_function("fused.kernel"), on_stream(k), \
+            with trace.span("fused.kernel"), on_stream(k), \
                     trace.span("fused.dispatch", engine="fused",
                                jobs=len(chunk), calls=len(calls)):
                 outs = self.runner.run_split(
@@ -1026,7 +1025,7 @@ class FusedPOA:
 
         def unpack(item, np_state):
             _, chunk = item
-            with record_function("fused.finish"):
+            with trace.span("fused.finish"):
                 self._finalize_chunk(chunk, np_state, results, statuses)
             if bar is not None:
                 for _ in chunk:

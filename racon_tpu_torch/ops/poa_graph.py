@@ -25,12 +25,15 @@ from the windows by the occupancy scheduler), each with one batch width
 pinned from the card's free memory (the 90%-of-free rule of
 cudapolisher.cpp:169-173) and split over the batch runner's lanes.
 Batches launch asynchronously on the current stream; the host commits
-the oldest batch while younger ones compute. The host steps are
-`torch.profiler` ranges (poa.prepare, poa.dispatch, poa.wait,
-poa.commit, poa.finish), so a profiler trace splits the consensus wall
-between them and the kernels; each batch's launch and its wait plus
-commit are also the port tracer's spans session.dispatch and
-session.commit (obs/trace.py), as in the JAX package.
+the oldest batch while younger ones compute. The host steps are spans
+(obs/trace.py: profiler ranges in a capture, Chrome events when traced):
+poa.prepare, poa.dispatch, poa.wait (split into poa.sync, the wait for
+the batch's own event, and poa.fetch, its copy to the host and slice),
+poa.commit and poa.finish, so a profiler trace splits the consensus
+wall between them and the kernels. Each batch's launch and its wait plus
+commit are also the spans session.dispatch and session.commit, as in the
+JAX package. `span_s` totals poa.sync and poa.fetch over the engine's
+life.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ from collections import deque
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import free_bytes, resolve
 from ..obs import trace
@@ -335,6 +337,8 @@ class DeviceGraphPOA:
         self._set_buckets(tuple(buckets) if buckets is not None else tuple(
             b for b in BUCKETS if b[0] <= max_nodes and b[1] <= max_len))
         self.last_stats: dict = {}
+        #: seconds by span name: poa.sync and poa.fetch (obs/trace.py)
+        self.span_s: dict = {}
 
     def _set_buckets(self, buckets) -> None:
         """Install a bucket grid (the envelope bucket appended as the
@@ -438,12 +442,12 @@ class DeviceGraphPOA:
             if freed >= threshold or not inflight:
                 burst = 0
                 while len(inflight) < depth:
-                    with record_function("poa.prepare"):
+                    with trace.span("poa.prepare"):
                         jobs = session.prepare(half)
                     if jobs is None:
                         break
                     burst += jobs["n"]
-                    with record_function("poa.dispatch"):
+                    with trace.span("poa.dispatch"):
                         inflight.extend(self._dispatch_round(jobs))
                 if burst:
                     freed = 0
@@ -452,11 +456,18 @@ class DeviceGraphPOA:
                 break
             # commit the oldest batch (waits only for ITS result; younger
             # batches keep computing)
-            win, layer, band, npart, lb, out, rows = inflight.popleft()
+            (win, layer, band, npart, lb, out, rows,
+             done) = inflight.popleft()
             with trace.span("session.commit", engine="session", jobs=npart):
-                with record_function("poa.wait"):
-                    ranks = out.cpu().numpy()[rows][:, :lb]
-                with record_function("poa.commit"):
+                with trace.span("poa.wait"):
+                    with trace.span("poa.sync", into=self.span_s):
+                        if done is not None:
+                            done.synchronize()
+                    # on one stream the copy also waits for the younger
+                    # batches queued behind this one
+                    with trace.span("poa.fetch", into=self.span_s):
+                        ranks = out.cpu().numpy()[rows][:, :lb]
+                with trace.span("poa.commit"):
                     session.commit(win, layer, band, ranks)
             freed += npart
             if bar is not None:
@@ -464,7 +475,7 @@ class DeviceGraphPOA:
                     bar("[racon_tpu_torch::Polisher.polish] "
                         "aligning layers to graphs on device")
         self.last_stats = session.stats()
-        with record_function("poa.finish"):
+        with trace.span("poa.finish"):
             results = session.finish(self.num_threads)
         session.close()
         return results
@@ -476,8 +487,8 @@ class DeviceGraphPOA:
 
     def _dispatch_round(self, jobs):
         """Bucket one prepare() round and launch every batch. Returns
-        [(win, layer, band, n_jobs, len_bucket, device_out, rows)] —
-        everything the commit needs is snapshotted so the session's
+        [(win, layer, band, n_jobs, len_bucket, device_out, rows, done)]
+        — everything the commit needs is snapshotted so the session's
         prepare buffers can be reused at once."""
         n = jobs["n"]
         groups: dict[tuple[int, int], list[int]] = {}
@@ -511,7 +522,7 @@ class DeviceGraphPOA:
                         jobs["band"][sel].copy())
                 with trace.span("session.dispatch", engine="session",
                                 bucket=f"{nb}x{lb}", jobs=len(part)):
-                    out, rows = self._dispatch(jobs, sel, nb, lb, B)
+                    out, rows, done = self._dispatch(jobs, sel, nb, lb, B)
                 # occupancy, recorded after the launch: job j landed on
                 # lane j % n_dev (the _dispatch scatter), so the per-lane
                 # useful cells are strided sums. The batch is always
@@ -527,18 +538,20 @@ class DeviceGraphPOA:
                     shard_useful=[int(row_cells[k::n_dev].sum())
                                   for k in range(n_dev)],
                     full_mesh_cells=B * nb * (lb + 1))
-                batches.append(meta + (len(part), lb, out, rows))
+                batches.append(meta + (len(part), lb, out, rows, done))
         return batches
 
     def _dispatch(self, jobs, sel, nb, lb, B):
         """Pad/scatter one bucket batch to its pinned width, pack its
         bases when it may, and launch it over the runner's lanes.
-        Returns (device_out, rows): `rows[j]` is the batch row job j
+        Returns (device_out, rows, done): `rows[j]` is the batch row job j
         landed on — round-robin over the lanes' shards, so each lane
         carries an even share of the real (and of the padding) rows
         instead of the last lane eating all the pad; the lanes' outputs
         are concatenated in lane order on the engine's device, so `rows`
-        addresses the whole batch."""
+        addresses the whole batch; `done` is a CUDA event recorded behind
+        the batch on the engine device's current stream (None on the
+        CPU)."""
         import functools
         import time
 
@@ -579,7 +592,11 @@ class DeviceGraphPOA:
              "cuda" if self.device.type == "cuda" else "plain",
              self.plan_for(nb, lb), packed),
             time.perf_counter() - t0)
-        return out, rows
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return out, rows, done
 
     def run_bucket(self, nb, lb, codes, preds, centers, sinks, seqs, lens,
                    band, nnodes):

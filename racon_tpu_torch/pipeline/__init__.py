@@ -30,7 +30,10 @@ counts, with the same keys as the JAX package's. "device seconds" is
 time charged to the compute stage: the dispatch call plus the unpack
 worker's wait for results. With real overlap, pack + device + unpack
 exceed the phase's wall; in a dead (synchronous) pipeline they add up
-to it.
+to it. The caller's thread's own waits on the workers are spans
+(obs/trace.py): pipeline.wait_pack (for a packed chunk),
+pipeline.wait_unpack (for room in the unpack worker's queue) and
+pipeline.join (for both workers to finish the run).
 
 Errors: without `on_error`, the first stage exception aborts the run and
 re-raises in the caller. With `on_error(item, exc)` the failed chunk is
@@ -362,7 +365,8 @@ class DispatchPipeline:
             # waiting_q always gets one, so neither worker can deadlock on
             # a bounded-queue put even when abort fires mid-stream
             while True:
-                entry = packed_q.get()
+                with trace.span("pipeline.wait_pack"):
+                    entry = packed_q.get()
                 if entry is _STOP:
                     break
                 if abort.is_set():
@@ -381,7 +385,8 @@ class DispatchPipeline:
                 except Exception as exc:
                     guard(item, exc)
                     continue
-                waiting_q.put((idx, item, handle, t1 - t0))
+                with trace.span("pipeline.wait_unpack"):
+                    waiting_q.put((idx, item, handle, t1 - t0))
         except BaseException:
             # exceptional exit (KeyboardInterrupt is the real case): the
             # workers may be blocked on the bounded queues, so a plain
@@ -400,9 +405,10 @@ class DispatchPipeline:
                 pass
             t_unpack.join(timeout=2.0)
             raise
-        waiting_q.put(_STOP)
-        t_unpack.join()
-        t_pack.join()
+        with trace.span("pipeline.join"):
+            waiting_q.put(_STOP)
+            t_unpack.join()
+            t_pack.join()
         if fatal:
             raise fatal[0]
 

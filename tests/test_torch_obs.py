@@ -50,6 +50,20 @@ from racon_tpu_torch.utils import logger  # noqa: E402
 SCORES = ["-m", "5", "-x", "-4", "-g", "-8"]
 STAGES = ("pipeline.pack", "pipeline.device", "pipeline.unpack",
           "pipeline.fallback")
+#: the port's spans that the JAX package has not got: initialize()'s
+#: steps, the pipeline caller's waits, and the aligner's and the
+#: consensus engines' host steps (obs/trace.py, README's observability
+#: section)
+PORT_ONLY_SPANS = (
+    "polisher.load_targets", "polisher.load_sequences",
+    "polisher.load_overlaps", "polisher.transmute", "align.pairs",
+    "pipeline.drain_fallback", "align.cigar", "polisher.breaking_points",
+    "polisher.windows", "polisher.layers", "pipeline.wait_pack",
+    "pipeline.wait_unpack", "pipeline.join", "align.operands",
+    "align.kernel", "align.launch", "align.account", "align.readback",
+    "align.decode", "poa.prepare", "poa.dispatch", "poa.wait", "poa.sync",
+    "poa.fetch", "poa.commit", "poa.finish", "fused.pack", "fused.kernel",
+    "fused.finish")
 
 
 @pytest.fixture(autouse=True)
@@ -348,7 +362,7 @@ def test_cli_trace_spans_match_jax(traced):
     # arguments
     first = mine.pop("sched.first_dispatch", None)
     assert first in (None, {"engine", "shape"})
-    assert set(mine) <= set(theirs)
+    assert set(mine) <= set(theirs) | set(PORT_ONLY_SPANS)
     loops = {e["args"]["loop"] for e in traced["trace"]["traceEvents"]
              if e["name"] == "pipeline.device"}
     assert loops == {"aligner"}
