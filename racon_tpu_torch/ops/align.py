@@ -182,19 +182,27 @@ def traceback(bp, dist, offsets, q_lens, t_lens, band: int):
     return ops, meta.to(torch.int32)
 
 
-_CODE_TO_OP = {BP_DIAG: "M", BP_UP: "I", BP_LEFT: "D"}
+#: the CIGAR op byte of each backpointer code (BP_DIAG, BP_UP, BP_LEFT)
+_OP_BYTES = np.frombuffer(b"MID", dtype=np.uint8)
+
+
+def run_arrays(seq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Forward-order op codes -> the path's runs as (op bytes, lengths):
+    uint8 `M` / `I` / `D` and int64, the arrays utils/cigar.parse_cigar
+    gives for the path's CIGAR."""
+    starts = np.flatnonzero(np.diff(seq, prepend=-1))
+    return _OP_BYTES[seq[starts]], np.diff(starts, append=len(seq))
+
+
+def run_list(runs: tuple[np.ndarray, np.ndarray]) -> list[tuple[int, str]]:
+    """Run arrays (run_arrays) -> CIGAR-style run list."""
+    ops, lens = runs
+    return [(int(n), chr(op)) for op, n in zip(ops, lens)]
 
 
 def runs_of(seq: np.ndarray) -> list[tuple[int, str]]:
     """Forward-order op codes -> CIGAR-style run list."""
-    runs: list[tuple[int, str]] = []
-    if len(seq):
-        change = np.nonzero(np.diff(seq))[0]
-        starts = np.concatenate(([0], change + 1))
-        ends = np.concatenate((change + 1, [len(seq)]))
-        runs = [(int(e - s), _CODE_TO_OP[int(seq[s])])
-                for s, e in zip(starts, ends)]
-    return runs
+    return run_list(run_arrays(seq))
 
 
 class BatchAligner:
@@ -443,9 +451,11 @@ class BatchAligner:
 
     def align(self, pairs: list[tuple[bytes, bytes]], progress=None,
               pipeline=None,
-              on_reject=None) -> list[list[tuple[int, str]] | None]:
-        """Globally align each (query, target) pair. Returns per-pair op
-        runs, or None for rejected pairs (see class docstring).
+              on_reject=None
+              ) -> list[tuple[np.ndarray, np.ndarray] | None]:
+        """Globally align each (query, target) pair. Returns per pair its
+        path's runs as (op bytes, lengths) arrays (run_arrays), or None
+        for a rejected pair (see class docstring).
 
         `pipeline` (pipeline.DispatchPipeline) overlaps the host stages
         with the device: `pack` builds a batch's operands and (one lane)
@@ -473,7 +483,8 @@ class BatchAligner:
         from .device_program import shard_useful_split
 
         pl = pipeline if pipeline is not None else DispatchPipeline(depth=0)
-        results: list[list[tuple[int, str]] | None] = [None] * len(pairs)
+        results: list[tuple[np.ndarray, np.ndarray] | None] = \
+            [None] * len(pairs)
         chunks, unbucketed = self._split(pairs)
         self.n_unbucketed += len(unbucketed)
         if on_reject is not None and unbucketed:
@@ -581,7 +592,7 @@ class BatchAligner:
                         self.n_band_rejects += 1
                         rejected.append(i_pair)
                         continue
-                    results[i_pair] = runs_of(ops[lane, :count][::-1])
+                    results[i_pair] = run_arrays(ops[lane, :count][::-1])
                     accepted += 1
             if on_reject is not None and rejected:
                 on_reject(rejected)

@@ -39,26 +39,6 @@ def parse_cigar(cigar: bytes | str) -> tuple[np.ndarray, np.ndarray]:
     return ops, lens
 
 
-def cigar_from_ops(ops: "list[tuple[int, str]]") -> str:
-    """Build a CIGAR string from (length, op_char) runs, merging adjacent
-    runs with the same op."""
-    parts: list[str] = []
-    last_op: str | None = None
-    last_len = 0
-    for length, op in ops:
-        if length == 0:
-            continue
-        if op == last_op:
-            last_len += length
-        else:
-            if last_op is not None:
-                parts.append(f"{last_len}{last_op}")
-            last_op, last_len = op, length
-    if last_op is not None:
-        parts.append(f"{last_len}{last_op}")
-    return "".join(parts)
-
-
 def match_segments(ops: np.ndarray, lens: np.ndarray, t_start: int, q_start: int):
     """Return (t0, q0, length) arrays — the maximal runs of M/=/X columns —
     plus final (t_end, q_end) pointers, walking the CIGAR from (t_start,

@@ -174,10 +174,12 @@ def test_aligner_sub_runner_tail_and_lane_view():
     per bucket the lanes' useful cells sum to its useful cells, and the
     full-runner baseline counts the tail rounded up to 4 lanes."""
     from racon_tpu_torch.ops.align import BatchAligner
+    from test_torch_align import run_lists
     from test_torch_sched import skewed_pairs
 
     pairs = skewed_pairs()
-    want = BatchAligner(band_width=64, device="cpu").align(list(pairs))
+    want = run_lists(BatchAligner(band_width=64,
+                                  device="cpu").align(list(pairs)))
     sched = BatchScheduler()
     al = BatchAligner(band_width=64, device="cpu", scheduler=sched,
                       runner=lanes(4))
@@ -189,7 +191,7 @@ def test_aligner_sub_runner_tail_and_lane_view():
         assert all(s % 4 == 0 for s in group[:-1])
         assert sum(group) % 4 == 0 or group[-1] < 4
     assert any(s < 4 for group in sizes.values() for s in group)
-    assert al.align(list(pairs)) == want
+    assert run_lists(al.align(list(pairs))) == want
     snap = sched.stats.snapshot()["aligner"]
     assert sum(snap["shard_useful"]) == snap["useful_cells"]
     for key, b in snap["buckets"].items():

@@ -57,7 +57,7 @@ STAGES = ("pipeline.pack", "pipeline.device", "pipeline.unpack",
 PORT_ONLY_SPANS = (
     "polisher.load_targets", "polisher.load_sequences",
     "polisher.load_overlaps", "polisher.transmute", "align.pairs",
-    "pipeline.drain_fallback", "align.cigar", "polisher.breaking_points",
+    "pipeline.drain_fallback", "align.runs", "polisher.breaking_points",
     "polisher.windows", "polisher.layers", "pipeline.wait_pack",
     "pipeline.wait_unpack", "pipeline.join", "align.operands",
     "align.kernel", "align.launch", "align.account", "align.readback",

@@ -30,6 +30,7 @@ from racon_tpu_torch.synth import (ALIGN_KINDS, align_pairs, ava_overlaps,
                                    max_pred_distance, poa_jobs,
                                    simulate_truth, write_fragment_dataset)
 
+from test_torch_align import run_lists
 from test_torch_dtypes import (BOUNDARY, check_posture_runs, k1_jobs,
                                k2_operands, posture_runs)
 
@@ -116,7 +117,7 @@ def test_batch_aligner_packs_acgt_batches_and_counts_each_form():
     for posture, pack in itertools.product(dtypes.POSTURES, (True, False)):
         al = BatchAligner(device="cpu", score_dtype=posture,
                           pack_bases=pack)
-        runs[(posture, pack)] = al.align(pairs)
+        runs[(posture, pack)] = run_lists(al.align(pairs))
         narrow = "int32" if posture == "int32" else "int16"
         want = {(narrow, pack): 1, (narrow, False): 1} if pack else \
             {(narrow, False): 2}

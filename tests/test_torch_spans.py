@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INIT_STEPS = ("polisher.load_targets", "polisher.load_sequences",
               "polisher.load_overlaps", "polisher.transmute",
               "polisher.windows", "polisher.layers")
-ALIGN_STEPS = ("align.pairs", "pipeline.drain_fallback", "align.cigar",
+ALIGN_STEPS = ("align.pairs", "pipeline.drain_fallback", "align.runs",
                "polisher.breaking_points")
 CONSENSUS_STEPS = ("poa.sync", "poa.fetch")
 
