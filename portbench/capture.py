@@ -2,10 +2,12 @@
 wrapping a few of its entry points for the life of a `Capture`:
 
   - per polisher run: the breaking points of every overlap it aligned
-    (before initialize() clears them), its windows (their layers, and
-    after polish() their consensus), and its counters once polish()
-    returns: phase_s, the pipeline's stage seconds, the aligner's and the
-    consensus engine's device and host counts;
+    (before initialize() clears them), with the names of its query and
+    target (taken as the overlaps are loaded: the program drops them
+    before it aligns), its windows (their layers, and after polish()
+    their consensus), and its counters once polish() returns: phase_s,
+    the pipeline's stage seconds, the aligner's and the consensus
+    engine's device and host counts, and the span totals (`span_s`);
   - the path each overlap and each window took, so that the check can
     draw from every one: an aligned overlap's K2 batch class (bucket edge,
     band, score dtype) or the host aligner; a window's K1 instantiations
@@ -96,12 +98,23 @@ class Capture:
                             o.breaking_points[:, 1] += 1
                             o.breaking_points[:, 3] += 1
                 kept = [o for o in overlaps if o.breaking_points is not None]
-                rows = [(o.q_name, o.t_name, bool(o.strand), o.q_begin,
-                         o.q_end, o.q_length, o.t_begin, o.t_end,
-                         o.breaking_points.copy()) for o in kept]
                 run = cap.run_of(pol)
+                names = run["names"]
+                rows = [(names[o.q_id], names[o.t_id], bool(o.strand),
+                         o.q_begin, o.q_end, o.q_length, o.t_begin, o.t_end,
+                         o.breaking_points.copy()) for o in kept]
                 run["bps"] = rows
                 run["bp_paths"] = [path_of.get(id(o), "cigar") for o in kept]
+            return wrapped
+
+        def load_overlaps(orig):
+            def wrapped(pol, *a, **kw):
+                overlaps = orig(pol, *a, **kw)
+                # each sequence's name, by the id the overlaps now carry:
+                # the polisher drops the overlaps' names as it resolves
+                # them, and a read's own name before it aligns
+                cap.run_of(pol)["names"] = [s.name for s in pol.sequences]
+                return overlaps
             return wrapped
 
         def split(orig):
@@ -165,7 +178,8 @@ class Capture:
                     "windows": len(run["windows"] or ()),
                     "poa_host": getattr(poa, "n_host", 0),
                     "poa_device": getattr(poa, "n_device", 0),
-                    "poa_backbone": getattr(poa, "n_backbone", 0)}
+                    "poa_backbone": getattr(poa, "n_backbone", 0),
+                    "span_s": dict(getattr(pol, "span_s", {}))}
                 return out
             return wrapped
 
@@ -233,6 +247,7 @@ class Capture:
             return wrapped
 
         self._patch(Polisher, "find_overlap_breaking_points", breaking_points)
+        self._patch(Polisher, "_load_overlaps", load_overlaps)
         self._patch(Polisher, "initialize", initialize)
         self._patch(Polisher, "polish", polish)
         self._patch(BatchPOA, "_generate_consensus", consensus)

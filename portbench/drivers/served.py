@@ -17,7 +17,7 @@ import os
 import threading
 import time
 
-from portbench import gen
+from portbench import check, gen
 
 
 def parse_fasta(data: bytes) -> list:
@@ -39,15 +39,14 @@ class Driver:
         self.before: dict = {}
         self.after: dict = {}
 
-    def prepare(self) -> dict:
-        pool = {}
+    def prepare(self) -> None:
+        self.pool = {}
         for k in range(self.traffic["pool"]):
             ds = gen.from_config(self.cfg, self.ctx.seed, stream=k)
             self.paths.append(gen.write(ds, self.ctx.workdir,
                                         f"{self.cfg['name']}{k}",
                                         self.cfg["contig_name"]))
-            pool[k] = ds
-        return pool
+            self.pool[k] = ds
 
     def warmup(self) -> None:
         from racon_tpu_torch.serve.server import PolishServer
@@ -125,6 +124,12 @@ class Driver:
     def rate(self, jobs: list, t0: float) -> float:
         end = max(j["t1"] for j in jobs)
         return sum(1 for j in jobs if j["ok"]) / (end - t0)
+
+    def inputs(self, jobs: list) -> dict:
+        """check.Inputs of each dataset of the pool: one contig each."""
+        return {k: check.contig_inputs(ds, self.cfg["contig_name"],
+                                       self.cfg["racon"]["error_threshold"])
+                for k, ds in self.pool.items()}
 
     def close(self) -> None:
         if self.server is not None:

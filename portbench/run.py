@@ -5,13 +5,14 @@
 
 finds the cell's file (cells/<cell>.json), its configuration
 (configs/<config>.json), its traffic mix (traffic/<traffic>.json) and the
-mix's driver (drivers/<driver>.py) by name; with --trace 1 it also reads
-every per-layer metric that a reader under metrics/ gives for the mix's
-suffix. It makes its data from the seed, warms up, measures for
---seconds, checks what the window produced against the plain reference
-(check.py) and prints one JSON line last on standard output. Set-up's
-parts go to standard error as they end; the numbers the check compared go
-there last, each beside its limit.
+mix's driver (drivers/<driver>.py) by name; the driver also gives the
+check each job's inputs. With --trace 1 it also reads every per-layer
+metric that a reader under metrics/ gives for the mix's suffix. It makes
+its data from the seed, warms up, measures for --seconds, checks what the
+window produced against the plain reference (check.py) and prints one
+JSON line last on standard output. Set-up's parts go to standard error as
+they end; the numbers the check compared go there last, each beside its
+limit.
 
 It exits with 3, printing no result, without a CUDA device, and with 4 if
 the process loaded JAX or the JAX package.
@@ -138,7 +139,7 @@ def run(args, device: str = "cuda", base: str = HERE) -> tuple[dict, list]:
     ctx.capture = cap
     try:
         with cap:
-            datasets = drv.prepare()
+            drv.prepare()
             stamp("set-up, data")
             import racon_tpu_torch  # noqa: F401
             from racon_tpu_torch import _build
@@ -165,7 +166,14 @@ def run(args, device: str = "cuda", base: str = HERE) -> tuple[dict, list]:
                     jobs, t0 = drv.window(args.seconds)
                 trace = dt
             else:
+                cpu0 = os.times()
                 jobs, t0 = drv.window(args.seconds)
+                cpu1 = os.times()
+                print(f"[portbench] window: {cpu1.elapsed - cpu0.elapsed:.3f} "
+                      f"s wall, process CPU {cpu1.user - cpu0.user:.3f} s user "
+                      f"+ {cpu1.system - cpu0.system:.3f} s system, "
+                      f"{torch.get_num_threads()} torch threads",
+                      file=sys.stderr)
             t_end = max(j["t1"] for j in jobs)
             stamp(f"window closed ({len(jobs)} jobs)")
             walls = [round(j["t1"] - j["t0"], 3) for j in jobs]
@@ -182,10 +190,8 @@ def run(args, device: str = "cuda", base: str = HERE) -> tuple[dict, list]:
 
     if device == "cuda":
         torch.cuda.empty_cache()
-    inputs = {k: check_mod.Inputs(ds, config["contig_name"],
-                                  config["racon"]["error_threshold"])
-              for k, ds in datasets.items()}
     finished = [j for j in jobs if j["ok"]]
+    inputs = drv.inputs(finished)
     control = getattr(args, "control", None)
     correct, numbers = check_mod.check(finished, inputs, config,
                                        cell["check"], args.seed)

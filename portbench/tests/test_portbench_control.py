@@ -17,14 +17,14 @@ def failed(result) -> set:
     return {n for n, c in result["checks"].items() if c["value"] > c["limit"]}
 
 
-@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads", "tiny.serve"])
 def test_sound_runs_pass(base, cell):
     for seed in (11, 12):
         result, _ = tiny.run(base, cell, seed=seed, seconds=1.0)
         assert result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads", "tiny.serve"])
 def test_control_fails(base, cell):
     result, _ = tiny.run(base, cell, seconds=1.0, control="int8")
     assert not result["correct"]
@@ -39,14 +39,14 @@ def test_control_fails(base, cell):
     ("bp_shift", "bp_excess"),          # the alignment's answer altered
     ("stitch_altered", "stitch_mismatch"),  # the returned bytes altered
 ])
-@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads", "tiny.serve"])
 def test_faults_fail(base, cell, fault, number):
     result, _ = tiny.run(base, cell, seconds=1.0, fault=fault)
     assert not result["correct"]
     assert number in failed(result)
 
 
-@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads", "tiny.serve"])
 def test_device_engines_pass(tmp_path, cell):
     """The kernels' plain versions on the CPU (the device path's
     arithmetic) held to the reference."""

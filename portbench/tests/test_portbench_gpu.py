@@ -7,7 +7,7 @@ from portbench.tests import tiny
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.serve"])
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads", "tiny.serve"])
 def test_tiny_cell_on_the_card(tmp_path, cell):
     import torch
 

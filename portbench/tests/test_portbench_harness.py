@@ -19,6 +19,7 @@ def base(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell,metric", [("tiny.contig", "polish_windows_per_s"),
+                                         ("tiny.reads", "polish_windows_per_s"),
                                          ("tiny.serve", "served_jobs_per_s")])
 def test_result_line(base, cell, metric):
     result, numbers = tiny.run(base, cell)
@@ -46,6 +47,20 @@ def test_traced_line(base):
     # no device number from a CPU run
     assert not any(n.startswith(("device.", "k1.", "k2.")) for n in names)
     assert all(n.endswith(".serve") for n in names)
+
+
+@pytest.mark.parametrize("cell", ["tiny.contig", "tiny.reads"])
+def test_span_share_readers(base, cell):
+    """The polisher's span shares, from the span totals each run copies;
+    the session engine's fetch is left out where no job ran that engine
+    (the host engines here)."""
+    result, _ = tiny.run(base, cell, trace=1)
+    m = result["metrics"]
+    for name in ("polisher.parse_share", "polisher.overlaps_share",
+                 "polisher.breaking_points_share"):
+        assert 0 < m[f"{name}.polish"]["value"] < 100, name
+        assert m[f"{name}.polish"]["unit"] == "%"
+    assert "poa.fetch_share.polish" not in m
 
 
 def test_new_files_are_found(base):
@@ -80,9 +95,9 @@ def test_window_counts_the_job_in_flight():
     from portbench.drivers import shards
 
     drv = shards.Driver(FakeCtx())
-    drv.shards = [(0, 1), (1, 2)]
+    drv.parts = [(0, (0, 1)), (0, (1, 2))]
 
-    def job(rng):
+    def job(key, rng):
         t0 = time.perf_counter()
         time.sleep(0.12)
         return {"ok": True, "windows": 10, "t0": t0,

@@ -15,6 +15,7 @@ import glob, importlib.util, json, os, sys
 import portbench.run, portbench.check, portbench.reference, portbench.gen
 import portbench.capture, portbench.devtrace, portbench.roofline
 import portbench.drivers.shards, portbench.drivers.served
+import portbench.drivers.fragments, portbench.gen_ava
 for p in sorted(glob.glob(os.path.join("portbench", "metrics", "*.py"))):
     spec = importlib.util.spec_from_file_location("m_" + os.path.basename(p)[:-3], p)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -28,6 +29,7 @@ print(json.dumps(sorted({m.split(".", 1)[0] for m in sys.modules})))
 REFERENCE = """
 import json, sys
 import portbench.reference, portbench.check, portbench.gen
+import portbench.gen_ava
 print(json.dumps(sorted({m.split(".", 1)[0] for m in sys.modules})))
 """
 

@@ -17,9 +17,12 @@ LIMITS = {"bp_excess": 0, "layer_mismatch": 0, "window_mismatch": 0,
 
 
 def copy(tmp_path, device_engines: bool = False) -> str:
-    """portbench/ copied under tmp_path, with two tiny cells: tiny.contig
-    (range shards of a 6 kb contig at 10x) and tiny.serve (three clients
-    against an in-process server, a pool of four 5 kb datasets). The
+    """portbench/ copied under tmp_path, with three tiny cells: tiny.contig
+    (range shards of a 6 kb contig at 10x), tiny.reads (read correction,
+    12,000-base chunks of the same reads, about 8 reads each, against
+    their dual all-vs-all PAF)
+    and tiny.serve (three clients against an in-process server, a pool of
+    four 5 kb datasets). The
     port's host engines run them unless `device_engines` (the kernels'
     plain versions on the CPU: slower)."""
     base = str(tmp_path / "portbench")
@@ -44,6 +47,13 @@ def copy(tmp_path, device_engines: bool = False) -> str:
         "metric": "served_jobs_per_s", "unit": "jobs/s", "suffix": "serve"})
     write(base, "cells", "tiny.contig", {
         "config": "tiny", "traffic": "tinyc", "chips": 1,
+        "check": {"windows": 4, "overlaps": 6, "limits": LIMITS}})
+    write(base, "traffic", "tinyr", {
+        "driver": "fragments", "split_bytes": 12000, "warmup_targets": 3,
+        "min_shared_bp": 500, "metric": "polish_windows_per_s",
+        "unit": "windows/s", "suffix": "polish"})
+    write(base, "cells", "tiny.reads", {
+        "config": "tiny", "traffic": "tinyr", "chips": 1,
         "check": {"windows": 4, "overlaps": 6, "limits": LIMITS}})
     write(base, "cells", "tiny.serve", {
         "config": "tinyl", "traffic": "tinys", "chips": 1,
